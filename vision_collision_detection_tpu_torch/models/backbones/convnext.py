@@ -1,0 +1,188 @@
+"""ConvNeXt tiny/base/large frame backbones (NHWC).
+
+Counterpart of ``vision_collision_detection_tpu/models/backbones/convnext.py``.
+Activations stay NHWC contiguous; the convolutions see them as channels_last
+NCHW views through ``permute``, which copies nothing.
+
+dtype semantics follow flax's ``dtype=`` layers: each layer casts its input
+and its float32 parameters to the compute dtype, written out as explicit
+casts (not ``torch.autocast``, which keeps LayerNorm in float32 and rounds
+elsewhere). LayerNorm statistics are float32; features leave the backbone
+as float32 after the global mean.
+
+Each block keeps the JAX switches: ``dwconv_kernel`` (JAX
+``dwconv_pallas``) runs the depthwise 7×7 through K2 (``ops/dwconv.py``),
+``fused_mlp`` runs LN→MLP→scale→residual through K3
+(``ops/convnext_mlp.py``). ``None`` means the module default, ``True`` for
+both at every stage; with a switch ``False`` the block runs stock PyTorch
+layers, the counterpart of the flax path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vision_collision_detection_tpu_torch.models.backbones import (
+    BACKBONE_REGISTRY,
+)
+from vision_collision_detection_tpu_torch.ops.convnext_mlp import convnext_mlp
+from vision_collision_detection_tpu_torch.ops.dwconv import dwconv7x7
+
+LN_EPS = 1e-6
+DWCONV_KERNEL_DEFAULT = True
+FUSED_MLP_DEFAULT = True
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype)``: float32 statistics and affine,
+    result cast to ``dtype``."""
+    return F.layer_norm(x.to(torch.float32), norm.normalized_shape,
+                        norm.weight, norm.bias, norm.eps).to(dtype)
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype)`` on NHWC ``x``, without padding: callers
+    assert that H and W divide by the stride, where flax's SAME adds none."""
+    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
+                 conv.bias.to(dtype), stride=conv.stride,
+                 padding=conv.padding, groups=conv.groups)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def linear(x: torch.Tensor, fc: nn.Linear, dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``."""
+    return F.linear(x.to(dtype), fc.weight.to(dtype), fc.bias.to(dtype))
+
+
+class DwConv7x7(nn.Module):
+    """Parameters of the K2 path: ``weight`` [49, C] (tap ``dy*7 + dx``
+    major, the kernel's layout) and ``bias`` [C]."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(49, dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int, layer_scale_init: float = 1e-6,
+                 gelu_approximate: bool = False,
+                 dwconv_kernel: Optional[bool] = None,
+                 fused_mlp: Optional[bool] = None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dim = dim
+        self.gelu_approximate = gelu_approximate
+        self.use_dwconv_kernel = (DWCONV_KERNEL_DEFAULT if dwconv_kernel is None
+                                  else bool(dwconv_kernel))
+        self.use_fused_mlp = (FUSED_MLP_DEFAULT if fused_mlp is None
+                              else bool(fused_mlp))
+        self.dtype = dtype
+        if self.use_dwconv_kernel:
+            self.dwconv = DwConv7x7(dim)
+        else:
+            self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.gamma = nn.Parameter(torch.full((dim,), float(layer_scale_init)))
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        shortcut = x
+        if self.use_dwconv_kernel:
+            y = dwconv7x7(x.to(dt).contiguous(), self.dwconv.weight.to(dt),
+                          self.dwconv.bias.to(dt))
+        else:
+            y = conv_nhwc(x, self.dwconv, dt)
+        if self.use_fused_mlp:
+            # The kernel writes its output in the shortcut's dtype, as the
+            # unfused residual add promotes to it.
+            return convnext_mlp(
+                shortcut.contiguous(), y.to(dt).contiguous(),
+                self.norm.weight, self.norm.bias,
+                self.pwconv1.weight.t(), self.pwconv1.bias,
+                self.pwconv2.weight.t(), self.pwconv2.bias, self.gamma,
+                self.gelu_approximate)
+        y = layer_norm(y, self.norm, dt)
+        y = linear(y, self.pwconv1, dt)
+        y = F.gelu(y, approximate="tanh" if self.gelu_approximate else "none")
+        y = linear(y, self.pwconv2, dt)
+        y = y * self.gamma.to(dt)
+        return shortcut + y
+
+
+class ConvNeXt(nn.Module):
+    """NHWC frames [N, H, W, 3] → pooled (and head-normed) features [N, D]
+    in float32. H and W must divide by 4·2^(stages−1)."""
+
+    def __init__(self, depths: Sequence[int], dims: Sequence[int],
+                 apply_head_norm: bool = True, gelu_approximate: bool = False,
+                 dwconv_kernel: Optional[bool] = None,
+                 fused_mlp: Optional[bool] = None, dtype=torch.bfloat16):
+        super().__init__()
+        self.depths = tuple(depths)
+        self.dims = tuple(dims)
+        self.apply_head_norm = apply_head_norm
+        self.dtype = dtype
+        self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
+        self.stem_norm = nn.LayerNorm(dims[0], eps=LN_EPS)
+        for stage, depth in enumerate(self.depths):
+            if stage > 0:
+                self.add_module(f"downsample{stage}_norm",
+                                nn.LayerNorm(dims[stage - 1], eps=LN_EPS))
+                self.add_module(f"downsample{stage}_conv",
+                                nn.Conv2d(dims[stage - 1], dims[stage], 2,
+                                          stride=2))
+            for blk in range(depth):
+                self.add_module(f"stage{stage}_block{blk}", ConvNeXtBlock(
+                    dims[stage], gelu_approximate=gelu_approximate,
+                    dwconv_kernel=dwconv_kernel, fused_mlp=fused_mlp,
+                    dtype=dtype))
+        if apply_head_norm:
+            self.head_norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        H, W = x.shape[1], x.shape[2]
+        div = 4 * 2 ** (len(self.depths) - 1)
+        if H % div or W % div:
+            # flax's SAME padding equals padding=0 only for even division.
+            raise ValueError(
+                f"frame {H}x{W} must divide by {div} for the stem and "
+                "downsample convolutions")
+        x = conv_nhwc(x, self.stem_conv, dt)
+        x = layer_norm(x, self.stem_norm, dt)
+        for stage, depth in enumerate(self.depths):
+            if stage > 0:
+                x = layer_norm(x, getattr(self, f"downsample{stage}_norm"), dt)
+                x = conv_nhwc(x, getattr(self, f"downsample{stage}_conv"), dt)
+            for blk in range(depth):
+                x = getattr(self, f"stage{stage}_block{blk}")(x)
+        # global mean pool: float32 sum, result in the compute dtype
+        x = x.to(torch.float32).mean(dim=(1, 2)).to(dt)
+        if self.apply_head_norm:
+            x = layer_norm(x, self.head_norm, torch.float32)
+        return x.to(torch.float32)
+
+
+@BACKBONE_REGISTRY.register("convnext_tiny")
+def convnext_tiny(dtype=None, **kwargs):
+    return ConvNeXt(depths=(3, 3, 9, 3), dims=(96, 192, 384, 768),
+                    dtype=dtype or torch.bfloat16, **kwargs)
+
+
+@BACKBONE_REGISTRY.register("convnext_base")
+def convnext_base(dtype=None, **kwargs):
+    return ConvNeXt(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024),
+                    dtype=dtype or torch.bfloat16, **kwargs)
+
+
+@BACKBONE_REGISTRY.register("convnext_large")
+def convnext_large(dtype=None, **kwargs):
+    return ConvNeXt(depths=(3, 3, 27, 3), dims=(192, 384, 768, 1536),
+                    dtype=dtype or torch.bfloat16, **kwargs)

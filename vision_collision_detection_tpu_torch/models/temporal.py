@@ -1,0 +1,66 @@
+"""Temporal aggregation heads over per-frame features [B, T, D] → [B, D_out].
+
+Counterpart of ``vision_collision_detection_tpu/models/temporal.py``. Only
+the flagship head is ported so far: the bidirectional GRU. The attention,
+conv, pooling, rnn and lstm heads are queued for the port's later slices
+(see ROADMAP.md, queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+_LATER = ("temporal mode {!r} is not ported yet: the port's first slice "
+          "carries the GRU head only; the others come with a later PR "
+          "(ROADMAP.md, queue 1, item 4)")
+
+
+class TemporalRNN(nn.Module):
+    """GRU over time in float32; the output is the last forward state,
+    concatenated with the first backward state when bidirectional, then
+    ``proj`` and ReLU.
+
+    ``nn.GRU`` computes the same cell as the JAX package's ``_HoistedGRU``:
+    flax's ``hn`` bias sits inside ``r * (...)``, which is torch's
+    ``b_hn``; the ``hr``/``hz`` products have no bias (``b_hr = b_hz = 0``).
+    """
+
+    def __init__(self, dim: int, hidden: int = 256, cell_type: str = "gru",
+                 bidirectional: bool = True):
+        super().__init__()
+        if cell_type != "gru":
+            raise NotImplementedError(_LATER.format(cell_type))
+        self.hidden = hidden
+        self.bidirectional = bidirectional
+        self.gru = nn.GRU(dim, hidden, batch_first=True,
+                          bidirectional=bidirectional)
+        self.proj = nn.Linear(hidden * (2 if bidirectional else 1), hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out, _ = self.gru(x.to(torch.float32))
+        H = self.hidden
+        last = out[:, -1, :H]
+        if self.bidirectional:
+            last = torch.cat([last, out[:, 0, H:]], dim=-1)
+        return F.relu(self.proj(last))
+
+
+def build_temporal_head(mode: str, dim: int, *, hidden: int = 256,
+                        num_heads: int = 4, max_seq_length: int = 30,
+                        bidirectional: bool = True, dropout: float = 0.0):
+    if mode == "gru":
+        return TemporalRNN(dim, hidden=hidden, cell_type=mode,
+                           bidirectional=bidirectional)
+    if mode in ("attention", "conv", "pooling", "rnn", "lstm"):
+        raise NotImplementedError(_LATER.format(mode))
+    raise ValueError(f"unknown temporal mode {mode!r}")
+
+
+def temporal_out_dim(mode: str, dim: int, hidden: int) -> int:
+    if mode in ("attention", "pooling"):
+        return dim
+    if mode in ("conv", "rnn", "lstm", "gru"):
+        return hidden
+    raise ValueError(f"unknown temporal mode {mode!r}")
