@@ -10,17 +10,24 @@ failure:
 
 1. Build the kernels; print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   flagship shapes (K1 at N=200, 126×224 → 224; K2 and K3 at the four
-   ConvNeXt stage shapes, K3 with tanh and erf GELU), random weights with
-   layer-scale γ of order 1, TF32 off for the plain side; then the variants
-   off the main path (K3 at the base/large widths, both kernels on
-   float32 activations) at small shapes.
+   flagship shapes (K1 at N=200, 126×224 → 224 writing bf16 and float32;
+   K2 and K3 at the four ConvNeXt stage shapes, K3 with tanh and erf
+   GELU), random weights with layer-scale γ of order 1, TF32 off for the
+   plain side. K3 is held on its largest and its mean error, and faulty
+   plain versions (γ off by 1%, b2 dropped, the other GELU form) must land
+   outside those tolerances. Then the variants off the main path (K3 at
+   the base/large widths, K2 and K3 on float32 activations) at small
+   shapes.
 3. Run the serving forward (``CollisionPredictor`` with the default
    ``ExperimentConfig``: convnext_tiny + bi-GRU, seeded weights with γ
-   re-drawn of order 1) on a seeded uint8 batch [8, 25, 126, 224, 3]
-   through ``_make_forward(folded_stride=True)``. Check the probabilities,
-   that K1 launched once and K2 and K3 18 times each, and that the result
-   matches the same forward with every kernel swapped for its plain version.
+   re-drawn of order 1, biases and LayerNorms redrawn, and ``fc_out``
+   scaled so the probabilities spread) on a seeded uint8 batch
+   [8, 25, 126, 224, 3], each clip of its own level and contrast, through
+   ``_make_forward(folded_stride=True)``. Check the probabilities and their
+   spread across clips, that K1 launched once and K2 and K3 18 times each,
+   and that the result matches the same forward with every kernel swapped
+   for its plain version; then that the plain forward with a dropped K2 or
+   K3 bias lands outside that tolerance (smaller faults are reported).
 4. Time each kernel, its plain version, cuDNN's depthwise conv beside K2
    (``library_ms``), the stock LN→Linear→GELU→Linear chain beside K3 (for
    information; it is not one call), and the whole forward (both kernels,
@@ -54,6 +61,8 @@ N_FRAMES = 200                 # B=8 clips × 25 folded frames
 CONTENT = (126, 224)           # 16:9 source letterboxed into 224²
 S = 224
 STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))  # (H=W, C, blocks)
+LOGIT_SCALE = 10.0             # fc_out weights × this in the serving forward
+SPREAD_MIN = 0.05              # least spread of one class's probability across clips
 
 
 def log(*a):
@@ -159,6 +168,22 @@ def k3_params(torch, C, g, dev):
                 b2=n(C, std=0.1), gamma=u(C))
 
 
+def mean_err(torch, a, b):
+    return float((a.float() - b.float()).abs().mean())
+
+
+# Faults a K3 could have, written as changes to what its plain version is
+# given: (parameters, approximate) → (parameters, approximate). A check has
+# power where the fault lands outside its tolerance and the kernel inside.
+K3_ARGS = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
+K3_FAULTS = {
+    "gamma_1pct": lambda p, ap: (dict(p, gamma=p["gamma"] * 1.01), ap),
+    "b2_dropped": lambda p, ap: (dict(p, b2=p["b2"] * 0), ap),
+    # tanh for erf: less than a bf16 ulp of h apart, but in every row
+    "gelu_form": lambda p, ap: (p, not ap),
+}
+
+
 def compare_kernels(torch, dev):
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
         convnext_mlp, convnext_mlp_plain)
@@ -168,26 +193,34 @@ def compare_kernels(torch, dev):
         dwconv7x7, dwconv7x7_plain)
 
     g = torch.Generator().manual_seed(1)
-    rows, failed = [], []
+    rows, faults, failed = [], [], []
     inputs = {}
 
-    def record(name, shape, err, tol):
-        ok = err <= tol
+    def record(name, shape, err, tol, mean=None, mean_tol=None):
+        ok = err <= tol and (mean is None or mean <= mean_tol)
         rows.append({"kernel": name, "shape": shape, "max_abs_err": err,
-                     "tol": tol, "ok": ok})
+                     "tol": tol, "mean_abs_err": mean, "mean_tol": mean_tol,
+                     "ok": ok})
+        extra = "" if mean is None else (
+            f", mean_abs_err {mean:.3e} (tol {mean_tol:.3e})")
         log(f"[compare] {name} {shape}: max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}) {'ok' if ok else 'FAIL'}")
+            f"(tol {tol:.3e}){extra} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"{name} {shape}")
 
     mean, std = (0.45,) * 3, (0.225,) * 3
     u8 = torch.randint(0, 256, (N_FRAMES, *CONTENT, 3), generator=g,
                        dtype=torch.uint8).to(dev)
-    got = dequant_normalize_pad(u8, S, mean, std)
-    ref = dequant_normalize_pad_plain(u8, S, mean, std)
-    torch.cuda.synchronize()
-    # the same float32 formula, product rounded before the sum: bit-equal
-    record("K1", [N_FRAMES, *CONTENT, 3], max_err(torch, got, ref), 0.0)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = dequant_normalize_pad(u8, S, mean, std, out_dtype)
+        ref = dequant_normalize_pad_plain(u8, S, mean, std, out_dtype)
+        torch.cuda.synchronize()
+        if got.dtype != out_dtype:
+            raise SystemExit(f"K1 wrote {got.dtype}, asked for {out_dtype}")
+        # the same float32 formula, product rounded before the sum, one
+        # rounding to the output dtype: bit-equal
+        name = "K1" if out_dtype == torch.bfloat16 else "K1 float32"
+        record(name, [N_FRAMES, *CONTENT, 3], max_err(torch, got, ref), 0.0)
     inputs["K1"] = (u8, mean, std)
 
     for H, C, _ in STAGES:
@@ -210,14 +243,32 @@ def compare_kernels(torch, dev):
             ref = convnext_mlp_plain(xs, x, approximate=approximate, **p)
             torch.cuda.synchronize()
             # bf16 roundings of t and h_pre can flip by 1 ulp where the
-            # float32 sums differ in order; 2 ulps at the largest output
+            # float32 sums differ in order; 2 ulps at the largest output.
+            # Such flips are rare, so the mean error stays under 2^-12 of
+            # the mean |output|, where a fault in every row would not.
             tol = float(ref.float().abs().max()) * 2 ** -6
+            mean_tol = float(ref.float().abs().mean()) * 2 ** -12
             record(f"K3 approximate={approximate}", [N_FRAMES, H, H, C],
-                   max_err(torch, got, ref), tol)
+                   max_err(torch, got, ref), tol,
+                   mean_err(torch, got, ref), mean_tol)
+        # ref, tol and mean_tol are those of approximate=False
+        for fault, change in K3_FAULTS.items():
+            fp, fap = change(p, False)
+            bad = convnext_mlp_plain(xs, x, approximate=fap, **fp)
+            err, mean = max_err(torch, bad, ref), mean_err(torch, bad, ref)
+            seen = err > tol or mean > mean_tol
+            faults.append({"fault": fault, "shape": [N_FRAMES, H, H, C],
+                           "max_abs_err": err, "mean_abs_err": mean,
+                           "seen": seen})
+            log(f"[compare] K3 with fault {fault} {[N_FRAMES, H, H, C]}: "
+                f"max_abs_err {err:.3e}, mean_abs_err {mean:.3e}: "
+                f"{'seen' if seen else 'NOT seen'}")
+            if not seen:
+                failed.append(f"K3 fault {fault} not seen at C={C}")
         inputs[("K3", C)] = (xs, x, p)
 
     # The other compiled variants, off the main path: K3 at the convnext
-    # base/large widths, and both kernels on float32 activations. A row
+    # base/large widths, and K2 and K3 on float32 activations. A row
     # count that is no multiple of any block's rows exercises the tail.
     rows_off = 2000
     for C in (128, 256, 512, 1024, 1536):
@@ -250,7 +301,7 @@ def compare_kernels(torch, dev):
            float(ref.abs().max()) * 2 ** -16)
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
-    return {"rows": rows, "inputs": inputs}
+    return {"rows": rows, "faults": faults, "inputs": inputs}
 
 
 # ---- 3. serving forward ------------------------------------------------
@@ -267,13 +318,25 @@ def serving_forward(torch, dev):
     pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
     g = torch.Generator().manual_seed(2)
     with torch.no_grad():
+        # Every bias and LayerNorm redrawn, as the CPU tests do, so that a
+        # kernel that dropped one would show: biases N(0, 0.1²), LayerNorm
+        # scales 1 + N(0, 0.1²).
+        for name, p in pred.model.named_parameters():
+            if name.endswith("bias") and p.dim() == 1:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
         for m in pred.model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.1)
             if isinstance(m, convnext.ConvNeXtBlock):
                 # γ of order 1: the init 1e-6 makes each block an identity
                 m.gamma.copy_(torch.rand(m.dim, generator=g) + 0.5)
+        # spread the logits so the probabilities are far from uniform
+        pred.model.fc_out.weight.mul_(LOGIT_SCALE)
     T = cfg.data.num_frames // pred._fold_stride()
-    frames = torch.randint(0, 256, (8, T, *CONTENT, 3), generator=g,
-                           dtype=torch.uint8)
+    # noise of another level and contrast in each clip, so the clips differ
+    frames = torch.stack([
+        torch.randint(12 * i, 256 - 16 * i, (T, *CONTENT, 3), generator=g,
+                      dtype=torch.uint8) for i in range(8)])
     forward = pred._make_forward(folded_stride=True)
     frames_dev = frames.to(dev)
     torch.cuda.synchronize()
@@ -297,30 +360,65 @@ def serving_forward(torch, dev):
     if row_err > 1e-5:
         raise SystemExit(f"probability rows do not sum to 1 ({row_err})")
 
-    # The same forward with every kernel swapped for its plain version.
-    swaps = [(convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
-             (convnext, "convnext_mlp", convnext_mlp.convnext_mlp_plain),
-             (preprocess, "dequant_normalize_pad",
-              dequant_pad.dequant_normalize_pad_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        ref = pred._make_forward(True)(frames_dev)
-        torch.cuda.synchronize()
-    finally:
-        for mod, name, fn in saved:
+    spread = {"min": float(probs.min()), "max": float(probs.max()),
+              "across_clips": float((probs.max(0).values
+                                     - probs.min(0).values).max())}
+    log(f"[serve] probabilities span {spread['min']:.4f}..{spread['max']:.4f}; "
+        f"largest spread of one class across clips {spread['across_clips']:.4f}")
+    if spread["across_clips"] < SPREAD_MIN:
+        raise SystemExit(f"probabilities too alike to test with ({spread})")
+
+    def plain_forward(mlp=convnext_mlp.convnext_mlp_plain,
+                      dw=dwconv.dwconv7x7_plain):
+        """The same forward with every kernel swapped for its plain version
+        (``mlp`` in place of K3, ``dw`` in place of K2)."""
+        swaps = [(convnext, "dwconv7x7", dw),
+                 (convnext, "convnext_mlp", mlp),
+                 (preprocess, "dequant_normalize_pad",
+                  dequant_pad.dequant_normalize_pad_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
             setattr(mod, name, fn)
-    err = max_err(torch, probs, ref)
+        try:
+            out = pred._make_forward(True)(frames_dev)
+            torch.cuda.synchronize()
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        return out
+
+    err = max_err(torch, probs, plain_forward())
     # bf16 activations through 18 blocks: 1-ulp flips between kernel and
     # plain sums propagate; probabilities must agree to 2e-2 absolute
     tol = 2e-2
     log(f"[serve] kernels vs plain: max |Δprob| {err:.3e} (tol {tol:.0e})")
     if not err <= tol:
         raise SystemExit("serving forward disagrees with its plain version")
+
+    # The check's power: the plain forward with one fault in every block.
+    # A dropped bias must land outside the tolerance; the smaller faults
+    # are reported (phase 2's mean error sees them).
+    def k3_with(change):
+        def mlp(x, y, *args):
+            p, ap = change(dict(zip(K3_ARGS, args[:7])), args[7])
+            return convnext_mlp.convnext_mlp_plain(x, y, approximate=ap, **p)
+        return mlp
+
+    power = {name: max_err(torch, probs, plain_forward(mlp=k3_with(change)))
+             for name, change in K3_FAULTS.items()}
+    power["dwconv_bias_dropped"] = max_err(torch, probs, plain_forward(
+        dw=lambda x, w, b: dwconv.dwconv7x7_plain(x, w, b * 0)))
+    required = ("b2_dropped", "dwconv_bias_dropped")
+    for name, v in power.items():
+        log(f"[serve] with fault {name}: max |Δprob| {v:.3e} "
+            f"({'must exceed' if name in required else 'beside'} tol "
+            f"{tol:.0e})")
+    if not all(power[name] > tol for name in required):
+        raise SystemExit(f"the tolerance does not see a dropped bias: {power}")
     return {"pred": pred, "forward": forward, "frames": frames_dev,
             "summary": {"launches": launches, "probs": probs.tolist(),
                         "max_abs_err_vs_plain": err, "tol": tol,
+                        "spread": spread, "faults_max_abs_err": power,
                         "row_sum_err": row_err}}
 
 

@@ -59,6 +59,57 @@ def test_k1_wrapper_on_cpu_takes_plain_version():
     assert torch.all(out[:, :7] == bar) and torch.all(out[:, 25:] == bar)
 
 
+def test_k1_plain_float32_matches_pallas():
+    u8 = np.random.default_rng(4).integers(0, 256, (2, 126, 224, 3),
+                                           dtype=np.uint8)
+    ref = np.asarray(fused_dequant_normalize_pad(
+        jnp.asarray(u8), 224, MEAN, STD, out_dtype=jnp.float32,
+        interpret=True))
+    got = k1.dequant_normalize_pad(torch.from_numpy(u8), 224, MEAN, STD,
+                                   torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (2, 224, 224, 3)
+    # tolerance: the same float32 formula; XLA may fuse x·a + b into one
+    # rounding, 1 float32 ulp at |y| < 4 is 4.8e-7
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=5e-7)
+
+
+def test_k1_kernel_path_rejects_an_out_dtype_it_does_not_write():
+    # a tensor off the CPU takes the kernel path, which checks before launch
+    u8 = torch.empty(2, 18, 32, 3, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        k1.dequant_normalize_pad(u8, 32, MEAN, STD, torch.float16)
+
+
+@pytest.mark.parametrize("use_kernel", ["force", "never"])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_eval_preprocess_matches_jax(use_kernel, out_dtype):
+    from vision_collision_detection_tpu.config import AugmentConfig as JaxAug
+    from vision_collision_detection_tpu.ops.preprocess import (
+        eval_preprocess as jax_eval_preprocess,
+    )
+    from vision_collision_detection_tpu_torch.config import AugmentConfig
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        eval_preprocess,
+    )
+
+    u8 = np.random.default_rng(5).integers(0, 256, (2, 3, 18, 32, 3),
+                                           dtype=np.uint8)
+    ref = np.asarray(jax_eval_preprocess(
+        jnp.asarray(u8), JaxAug(), 32, getattr(jnp, out_dtype),
+        use_pallas=use_kernel)).astype(np.float32)
+    got = eval_preprocess(torch.from_numpy(u8), AugmentConfig(), 32,
+                          getattr(torch, out_dtype), use_kernel=use_kernel)
+    assert got.dtype == getattr(torch, out_dtype)
+    assert got.shape == ref.shape == (2, 3, 32, 32, 3)
+    # tolerance: the same formula in float32 on both sides (the resize of
+    # content that is already S wide keeps it), then one rounding to the
+    # output dtype: 1 bf16 ulp, or 1e-6 in float32
+    if out_dtype == "bfloat16":
+        assert np.all(np.abs(_np(got) - ref) <= bf16_ulp(ref))
+    else:
+        np.testing.assert_allclose(_np(got), ref, rtol=0, atol=1e-6)
+
+
 def test_k1_rejects_oversized_content():
     with pytest.raises(ValueError):
         k1.dequant_normalize_pad(torch.zeros(1, 40, 32, 3, dtype=torch.uint8),

@@ -85,9 +85,17 @@ def test_fold_stride_and_display(capsys):
     assert pred._fold_stride() == 2
     assert pred._make_forward(True) is pred._make_forward(True)
     assert pred.model.frame_subsample == 2
-    results = pred.predict_frames(_frames(25, seed=3))
-    assert len(results) == 2 and results[0]["success"]
+    probs = pred._make_forward(True)(_frames(25, seed=3)).numpy()
+    assert probs.shape == (2, 3)
+    results = [{
+        "id": str(i), "success": True,
+        "predicted_class": pred.class_names[int(p.argmax())],
+        "confidence": float(p.max()),
+        "probabilities": dict(zip(pred.class_names, map(float, p))),
+    } for i, p in enumerate(probs)]
+    results.append({"id": "bad", "success": False, "error": "decode"})
     text = pred.display_results(results)
+    assert "bad: ERROR (decode)" in text
     assert "Near Collision" in text and "%" in capsys.readouterr().out
 
 

@@ -16,7 +16,6 @@ import copy
 import os
 from typing import Dict, List, Mapping, Optional
 
-import numpy as np
 import torch
 
 from vision_collision_detection_tpu_torch.config import ExperimentConfig
@@ -77,23 +76,6 @@ class CollisionPredictor:
         if m.frame_subsample > 1 and T > m.subsample_threshold:
             return m.frame_subsample
         return 1
-
-    def predict_frames(self, frames_u8) -> List[Dict]:
-        """One result dict per clip of a decoded uint8 content batch
-        [B, T', ch, cw, 3], where T' is the folded frame count."""
-        forward = self._make_forward(self._fold_stride() > 1)
-        probs = forward(frames_u8).cpu().numpy()
-        results = []
-        for i, p in enumerate(probs):
-            k = int(np.argmax(p))
-            results.append({
-                "id": str(i), "success": True,
-                "predicted_class": self.class_names[k],
-                "predicted_label": k, "confidence": float(p[k]),
-                "probabilities": {name: float(p[j])
-                                  for j, name in enumerate(self.class_names)},
-            })
-        return results
 
     @staticmethod
     def display_results(results: List[Dict], width: int = 40) -> str:

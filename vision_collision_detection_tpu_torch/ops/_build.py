@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry → argument types (pointers and the stream as void*).
 _SIGNATURES = {
-    "vcd_dequant_pad": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    "vcd_dequant_pad": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I,
+                        _P],
     "vcd_dwconv7x7": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
 }

@@ -30,10 +30,10 @@ def eval_preprocess(frames_u8: torch.Tensor, cfg: AugmentConfig,
                     use_kernel: str = "auto") -> torch.Tensor:
     """uint8 [..., H, W, 3] → normalised [..., S, S, 3] in ``out_dtype``.
 
-    use_kernel: "auto" runs K1 for a content-sized uint8 CUDA tensor with a
-    bf16 output; "force" runs ``dequant_normalize_pad`` whenever the input
-    is content-sized (its plain version on a CPU tensor); "never" takes the
-    letterbox-resize path below.
+    use_kernel: "auto" runs K1 for a content-sized uint8 CUDA tensor (K1
+    raises for an ``out_dtype`` it does not write); "force" runs
+    ``dequant_normalize_pad`` whenever the input is content-sized (its plain
+    version on a CPU tensor); "never" takes the letterbox-resize path below.
     """
     if use_kernel not in USE_KERNEL:
         raise ValueError(f"use_kernel {use_kernel!r} not in {USE_KERNEL}")
@@ -43,12 +43,13 @@ def eval_preprocess(frames_u8: torch.Tensor, cfg: AugmentConfig,
         and h <= target_size and w <= target_size
         and (h == target_size or w == target_size)
     )
-    use = content_sized and out_dtype == torch.bfloat16 and (
+    use = content_sized and (
         use_kernel == "force"
         or (use_kernel == "auto" and frames_u8.is_cuda))
     if use:
         return dequant_normalize_pad(frames_u8, target_size,
-                                     cfg.normalize_mean, cfg.normalize_std)
+                                     cfg.normalize_mean, cfg.normalize_std,
+                                     out_dtype)
     x = frames_u8.to(torch.float32) / 255.0
     x = letterbox_resize(x, target_size)
     x = normalize_video(x, cfg.normalize_mean, cfg.normalize_std)
