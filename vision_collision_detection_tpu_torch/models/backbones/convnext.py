@@ -16,6 +16,12 @@ Each block keeps the JAX switches: ``dwconv_kernel`` (JAX
 (``ops/convnext_mlp.py``). ``None`` means the module default, ``True`` for
 both at every stage; with a switch ``False`` the block runs stock PyTorch
 layers, the counterpart of the flax path.
+
+Stochastic depth follows the flax block: ``drop_path_rate`` per block on
+the linear schedule over the blocks, active only in training
+(``self.training``, flax's ``train``), where the block takes the unfused
+path and drops whole samples of its residual branch with a mask drawn from
+the ``generator`` the caller passes in.
 """
 
 from __future__ import annotations
@@ -70,12 +76,14 @@ class DwConv7x7(nn.Module):
 
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
+                 drop_path_rate: float = 0.0,
                  gelu_approximate: bool = False,
                  dwconv_kernel: Optional[bool] = None,
                  fused_mlp: Optional[bool] = None,
                  dtype=torch.bfloat16):
         super().__init__()
         self.dim = dim
+        self.drop_path_rate = float(drop_path_rate)
         self.gelu_approximate = gelu_approximate
         self.use_dwconv_kernel = (DWCONV_KERNEL_DEFAULT if dwconv_kernel is None
                                   else bool(dwconv_kernel))
@@ -91,7 +99,8 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv1 = nn.Linear(dim, 4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         shortcut = x
         if self.use_dwconv_kernel:
@@ -99,7 +108,8 @@ class ConvNeXtBlock(nn.Module):
                           self.dwconv.bias.to(dt))
         else:
             y = conv_nhwc(x, self.dwconv, dt)
-        if self.use_fused_mlp:
+        drop_path_active = self.training and self.drop_path_rate > 0.0
+        if self.use_fused_mlp and not drop_path_active:
             # The kernel writes its output in the shortcut's dtype, as the
             # unfused residual add promotes to it.
             return convnext_mlp(
@@ -113,6 +123,15 @@ class ConvNeXtBlock(nn.Module):
         y = F.gelu(y, approximate="tanh" if self.gelu_approximate else "none")
         y = linear(y, self.pwconv2, dt)
         y = y * self.gamma.to(dt)
+        if drop_path_active:
+            if generator is None:
+                raise ValueError("drop-path in training draws its mask from "
+                                 "a generator; pass generator=")
+            keep = 1.0 - self.drop_path_rate
+            mask = torch.bernoulli(
+                torch.full((y.shape[0], 1, 1, 1), keep, device=y.device),
+                generator=generator)
+            y = torch.where(mask.bool(), y / keep, torch.zeros_like(y)).to(dt)
         return shortcut + y
 
 
@@ -121,6 +140,7 @@ class ConvNeXt(nn.Module):
     in float32. H and W must divide by 4·2^(stages−1)."""
 
     def __init__(self, depths: Sequence[int], dims: Sequence[int],
+                 drop_path_rate: float = 0.0,
                  apply_head_norm: bool = True, gelu_approximate: bool = False,
                  dwconv_kernel: Optional[bool] = None,
                  fused_mlp: Optional[bool] = None, dtype=torch.bfloat16):
@@ -131,6 +151,8 @@ class ConvNeXt(nn.Module):
         self.dtype = dtype
         self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
         self.stem_norm = nn.LayerNorm(dims[0], eps=LN_EPS)
+        total_blocks = sum(self.depths)
+        block_idx = 0
         for stage, depth in enumerate(self.depths):
             if stage > 0:
                 self.add_module(f"downsample{stage}_norm",
@@ -139,14 +161,19 @@ class ConvNeXt(nn.Module):
                                 nn.Conv2d(dims[stage - 1], dims[stage], 2,
                                           stride=2))
             for blk in range(depth):
+                dp = drop_path_rate * block_idx / max(total_blocks - 1, 1)
                 self.add_module(f"stage{stage}_block{blk}", ConvNeXtBlock(
-                    dims[stage], gelu_approximate=gelu_approximate,
+                    dims[stage], drop_path_rate=dp,
+                    gelu_approximate=gelu_approximate,
                     dwconv_kernel=dwconv_kernel, fused_mlp=fused_mlp,
                     dtype=dtype))
+                block_idx += 1
         if apply_head_norm:
             self.head_norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the drop-path masks' source in training."""
         dt = self.dtype
         H, W = x.shape[1], x.shape[2]
         div = 4 * 2 ** (len(self.depths) - 1)
@@ -162,7 +189,7 @@ class ConvNeXt(nn.Module):
                 x = layer_norm(x, getattr(self, f"downsample{stage}_norm"), dt)
                 x = conv_nhwc(x, getattr(self, f"downsample{stage}_conv"), dt)
             for blk in range(depth):
-                x = getattr(self, f"stage{stage}_block{blk}")(x)
+                x = getattr(self, f"stage{stage}_block{blk}")(x, generator)
         # global mean pool: float32 sum, result in the compute dtype
         x = x.to(torch.float32).mean(dim=(1, 2)).to(dt)
         if self.apply_head_norm:

@@ -25,6 +25,8 @@ class TemporalRNN(nn.Module):
     ``nn.GRU`` computes the same cell as the JAX package's ``_HoistedGRU``:
     flax's ``hn`` bias sits inside ``r * (...)``, which is torch's
     ``b_hn``; the ``hr``/``hz`` products have no bias (``b_hr = b_hz = 0``).
+    Those two have no flax counterpart, so training keeps them at zero: a
+    hook drops their part of ``bias_hh``'s gradient.
     """
 
     def __init__(self, dim: int, hidden: int = 256, cell_type: str = "gru",
@@ -37,6 +39,9 @@ class TemporalRNN(nn.Module):
         self.gru = nn.GRU(dim, hidden, batch_first=True,
                           bidirectional=bidirectional)
         self.proj = nn.Linear(hidden * (2 if bidirectional else 1), hidden)
+        for name, p in self.gru.named_parameters():
+            if name.startswith("bias_hh"):
+                p.register_hook(_hn_bias_only)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out, _ = self.gru(x.to(torch.float32))
@@ -45,6 +50,13 @@ class TemporalRNN(nn.Module):
         if self.bidirectional:
             last = torch.cat([last, out[:, 0, H:]], dim=-1)
         return F.relu(self.proj(last))
+
+
+def _hn_bias_only(grad: torch.Tensor) -> torch.Tensor:
+    """``bias_hh``'s gradient [b_hr, b_hz, b_hn] with the r and z parts
+    zeroed."""
+    n = grad.shape[0] // 3
+    return torch.cat([torch.zeros_like(grad[:2 * n]), grad[2 * n:]])
 
 
 def build_temporal_head(mode: str, dim: int, *, hidden: int = 256,

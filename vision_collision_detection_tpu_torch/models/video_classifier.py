@@ -5,11 +5,17 @@ layout auto-detect, every k-th frame when T exceeds a threshold, B·T frames
 through the backbone as one batch, the temporal head, then the classifier
 MLP feat → 512 → 256 → num_classes. ``fc1``/``fc2`` run in the compute dtype,
 ``fc_out`` in float32, as the flax model does.
+
+In training (``self.training``, flax's ``train``) the two classifier
+dropouts (flax ``drop1``, ``drop2``) and the backbone's drop-path draw their
+masks from the ``generator`` passed to ``forward``, never from the global
+RNG.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -75,28 +81,46 @@ class VideoClassifierModel(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, hidden_dim // 2)
         self.fc_out = nn.Linear(hidden_dim // 2, num_classes)
 
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, h: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """flax ``nn.Dropout``: kept values scaled by 1/keep, in h's dtype."""
+        if not self.training or self.dropout == 0.0:
+            return h
+        if generator is None:
+            raise ValueError("dropout in training draws its masks from a "
+                             "generator; pass generator=")
+        keep = 1.0 - self.dropout
+        mask = torch.bernoulli(torch.full(h.shape, keep, device=h.device),
+                               generator=generator)
+        return torch.where(mask.bool(), h / keep, torch.zeros_like(h))
+
+    def forward(self, frames: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the source of the dropout and drop-path masks in
+        training, on the frames' device."""
         x = canonicalize_video_layout(frames)
         B, T = x.shape[0], x.shape[1]
         if T > self.subsample_threshold and self.frame_subsample > 1:
             x = x[:, :: self.frame_subsample]
             T = x.shape[1]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
-        feats = self.backbone(flat)  # [B·T, D] float32
+        feats = self.backbone(flat, generator)  # [B·T, D] float32
         pooled = self.temporal(feats.reshape(B, T, -1))  # [B, D_out] float32
         dt = self.dtype
         h = F.relu(linear(pooled, self.fc1, dt))
-        h = F.dropout(h, self.dropout, self.training)
+        h = self._dropout(h, generator)
         h = F.relu(linear(h, self.fc2, dt))
-        h = F.dropout(h, self.dropout, self.training)
+        h = self._dropout(h, generator)
         return linear(h, self.fc_out, torch.float32)
 
 
 def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
-                fused_mlp=None) -> VideoClassifierModel:
+                fused_mlp=None,
+                generator: Optional[torch.Generator] = None
+                ) -> VideoClassifierModel:
     """The model of ``cfg`` on ``device`` (default: the card), in eval mode,
-    with weights drawn by ``init_weights`` from a ``torch.Generator``
-    seeded 0."""
+    with weights drawn by ``init_weights`` from ``generator`` (a CPU
+    ``torch.Generator``; default: one seeded 0)."""
     if cfg.backbone.startswith("vivit"):
         raise NotImplementedError(
             "ViViT is not ported yet (ROADMAP.md, queue 1, item 15)")
@@ -113,7 +137,8 @@ def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
         gelu_approximate=cfg.gelu_approximate,
         dtype=getattr(torch, cfg.dtype), dwconv_kernel=dwconv_kernel,
         fused_mlp=fused_mlp)
-    init_weights(model, torch.Generator().manual_seed(0))
+    init_weights(model, generator if generator is not None
+                 else torch.Generator().manual_seed(0))
     return model.to(dev).eval()
 
 

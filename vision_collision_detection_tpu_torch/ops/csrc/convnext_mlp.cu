@@ -1,17 +1,24 @@
-// K3: the ConvNeXt block after the depthwise conv, fused, inference only:
+// K3: the ConvNeXt block after the depthwise conv, fused:
 //   out = x + gamma * (GELU(LN(y) @ W1 + b1) @ W2 + b2)
 // LN: eps 1e-6, float32 statistics (two passes), t = LN(y) rounded to bf16.
 // Products on bf16 with float32 accumulation; h_pre = t @ W1 + b1 rounded
 // to bf16, GELU (tanh or erf) in float32, rounded to bf16; the residual is
 // added in float32 and cast to x's dtype.
 //
-// Replaces the TPU kernel
-// vision_collision_detection_tpu/ops/convnext_mlp_pallas.py
-// `convnext_mlp_block` -> `_call` (`_eval_kernel`, math `_ln_mlp`).
+// Two variants of one template body. The eval variant replaces the TPU
+// kernel vision_collision_detection_tpu/ops/convnext_mlp_pallas.py
+// `convnext_mlp_block` -> `_call` (`_eval_kernel`, math `_ln_mlp`). The
+// train variant replaces `_fwd` -> `_call` (`_train_kernel`): the same out,
+// and it also writes the tensors the backward needs, all bf16:
+// t = LN(y) [M, C], h_pre = t @ W1 + b1 [M, 4C] and m = h @ W2 + b2 [M, C].
+// out uses the float32 m; only the saved copy is rounded.
 //
-// Bound on the H100: operations. 16*C^2 flops per row against 6*C bytes
-// (bf16 x, y in, out) is 2.7*C flops/byte: 256 at C=96, about the card's
-// ~295 ridge, and above it at every later stage.
+// Bound on the H100. Eval: operations. 16*C^2 flops per row against 6*C
+// bytes (bf16 x, y in, out) is 2.7*C flops/byte: 256 at C=96, about the
+// card's ~295 ridge, and above it at every later stage. Train: the same
+// flops against 18*C bytes per row (x, y, out, t and m at 2*C each, h_pre
+// at 8*C), 0.9*C flops/byte: bytes at C <= 192, operations above; over the
+// flagship's 18 blocks the bytes dominate.
 //
 // Design. One block of 8 to 16 warps takes BM rows (64 up to C=384, 48 at
 // C=768, 32 or 16 above), so the float32 [BM, C] product of the second
@@ -33,7 +40,10 @@
 // the same way, into t, and are normalised there; at the end the float32
 // product goes through shared memory so that x is read and out written 16
 // bytes at a time. Row strides carry 16 bytes of skew, so the eight rows an
-// ldmatrix reads fall in distinct banks.
+// ldmatrix reads fall in distinct banks. The train variant writes t from
+// shared memory once it is normalised, stages each rounded h_pre chunk in
+// shared memory (before GELU) and writes it with 16-byte stores while the
+// second product runs, and writes m beside out in the epilogue.
 #include <type_traits>
 
 #include "common.cuh"
@@ -98,11 +108,17 @@ struct Plan {
   static constexpr int H_OFF =
       HS_OFF + (KS1 > 1 ? align128(KS1 * BM * LDH * 4) : 0);
   static constexpr int SMEM = H_OFF + align128(BM * LDHB * 2);
+  // the train variant's staged h_pre chunk, [BM][LDHB] bf16, after h
+  static constexpr int HP_OFF = SMEM;
+  static constexpr int SMEM_TRAIN = HP_OFF + align128(BM * LDHB * 2);
   static constexpr int LDO = C + 4;        // float32 output tile stride
   // Two blocks of 8 warps share an SM where their shared memory (and 1 KB
   // reserved for each) fits in its 228 KB; registers are then capped at 128.
-  static constexpr int MIN_BLOCKS =
-      WARPS == 8 && 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static constexpr int min_blocks(int smem) {
+    return WARPS == 8 && 2 * (smem + 1024) <= 233472 ? 2 : 1;
+  }
+  static constexpr int MIN_BLOCKS = min_blocks(SMEM);
+  static constexpr int MIN_BLOCKS_TRAIN = min_blocks(SMEM_TRAIN);
 
   static_assert(BM % 16 == 0 && C % 16 == 0 && NC % 16 == 0, "tiles");
   static_assert(HID % NC == 0, "chunks");
@@ -113,7 +129,7 @@ struct Plan {
   // the accumulators take at most 60% of a thread's share of registers
   static_assert(R2 * Q2 * 8 * 5 <= 3 * (65536 / THREADS),
                 "accumulator registers per thread");
-  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(SMEM_TRAIN <= 232448, "shared memory");
   static_assert(BM * LDO * 4 <= HS_OFF, "output tile over t, W1s, W2s");
   static_assert(C % 32 == 0 && CF % (2 * KS1) == 0, "LN lanes, K pairs");
 };
@@ -243,15 +259,24 @@ struct Vec8<float> {
   }
 };
 
-template <int C, typename TX>
-__global__ void __launch_bounds__(Plan<C>::THREADS, Plan<C>::MIN_BLOCKS)
+// The saved tensors of the train variant (null in the eval variant).
+struct Saved {
+  bf16* t;      // [M, C]
+  bf16* h_pre;  // [M, 4C]
+  bf16* m;      // [M, C]
+};
+
+template <int C, typename TX, bool TRAIN>
+__global__ void __launch_bounds__(Plan<C>::THREADS,
+                                  TRAIN ? Plan<C>::MIN_BLOCKS_TRAIN
+                                        : Plan<C>::MIN_BLOCKS)
 convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
                     const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b,
                     const bf16* __restrict__ w1, const float* __restrict__ b1,
                     const bf16* __restrict__ w2, const float* __restrict__ b2,
                     const float* __restrict__ gamma, TX* __restrict__ out,
-                    int M, int approximate) {
+                    Saved saved, int M, int approximate) {
   using L = Plan<C>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* t = reinterpret_cast<bf16*>(smem + L::T_OFF);
@@ -259,6 +284,7 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
   bf16* w2s = reinterpret_cast<bf16*>(smem + L::W2_OFF);
   float* hs = reinterpret_cast<float*>(smem + L::HS_OFF);
   bf16* h = reinterpret_cast<bf16*>(smem + L::H_OFF);
+  bf16* hp = reinterpret_cast<bf16*>(smem + L::HP_OFF);  // train only
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -313,6 +339,17 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
     for (int i = 0; i < C / 32; ++i) {
       const int c = lane + 32 * i;
       trow[c] = __float2bfloat16_rn((v[i] - mu) * rstd * ln_w[c] + ln_b[c]);
+    }
+  }
+  if constexpr (TRAIN) {
+    // t is complete: write the block's rows of it, 16 bytes at a time
+    __syncthreads();
+    constexpr int VR = C / 8;
+    for (int i = threadIdx.x; i < L::BM * VR; i += L::THREADS) {
+      const int r = i / VR, v = i % VR;
+      if (row0 + r < M)
+        *reinterpret_cast<uint4*>(saved.t + (row0 + r) * C + v * 8) =
+            *reinterpret_cast<const uint4*>(t + r * L::LDT + v * 8);
     }
   }
 
@@ -393,6 +430,9 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
                 hacc[0][a][n][2 * half + 1] + hacc[1][a][n][2 * half + 1];
             const float h0 = __bfloat162float(__float2bfloat16_rn(p0 + bias0));
             const float h1 = __bfloat162float(__float2bfloat16_rn(p1 + bias1));
+            if constexpr (TRAIN)
+              *reinterpret_cast<__nv_bfloat162*>(hp + (r + 8 * half) * L::LDHB +
+                                                 c) = __floats2bfloat162_rn(h0, h1);
             *reinterpret_cast<__nv_bfloat162*>(h + (r + 8 * half) * L::LDHB + c) =
                 __floats2bfloat162_rn(gelu(h0, approximate),
                                       gelu(h1, approximate));
@@ -425,6 +465,7 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
           sum += hs[p * L::BM * L::LDH + r * L::LDH + j];
         const float pre =
             __bfloat162float(__float2bfloat16_rn(sum + b1[j0 + j]));
+        if constexpr (TRAIN) hp[r * L::LDHB + j] = __float2bfloat16_rn(pre);
         h[r * L::LDHB + j] = __float2bfloat16_rn(gelu(pre, approximate));
       }
     }
@@ -432,6 +473,18 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
     cp_async_wait<0>();
     __syncthreads();
     if (ci + 1 < CHUNKS) load_w1<C>(w1s, w1, j0 + L::NC);
+    if constexpr (TRAIN) {
+      // the rounded h_pre chunk, 16 bytes at a time; hp is next written
+      // after the barrier that ends this chunk
+      constexpr int VN = L::NC / 8;
+      for (int i = threadIdx.x; i < L::BM * VN; i += L::THREADS) {
+        const int r = i / VN, v = i % VN;
+        if (row0 + r < M)
+          *reinterpret_cast<uint4*>(saved.h_pre + (row0 + r) * L::HID + j0 +
+                                    v * 8) =
+              *reinterpret_cast<const uint4*>(hp + r * L::LDHB + v * 8);
+      }
+    }
 
     // 3. acc += h @ W2s.
 #pragma unroll
@@ -457,9 +510,10 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
     if (ci + 1 < CHUNKS) load_w2<C>(w2s, w2, j0 + L::NC);
   }
 
-  // out = x + gamma * (m + b2): the [BM, C] product goes to shared memory
-  // (over t, W1s and W2s, all free now), then each thread finishes eight
-  // consecutive values of a row with 16-byte loads and stores.
+  // out = x + gamma * m, m = h @ W2 + b2: the [BM, C] product goes to
+  // shared memory (over t, W1s and W2s, all free now), then each thread
+  // finishes eight consecutive values of a row with 16-byte loads and
+  // stores; the train variant also writes m rounded to bf16.
   float* ot = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int a = 0; a < L::R2; ++a)
@@ -478,44 +532,47 @@ convnext_mlp_kernel(const TX* __restrict__ x, const TX* __restrict__ y,
     const int r = i / VR, c = (i % VR) * 8;
     const int64_t gr = row0 + r;
     if (gr >= M) continue;
-    float f[8];
+    float f[8], mv[8];
     Vec8<TX>::load(x + gr * C + c, f);
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-      f[k] += gamma[c + k] * (ot[r * L::LDO + c + k] + b2[c + k]);
+    for (int k = 0; k < 8; ++k) mv[k] = ot[r * L::LDO + c + k] + b2[c + k];
+    if constexpr (TRAIN) Vec8<bf16>::store(saved.m + gr * C + c, mv);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) f[k] += gamma[c + k] * mv[k];
     Vec8<TX>::store(out + gr * C + c, f);
   }
 }
 
-template <int C, typename TX>
+template <int C, typename TX, bool TRAIN>
 int launch(const void* x, const void* y, const void* ln_w, const void* ln_b,
            const void* w1, const void* b1, const void* w2, const void* b2,
-           const void* gamma, void* out, int M, int approximate,
+           const void* gamma, void* out, Saved saved, int M, int approximate,
            void* stream) {
   using L = Plan<C>;
-  auto kernel = convnext_mlp_kernel<C, TX>;
+  constexpr int smem = TRAIN ? L::SMEM_TRAIN : L::SMEM;
+  auto kernel = convnext_mlp_kernel<C, TX, TRAIN>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((M + L::BM - 1) / L::BM);
   if (blocks > 0) {
-    kernel<<<blocks, L::THREADS, L::SMEM, (cudaStream_t)stream>>>(
+    kernel<<<blocks, L::THREADS, smem, (cudaStream_t)stream>>>(
         (const TX*)x, (const TX*)y, (const float*)ln_w, (const float*)ln_b,
         (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
-        (const float*)gamma, (TX*)out, M, approximate);
+        (const float*)gamma, (TX*)out, saved, M, approximate);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename TX>
+template <typename TX, bool TRAIN>
 int dispatch(const void* x, const void* y, const void* ln_w, const void* ln_b,
              const void* w1, const void* b1, const void* w2, const void* b2,
-             const void* gamma, void* out, int M, int C, int approximate,
-             void* stream) {
+             const void* gamma, void* out, Saved saved, int M, int C,
+             int approximate, void* stream) {
 #define VCD_K3_CASE(C_)                                                     \
   case C_:                                                                  \
-    return launch<C_, TX>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, \
-                          approximate, stream);
+    return launch<C_, TX, TRAIN>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,  \
+                                 out, saved, M, approximate, stream);
   switch (C) {
     VCD_K3_CASE(96)
     VCD_K3_CASE(128)
@@ -543,11 +600,29 @@ extern "C" int vcd_convnext_mlp(const void* x, const void* y, const void* ln_w,
                                 const void* b1, const void* w2, const void* b2,
                                 const void* gamma, void* out, int M, int C,
                                 int approximate, int dtype, void* stream) {
+  const Saved none{nullptr, nullptr, nullptr};
   if (dtype == 0)
-    return dispatch<bf16>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C,
-                          approximate, stream);
+    return dispatch<bf16, false>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                 none, M, C, approximate, stream);
   if (dtype == 1)
-    return dispatch<float>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out, M, C,
-                           approximate, stream);
+    return dispatch<float, false>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                  none, M, C, approximate, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The train variant: as above, and t, m: bf16 [M, C], h_pre: bf16 [M, 4C],
+// contiguous and 16-byte aligned.
+extern "C" int vcd_convnext_mlp_train(
+    const void* x, const void* y, const void* ln_w, const void* ln_b,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* gamma, void* out, void* t, void* h_pre, void* m, int M, int C,
+    int approximate, int dtype, void* stream) {
+  const Saved saved{(bf16*)t, (bf16*)h_pre, (bf16*)m};
+  if (dtype == 0)
+    return dispatch<bf16, true>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                saved, M, C, approximate, stream);
+  if (dtype == 1)
+    return dispatch<float, true>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out,
+                                 saved, M, C, approximate, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,27 @@
-"""K2: depthwise 7×7 convolution, stride 1, SAME, + bias, NHWC (forward).
+"""K2: depthwise 7×7 convolution, stride 1, SAME, + bias, NHWC, with its
+gradient.
 
-Replaces the TPU kernel ``vision_collision_detection_tpu/ops/dwconv_pallas.py``
-``dwconv7x7`` (``_run_fwd``, ``_fwd_kernel``). The CUDA kernel is
-``ops/csrc/dwconv.cu``; it masks the 3-pixel halo while loading its tile
-instead of padding the input in device memory. Its bound on the H100 is
-operations: each of the flagship forward's 18 launches reads x and writes y
-once (≈ 1.7 GB over the 18 at B=8, ≈ 0.51 ms at 3.35 TB/s), but its 98
-float32 flops per output (≈ 42 GFLOP over the 18) take ≈ 0.63 ms on the
-CUDA cores at 67 TFLOP/s.
+Replaces the TPU kernels of ``vision_collision_detection_tpu/ops/dwconv_pallas.py``
+``dwconv7x7``: the forward ``_run_fwd`` (``_fwd_kernel``) and the weight
+gradient ``_run_wgrad`` (``_wgrad_kernel``), wired into ``jax.custom_vjp``
+there and into the ``torch.autograd.Function`` ``_DwConv7x7`` here.
+
+- The forward kernel is ``ops/csrc/dwconv.cu``; it masks the 3-pixel halo
+  while loading its tile instead of padding the input in device memory.
+  Its bound on the H100 is operations: each of the flagship forward's 18
+  launches reads x and writes y once (≈ 1.7 GB over the 18 at B=8,
+  ≈ 0.51 ms at 3.35 TB/s), but its 98 float32 flops per output (≈ 42 GFLOP
+  over the 18) take ≈ 0.63 ms on the CUDA cores at 67 TFLOP/s.
+- The weight-gradient kernel is ``ops/csrc/dwconv_wgrad.cu``: float32
+  ``dw[49, C]``, per-block partial sums added in a fixed order, so two runs
+  agree bit for bit. Its bound is operations too: 98 flops per element of
+  x (≈ 42 GFLOP over a training step's 18 launches at B=8, ≈ 0.63 ms)
+  against ≈ 1.7 GB read (≈ 0.51 ms).
+
+The backward is the JAX ``_dwconv_bwd``: dx is the forward kernel run on
+the incoming gradient with the taps flipped in both axes and a zero bias,
+rounded to x's dtype; dw comes from the weight-gradient kernel and db is
+Σg in float32, both cast to w's dtype.
 
 Weights come as ``[49, C]`` (tap ``dy*7 + dx`` major), the TPU kernel's
 layout. Accumulation is float32 whatever the input dtype.
@@ -22,6 +36,10 @@ from vision_collision_detection_tpu_torch.ops import _build
 
 K = 7
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+# Blocks of the weight-gradient kernel per SM, over all channel slabs.
+_WGRAD_BLOCKS_PER_SM = 4
+_WGRAD_TILE = (8, 8)
+_WGRAD_SLAB = 32
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -48,13 +66,10 @@ def dwconv7x7_plain(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> torch.Tensor:
-    """K2. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16 or float32, C even, all contiguous)."""
-    if x.device.type == "cpu":
-        return dwconv7x7_plain(x, w, b)
-    _check(x, w, b)
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (bf16 or float32, C even, all
+    contiguous)."""
     # channel pairs are read and written as one value of twice the size
     for t, name in ((x, "x"), (w, "w"), (b, "b")):
         _build.require_cuda(t, name, align=2 * x.element_size())
@@ -70,6 +85,109 @@ def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
     _build.check(err, "vcd_dwconv7x7")
     dwconv7x7.launches += 1
     return out
+
+
+def _forward(x, w, b):
+    if x.device.type == "cpu":
+        return dwconv7x7_plain(x, w, b)
+    return _launch_fwd(x, w, b)
+
+
+def dwconv7x7_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the weight-gradient kernel: for each of the
+    49 taps, Σ over N, H, W of the zero-padded x shifted by the tap times
+    g, in float32. x, g [N,H,W,C] → float32 [49, C]."""
+    if x.shape != g.shape or x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be "
+                         "the same NHWC shape")
+    _, H, W, _ = x.shape
+    p = K // 2
+    xp = F.pad(x.to(torch.float32), (0, 0, p, p, p, p))
+    gf = g.to(torch.float32)
+    return torch.stack([(xp[:, dy:dy + H, dx:dx + W, :] * gf).sum((0, 1, 2))
+                        for dy in range(K) for dx in range(K)])
+
+
+def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight-gradient kernel on CUDA tensors (bf16 or float32, the
+    same dtype, C a multiple of 8, contiguous)."""
+    if x.shape != g.shape or x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be "
+                         "the same NHWC shape")
+    if x.dtype not in _DTYPE_CODE or g.dtype != x.dtype:
+        raise ValueError(f"dwconv7x7_wgrad kernel takes x, g both bf16 or "
+                         f"both float32, got {x.dtype}, {g.dtype}")
+    N, H, W, C = x.shape
+    if C % 8:
+        raise ValueError(f"dwconv7x7_wgrad kernel needs C % 8 == 0, got {C}")
+    # x and g are read 8 channels at a time
+    _build.require_cuda(x, "x", align=16)
+    _build.require_cuda(g, "g", align=16)
+    tiles = N * -(-H // _WGRAD_TILE[0]) * -(-W // _WGRAD_TILE[1])
+    slabs = -(-C // _WGRAD_SLAB)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    parts = max(1, min(tiles, 65535,
+                       -(-_WGRAD_BLOCKS_PER_SM * sms // slabs)))
+    partial = torch.empty(parts, K * K, C, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty(K * K, C, dtype=torch.float32, device=x.device)
+    err = _build.lib().vcd_dwconv_wgrad(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+        N, H, W, C, parts, _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
+    _build.check(err, "vcd_dwconv_wgrad")
+    dwconv7x7_wgrad.launches += 1
+    return dw
+
+
+def dwconv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K2's weight gradient, float32 [49, C]. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel."""
+    if x.device.type == "cpu":
+        return dwconv7x7_wgrad_plain(x, g)
+    return _launch_wgrad(x, g)
+
+
+dwconv7x7_wgrad.launches = 0
+
+
+class _DwConv7x7(torch.autograd.Function):
+    """K2 with the JAX package's ``custom_vjp`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        C = w.shape[-1]
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            # stride-1 SAME depthwise conv is self-transpose under a flip
+            wf = w.view(K, K, C).flip(0, 1).reshape(K * K, C).to(g.dtype)
+            dx = _forward(g, wf.contiguous(),
+                          torch.zeros(C, dtype=g.dtype, device=g.device))
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = dwconv7x7_wgrad(x.contiguous(), g.to(x.dtype)).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.to(torch.float32).sum((0, 1, 2)).to(w.dtype)
+        return dx, dw, db
+
+
+def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """K2. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel. Where a gradient is needed, the call goes through ``_DwConv7x7``,
+    whose backward launches the forward kernel once more (dx) and the
+    weight-gradient kernel."""
+    _check(x, w, b)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        return _DwConv7x7.apply(x, w, b)
+    return _forward(x, w, b)
 
 
 dwconv7x7.launches = 0

@@ -1,9 +1,11 @@
-"""Eval preprocessing: uint8 decode output → model-ready frames.
+"""Preprocessing: uint8 decode output → model-ready frames.
 
-Counterpart of ``vision_collision_detection_tpu/ops/preprocess.py``
-(``normalize_video``, ``eval_preprocess``). When the decoder shipped only
-the letterbox content rows, the whole op is the K1 kernel
-(``ops/dequant_pad.py``).
+Counterpart of ``vision_collision_detection_tpu/ops/preprocess.py``:
+``eval_preprocess`` (letterbox and normalise; when the decoder shipped only
+the letterbox content rows, the whole op is the K1 kernel,
+``ops/dequant_pad.py``) and ``train_preprocess`` (flip, letterbox,
+per-clip augmentation, normalise; plain torch ops, as the JAX package
+leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from vision_collision_detection_tpu_torch.config import AugmentConfig
+from vision_collision_detection_tpu_torch.ops.augment import augment_batch
 from vision_collision_detection_tpu_torch.ops.dequant_pad import (
     dequant_normalize_pad,
 )
@@ -23,6 +26,33 @@ def normalize_video(x: torch.Tensor, mean, std) -> torch.Tensor:
     mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
     std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
     return (x - mean) / std
+
+
+def train_preprocess(generator: torch.Generator, frames_u8: torch.Tensor,
+                     cfg: AugmentConfig, target_size: int,
+                     out_dtype=torch.bfloat16) -> torch.Tensor:
+    """uint8 [B, T, H, W, 3] → normalised [B, T, S, S, 3] in ``out_dtype``:
+    a horizontal flip per clip (on the uint8 tensor when its width is
+    already S, the same result at a quarter of the bytes), letterbox,
+    augmentation when ``cfg.enabled``, normalisation. Every draw comes
+    from ``generator``, on the frames' device: the flips first, then the
+    clips' parameters."""
+    b = frames_u8.shape[0]
+    flip = None
+    if cfg.horizontal_flip_prob > 0:
+        flip = torch.rand((b, 1, 1, 1, 1), generator=generator,
+                          device=generator.device) < cfg.horizontal_flip_prob
+    flip_u8 = flip is not None and frames_u8.shape[-2] == target_size
+    if flip_u8:
+        frames_u8 = torch.where(flip, frames_u8.flip(-2), frames_u8)
+    x = frames_u8.to(torch.float32) / 255.0
+    x = letterbox_resize(x, target_size)
+    if flip is not None and not flip_u8:
+        x = torch.where(flip, x.flip(-2), x)
+    if cfg.enabled:
+        x = augment_batch(generator, x, cfg)
+    x = normalize_video(x, cfg.normalize_mean, cfg.normalize_std)
+    return x.to(out_dtype)
 
 
 def eval_preprocess(frames_u8: torch.Tensor, cfg: AugmentConfig,
@@ -54,3 +84,16 @@ def eval_preprocess(frames_u8: torch.Tensor, cfg: AugmentConfig,
     x = letterbox_resize(x, target_size)
     x = normalize_video(x, cfg.normalize_mean, cfg.normalize_std)
     return x.to(out_dtype)
+
+
+def make_train_preprocess(cfg: AugmentConfig, target_size: int,
+                          out_dtype=torch.bfloat16):
+    """(generator, uint8 frames) → ``train_preprocess`` with these settings."""
+    return lambda generator, frames: train_preprocess(
+        generator, frames, cfg, target_size, out_dtype)
+
+
+def make_eval_preprocess(cfg: AugmentConfig, target_size: int,
+                         out_dtype=torch.bfloat16):
+    """uint8 frames → ``eval_preprocess`` with these settings."""
+    return lambda frames: eval_preprocess(frames, cfg, target_size, out_dtype)

@@ -1,0 +1,27 @@
+from vision_collision_detection_tpu_torch.train.optim import (
+    build_optimizer,
+    clip_by_global_norm_,
+    cosine_annealing_schedule,
+    global_norm,
+)
+from vision_collision_detection_tpu_torch.train.steps import (
+    TrainState,
+    create_train_state,
+    load_pretrained_backbone,
+    make_eval_step,
+    make_train_step,
+    weighted_loss,
+)
+
+__all__ = [
+    "build_optimizer",
+    "clip_by_global_norm_",
+    "cosine_annealing_schedule",
+    "global_norm",
+    "TrainState",
+    "create_train_state",
+    "load_pretrained_backbone",
+    "make_eval_step",
+    "make_train_step",
+    "weighted_loss",
+]
