@@ -56,6 +56,37 @@ failure:
    step: device time of K2 (forward and dx), K2 wgrad, K3 train, K3's
    torch backward, ``train_preprocess`` and the rest, and the idle share.
 
+8. Hold K4's three kernels (flash attention forward, backward dK/dV,
+   backward dQ) against ``flash_mha_plain`` and its written-out backward
+   at [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576,
+   6, 64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and
+   200, a length of 4, head_dim 16 and float32 inputs: o and the
+   log-sum-exp, dq, dk, dv on their largest and mean error (FLASH
+   tolerances in ``flash_tols``), the backward bit-equal over two runs,
+   strided views read without a copy, unsupported shapes refused. Faulty
+   plain versions (the scale dropped, keys past S attended, the last key
+   tile out of the normaliser, di left out of ds) must land outside. (Run
+   with phase 2.)
+9. Run the scaled ViViT configuration's serving forward (vivit_small, 32
+   frames of 336², ``attention_impl="flash"``) through
+   ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
+   uint8 batch [8, 32, 189, 336, 3]: launches K1 1, K4 fwd 8, all else 0;
+   probabilities that spread; agreement with the same forward on plain
+   versions, where the scale dropped in one block must not agree.
+10. Time K4's kernels, their plain versions and
+    ``F.scaled_dot_product_attention`` forward and backward
+    (``library_ms``); the ViViT forward with "flash" and "xla" attention
+    in turns, its peak memory and profile.
+11. Run one training step of the scaled configuration
+    (``create_train_state``, ``make_train_step``, default augmentation
+    with blur off) on a uint8 batch [8, 32, 189, 336, 3]: launches K4 fwd
+    8, dK/dV 8, dQ 8; every parameter a finite gradient, every spatial
+    block's projections a nonzero one; the step on plain versions must
+    agree (VIVIT_TRAIN_TOL), where di left out of dQ's ds and dv off by 10%
+    must not; the loss must fall on a fixed batch; ``remat`` on and off
+    must agree at B=2. Then the step with "flash" and "xla" in turns,
+    peak memory and profile.
+
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -94,6 +125,7 @@ TRAIN_TOL = 5e-3
 STEPS_PER_EPOCH = 100
 TRAIN_SEED = 5                 # the step's generator (flips, augmentation, dropout)
 TRAIN_FALL_STEPS = 5
+VIVIT_FALL_STEPS = 20
 TRAIN_TIME_ITERS = 5
 
 
@@ -163,6 +195,9 @@ def main() -> int:
     report["compare"] = compare
     report["compare_train"] = compare_train_kernels(torch, dev,
                                                     compare["inputs"])
+    flash = compare_flash_kernels(torch, dev)
+    report["compare_flash"] = {"rows": flash["rows"],
+                               "faults": flash["faults"]}
     serve = serving_forward(torch, dev)
     report["serving"] = serve["summary"]
     timing = time_kernels(torch, dev, compare["inputs"])
@@ -171,7 +206,10 @@ def main() -> int:
 
     forward_ms = time_forward(torch, serve)
     report["forward"] = forward_ms
-    report["profile"] = profile_forward(torch, serve)
+    report["profile"] = profile_device(
+        torch, "forward", lambda: serve["forward"](serve["frames"]), 3,
+        {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_kernel",
+         "K3": "convnext_mlp_kernel"})
     del serve
 
     train = training_step(torch, dev)
@@ -181,8 +219,28 @@ def main() -> int:
 
     launches = {"serve": report["serving"]["launches"],
                 "train": train["summary"]["launches"]}
+    del train
+    torch.cuda.empty_cache()
+
+    flash_timing, report["flash_by_shape"] = time_flash_kernels(
+        torch, dev, flash["inputs"])
+    del flash["inputs"]
+    report["timing"] = timing + flash_timing
+    vserve = vivit_serving(torch, dev)
+    report["vivit_serving"] = vserve["summary"]
+    report["vivit_forward"] = time_vivit_forward(torch, vserve)
+    del vserve
+    torch.cuda.empty_cache()
+    vtrain = vivit_training(torch, dev)
+    report["vivit_training"] = vtrain["summary"]
+    report["vivit_train_time"] = time_vivit_training(torch, dev, vtrain)
+    launches["vivit_serve"] = report["vivit_serving"]["launches"]
+    launches["vivit_train"] = vtrain["summary"]["launches"]
+    del vtrain
+
     kernels = kernel_line(
-        compare["rows"] + report["compare_train"]["rows"], launches, timing)
+        compare["rows"] + report["compare_train"]["rows"] + flash["rows"],
+        launches, report["timing"])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -301,6 +359,16 @@ def compare_kernels(torch, dev):
         name = "K1" if out_dtype == torch.bfloat16 else "K1 float32"
         record(name, [N_FRAMES, *CONTENT, 3], max_err(torch, got, ref), 0.0)
     inputs["K1"] = (u8, mean, std)
+    # the scaled ViViT configuration's frames: 189 content rows (an odd
+    # letterbox pad) into 336²
+    u8v = torch.randint(0, 256, (256, *VIVIT_CONTENT, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    got = dequant_normalize_pad(u8v, VIVIT_S, mean, std, torch.bfloat16)
+    ref = dequant_normalize_pad_plain(u8v, VIVIT_S, mean, std, torch.bfloat16)
+    torch.cuda.synchronize()
+    record("K1 into 336²", [256, *VIVIT_CONTENT, 3],
+           max_err(torch, got, ref), 0.0)
+    del u8v, got, ref
 
     for H, C, _ in STAGES:
         x = torch.randn(N_FRAMES, H, H, C, generator=g).to(dev, torch.bfloat16)
@@ -480,6 +548,196 @@ def compare_train_kernels(torch, dev, inputs):
     return {"rows": rows, "faults": faults}
 
 
+# ---- 2c. K4 against its plain version ------------------------------------
+
+# (B, S, H, D, dtype name): the scaled configuration's shape, the kernel A/B
+# shape of the JAX package's record, 448² frames, vivit_base's heads, ragged
+# tiles (S no multiple of 64), a sequence shorter than a tile, head_dim 16
+# (vivit_tiny) and float32 inputs.
+FLASH_MAIN = (256, 576, 6, 64, "bfloat16")
+FLASH_SHAPES = (
+    FLASH_MAIN,
+    (64, 576, 6, 64, "bfloat16"),
+    (16, 1024, 6, 64, "bfloat16"),
+    (8, 576, 12, 64, "bfloat16"),
+    (4, 577, 6, 64, "bfloat16"),
+    (4, 200, 6, 64, "bfloat16"),
+    (3, 4, 4, 16, "bfloat16"),
+    (4, 200, 4, 16, "bfloat16"),
+    (2, 200, 4, 16, "float32"),
+    (2, 130, 6, 64, "float32"),
+)
+
+
+def flash_inputs(torch, shape, dev, g):
+    B, S, H, D, dtype = shape
+    dt = getattr(torch, dtype)
+    return [torch.randn(B, S, H, D, generator=g).to(dev, dt) for _ in range(4)]
+
+
+def flash_tols(torch, ref, dtype):
+    """(largest, mean) error allowed against ``ref``. bf16: the kernel and
+    the plain version share every rounding but that of p, which the kernel
+    rounds as exp(s − running max) and the plain version as exp(s − lse):
+    another scale, so each weight's 2^-9 relative rounding error is another
+    one. Over a row these errors add up like the output itself (a sum of
+    weights times values of either sign), to about 2^-9·|o| before o's own
+    rounding, where half an ulp is 2^-9·|o| too. So: 2 ulps at the largest
+    value and a mean under 2^-8 of the mean |value|, where a fault in every
+    row is not. The backward recomputes p at the plain version's scale and
+    only flips where sums differ in order. float32: sums of up to S·D
+    products in another order and exp/log of other libraries, 2^-14 of the
+    largest value."""
+    big = float(ref.float().abs().max())
+    if dtype == "float32":
+        return big * 2 ** -14, big * 2 ** -14
+    return big * 2 ** -6, float(ref.float().abs().mean()) * 2 ** -8
+
+
+def compare_flash_kernels(torch, dev):
+    """K4's three kernels against ``flash_mha_plain`` and
+    its two plain backward versions at FLASH_SHAPES: o and the log-sum-exp, then dq,
+    dk, dv on the kernel's own o and lse (so the backward is held alone),
+    the backward bit-equal over two runs, the autograd Function equal to
+    the direct calls, strided views read without a copy. Faulty plain
+    versions must land outside the tolerances."""
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(11)
+    rows, faults, failed = [], [], []
+    record = recorder(rows, failed)
+    inputs = {}
+
+    def held(name, shape, got, ref, dtype, entry):
+        tol, mean_tol = flash_tols(torch, ref, dtype)
+        record(name, shape, max_err(torch, got, ref), tol,
+               mean_err(torch, got, ref), mean_tol, entry=entry)
+        return tol, mean_tol
+
+    def outside(got, ref, tols):
+        return (max_err(torch, got, ref) > tols[0]
+                or mean_err(torch, got, ref) > tols[1])
+
+    def bwd_plain(*args):
+        return (fa.flash_mha_bwd_dq_plain(*args),
+                *fa.flash_mha_bwd_dkv_plain(*args))
+
+    for shape in FLASH_SHAPES:
+        B, S, H, D, dtype = shape
+        lst = list(shape)
+        scale = D ** -0.5
+        q, k, v, do = flash_inputs(torch, shape, dev, g)
+        o, lse = fa.flash_mha_fwd(q, k, v, scale)
+        o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        tol_o = held("K4 fwd o", lst, o, o_ref, dtype, "K4 fwd")
+        # float32 exp and log of another library on sums in another order
+        record("K4 fwd lse", lst, max_err(torch, lse, lse_ref), 1e-4,
+               entry="K4 fwd")
+        with torch.no_grad():
+            o_nolse = fa.flash_mha(q, k, v, scale)
+        record("K4 fwd without lse (bit-equal)", lst,
+               max_err(torch, o_nolse, o), 0.0, entry="K4 fwd")
+
+        di = fa._row_dot(o, do)
+        dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
+        dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
+        dq_ref, dk_ref, dv_ref = bwd_plain(q, k, v, do, lse, di, scale)
+        torch.cuda.synchronize()
+        tol_dq = held("K4 bwd dq", lst, dq, dq_ref, dtype, "K4 bwd dQ")
+        tol_dk = held("K4 bwd dk", lst, dk, dk_ref, dtype, "K4 bwd dKdV")
+        tol_dv = held("K4 bwd dv", lst, dv, dv_ref, dtype, "K4 bwd dKdV")
+        dk2, dv2 = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
+        dq2 = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
+        record("K4 bwd twice (bit-equal)", lst,
+               max(max_err(torch, a, b) for a, b in
+                   ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0,
+               entry="K4 bwd dKdV")
+        # the autograd Function runs the same three launches
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(fa.flash_mha(*leaves, scale), leaves, do)
+        record("K4 through autograd (bit-equal)", lst,
+               max(max_err(torch, a, b) for a, b in
+                   zip(grads, (dq, dk, dv))), 0.0, entry="K4 bwd dQ")
+        del leaves, grads, dk2, dv2, dq2, o_nolse
+
+        if shape in (FLASH_MAIN, (4, 200, 6, 64, "bfloat16")):
+            # faults in the forward's plain version
+            bad = {"sm_scale dropped": fa.flash_mha_plain(q, k, v, 1.0)}
+            p = torch.exp(torch.matmul(
+                fa._heads_first(q), fa._heads_first(k).transpose(-1, -2))
+                * scale - lse_ref[..., None])
+            last = p[..., (S - 1) // 64 * 64:].sum(-1)  # the last key tile
+            bad["last key tile out of the normaliser"] = (
+                o_ref.float() / (1 - last).permute(0, 2, 1)[..., None])
+            del p, last
+            if S % 64:
+                pad = (0, 0, 0, 0, 0, -S % 64)
+                bad["keys past S attended"] = fa.flash_mha_plain(
+                    *(torch.nn.functional.pad(t, pad) for t in (q, k, v)),
+                    scale)[:, :S]
+            for name, wrong in bad.items():
+                fault_seen(faults, failed, f"K4 fwd {name}", lst,
+                           outside(o, wrong, tol_o),
+                           max_abs_err=max_err(torch, o, wrong),
+                           mean_abs_err=mean_err(torch, o, wrong))
+            del bad
+            # faults in the backward's plain version
+            no_di = bwd_plain(q, k, v, do, lse, torch.zeros_like(di), scale)
+            no_scale = bwd_plain(q, k, v, do, lse, di, 1.0)
+            for name, got, wrong, tols in (
+                    ("di left out of ds (dq)", dq, no_di[0], tol_dq),
+                    ("di left out of ds (dk)", dk, no_di[1], tol_dk),
+                    ("ds not scaled (dq)", dq, no_scale[0], tol_dq),
+                    ("p recomputed without sm_scale (dv)", dv, no_scale[2],
+                     tol_dv)):
+                fault_seen(faults, failed, f"K4 bwd {name}", lst,
+                           outside(got, wrong, tols),
+                           max_abs_err=max_err(torch, got, wrong),
+                           mean_abs_err=mean_err(torch, got, wrong))
+            del no_di, no_scale
+        if shape == FLASH_MAIN:
+            inputs["K4"] = (q, k, v, do, o, lse, di)
+        del q, k, v, do, o, lse, di, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+
+    # q, k, v as slices of one fused projection and a transposed gradient:
+    # read through their strides, no copy
+    B, S, H, D = 4, 200, 6, 64
+    qkv = torch.randn(B, S, 3, H, D, generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(B, H, S, D, generator=g).to(
+        dev, torch.bfloat16).permute(0, 2, 1, 3)
+    fa.flash_mha.copies = 0
+    o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
+    di = fa._row_dot(o, do)
+    dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, D ** -0.5)
+    dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, D ** -0.5)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    o_c, lse_c = fa.flash_mha_fwd(qc, kc, vc, D ** -0.5)
+    dk_c, dv_c = fa.flash_mha_bwd_dkv(qc, kc, vc, doc, lse_c, di, D ** -0.5)
+    dq_c = fa.flash_mha_bwd_dq(qc, kc, vc, doc, lse_c, di, D ** -0.5)
+    torch.cuda.synchronize()
+    record("K4 strided views vs contiguous (bit-equal)", [B, S, H, D],
+           max(max_err(torch, a, b) for a, b in
+               ((o, o_c), (dq, dq_c), (dk, dk_c), (dv, dv_c))), 0.0,
+           entry="K4 fwd")
+    if fa.flash_mha.copies:
+        failed.append(f"strided views were copied {fa.flash_mha.copies} times")
+    # what the kernels do not take raises on the card
+    for bad_q in (torch.randn(2, 8, 2, 32, device=dev, dtype=torch.bfloat16),
+                  torch.randn(2, 8, 2, 64, device=dev, dtype=torch.float16)):
+        try:
+            fa.flash_mha(bad_q, bad_q, bad_q, 1.0)
+        except ValueError as e:
+            log(f"[compare] K4 refuses {tuple(bad_q.shape)} {bad_q.dtype}: {e}")
+        else:
+            failed.append(f"K4 took {tuple(bad_q.shape)} {bad_q.dtype}")
+    if failed:
+        raise SystemExit(f"K4 disagrees with its plain version: {failed}")
+    return {"rows": rows, "faults": faults, "inputs": inputs}
+
+
 # ---- 3. serving forward ------------------------------------------------
 
 def serving_forward(torch, dev):
@@ -517,19 +775,11 @@ def serving_forward(torch, dev):
     frames_dev = frames.to(dev)
     torch.cuda.synchronize()
 
-    counters = (dequant_pad.dequant_normalize_pad, dwconv.dwconv7x7,
-                convnext_mlp.convnext_mlp)
-    for fn in counters:
-        fn.launches = 0
+    counters = zero_counters()
     probs = forward(frames_dev)
     torch.cuda.synchronize()
-    launches = {"K1": counters[0].launches, "K2": counters[1].launches,
-                "K3": counters[2].launches}
     log(f"[serve] probs {probs.tolist()}")
-    log(f"[serve] launches {launches}")
-    expect = {"K1": 1, "K2": 18, "K3": 18}
-    if launches != expect:
-        raise SystemExit(f"launches {launches}, expected {expect}")
+    launches = expect_launches("serve", counters, K1=1, K2=18, K3=18)
     if tuple(probs.shape) != (8, 3) or not bool(torch.isfinite(probs).all()):
         raise SystemExit(f"bad probabilities {probs}")
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -593,20 +843,56 @@ def serving_forward(torch, dev):
 
 # ---- 3b. training step -------------------------------------------------
 
-def train_counters():
+def kernel_counters():
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dequant_pad
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
     return {"K1": dequant_pad.dequant_normalize_pad, "K2": k2.dwconv7x7,
             "K2 wgrad": k2.dwconv7x7_wgrad, "K3": k3.convnext_mlp,
-            "K3 train": k3.convnext_mlp_train}
+            "K3 train": k3.convnext_mlp_train, "K4 fwd": fa.flash_mha,
+            "K4 bwd dKdV": fa.flash_mha_bwd_dkv,
+            "K4 bwd dQ": fa.flash_mha_bwd_dq}
 
 
-def rel_grad_errs(torch, got, ref):
-    """Each parameter's gradient error relative to that gradient's norm."""
-    return {n: float((got[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30))
-            for n in ref}
+def zero_counters():
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def expect_launches(tag, counters, **expected):
+    """Every counter must read what ``expected`` says, 0 where it is silent."""
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k.replace(" ", "_"): 0 for k in counters}
+    want.update(expected)
+    log(f"[{tag}] launches {launches}")
+    if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
+        raise SystemExit(f"{tag} launches {launches}, expected {want}")
+    return launches
+
+
+GRAD_FLOOR = 1e-3              # of the global gradient norm; see rel_grad_errs
+
+
+def rel_grad_errs(torch, got, ref, floor=0.0):
+    """Each parameter's gradient error relative to that gradient's norm,
+    with two allowances. An attention key bias shifts every logit of a query
+    alike, so its true gradient is 0 and what arrives is rounding noise: it
+    is held relative to the query bias's gradient beside it. And a gradient
+    under ``floor`` of the global norm (the ViViT comparisons pass
+    GRAD_FLOOR: the query and key of a temporal block whose attention is
+    close to uniform) is the small difference of large terms and carries
+    their bf16 noise: it is held relative to that floor."""
+    floor = floor * math.sqrt(sum(float(v.norm()) ** 2 for v in ref.values()))
+
+    def scale(n):
+        own = float(ref[n.replace(".key.bias", ".query.bias")].norm())
+        return max(own, floor)
+
+    return {n: float((got[n] - ref[n]).norm()) / scale(n) for n in ref}
 
 
 def training_step(torch, dev):
@@ -648,18 +934,13 @@ def training_step(torch, dev):
                   for n, p in model.named_parameters()} if keep_grads else None)
         return {k: float(v) for k, v in m.items()}, grads
 
-    counters = train_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zero_counters()
     t0 = time.perf_counter()
     metrics, grads = run(TRAIN_SEED)
     first_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
     log(f"[train] first step {first_s:.2f} s, metrics {metrics}")
-    log(f"[train] launches {launches}")
-    expect = {"K1": 0, "K2": 36, "K2 wgrad": 18, "K3": 0, "K3 train": 18}
-    if launches != expect:
-        raise SystemExit(f"training launches {launches}, expected {expect}")
+    launches = expect_launches("train", counters, K2=36, K2_wgrad=18,
+                               K3_train=18)
     if not math.isfinite(metrics["loss"]):
         raise SystemExit(f"non-finite loss {metrics}")
     bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
@@ -751,8 +1032,8 @@ def median_step_ms(torch, fn, warmup, iters):
 
 def time_training(torch, dev, tr):
     """The training step with the kernels (the default) and with stock
-    blocks, in turns (A B, B A), each the mean of its two medians; the
-    share of ``train_preprocess``; peak device memory of a step."""
+    blocks, in turns (``in_turns``), and the share of
+    ``train_preprocess``."""
     from vision_collision_detection_tpu_torch.models import build_model
     from vision_collision_detection_tpu_torch.ops.preprocess import (
         train_preprocess)
@@ -775,32 +1056,17 @@ def time_training(torch, dev, tr):
         state, fn = variants[name]
         return lambda: fn(state, frames, targets, mask, gen)
 
-    times = {name: [] for name in variants}
-    for order in (list(variants), list(variants)[::-1]):
-        for name in order:
-            times[name].append(median_step_ms(torch, one(name), warmup=2,
-                                              iters=TRAIN_TIME_ITERS))
-    out = {}
-    for name, ts in times.items():
-        ms = sum(ts) / len(ts)
-        out[name] = {"ms_per_step": ms, "clips_per_s": B / ms * 1e3,
-                     "batch": B, "rounds_ms": ts}
-        log(f"[train time] {name} blocks: {ms:.2f} ms per step of {B} clips, "
-            f"{B / ms * 1e3:.2f} clips/s (rounds {ts[0]:.2f}, {ts[1]:.2f})")
+    out = in_turns(
+        torch, "train time", {name: one(name) for name in variants},
+        lambda fn: median_step_ms(torch, fn, warmup=2, iters=TRAIN_TIME_ITERS),
+        B)
     pre_ms = median_step_ms(torch, lambda: train_preprocess(
         gen, frames, cfg.augment, cfg.data.frame_size,
         getattr(torch, cfg.model.dtype)), warmup=1, iters=TRAIN_TIME_ITERS)
     out["train_preprocess_ms"] = pre_ms
-    out["train_preprocess_share"] = pre_ms / out["kernels"]["ms_per_step"]
-    del variants["stock"], stock, stock_state
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    one("kernels")()
-    torch.cuda.synchronize()
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["train_preprocess_share"] = pre_ms / out["kernels"]["ms"]
     log(f"[train time] train_preprocess {pre_ms:.2f} ms "
-        f"({out['train_preprocess_share']:.3f} of the step); peak device "
-        f"memory {out['peak_mem_bytes'] / 1e9:.2f} GB")
+        f"({out['train_preprocess_share']:.3f} of the step)")
     return out
 
 
@@ -879,6 +1145,546 @@ def profile_training(torch, tr):
             f"{r['kernel'][:100]}")
     return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
             "by_part_ms": by_group, "top": rows[:30]}
+
+
+# ---- 8. the scaled ViViT path ---------------------------------------------
+
+VIVIT_OVERRIDES = {
+    "model.backbone": "vivit_small", "model.temporal_mode": "attention",
+    "model.patch_size": 14, "data.fps": 8, "data.duration": 4,
+    "data.frame_size": 336, "augment.blur_sigma": 0.0,
+    "model.attention_impl": "flash"}
+VIVIT_CONTENT = (189, 336)     # 16:9 source letterboxed into 336²
+VIVIT_S = 336
+VIVIT_BATCH = 8
+VIVIT_BLOCKS = 8               # spatial blocks, one K4 launch each
+# Kernel step vs plain step on the ViViT: as TRAIN_TOL, but K4's forward
+# rounds p at another scale than its plain version (flash_tols), in each of
+# 8 blocks, so every activation behind a block differs by bf16 flips. The
+# worst parameter, a first-block query bias (a sum over 147,456 tokens with
+# much cancellation), reads 1.9e-2 on an H100; the limit is twice that, and
+# a dv off by 10% must land outside it.
+VIVIT_TRAIN_TOL = 4e-2
+# The temporal blocks' query and key projections: their softmax runs over 32
+# frame summaries that lie close together, so the gradient of a logit,
+# a ⊙ (dp − Σ a·dp), is a difference of near-equal terms (these gradients'
+# norms are 0.3% of the global norm) and the activations' flips weigh more.
+VIVIT_TEMPORAL_QK_TOL = 1e-1
+# AdamW's first steps move every weight by the rate whatever its gradient's
+# size: at the default 1e-4 the fixed-batch loss of this 21 M-parameter
+# transformer climbs to 4 before it falls, so that check runs at a tenth of
+# it. There a step is smaller than most weights' bf16 spacing, so single
+# steps are noisy (a weight's bf16 copy stays or moves a whole ulp) and the
+# fall is read over VIVIT_FALL_STEPS steps.
+VIVIT_FALL_RATE = 1e-5
+VIVIT_REMAT_BATCH = 2
+
+
+def vivit_cfg(**more):
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().override(dict(VIVIT_OVERRIDES, **more))
+
+
+def flash_plain_swaps(fwd=None, dkv=None, dq=None):
+    """K4's three launches swapped for their plain twins (or for a faulty
+    twin), as ``swapped`` takes them."""
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+    return ((fa, "_launch_fwd", fwd or fa._flash_fwd_plain),
+            (fa, "_launch_bwd_dkv", dkv or fa.flash_mha_bwd_dkv_plain),
+            (fa, "_launch_bwd_dq", dq or fa.flash_mha_bwd_dq_plain))
+
+
+def vivit_serving(torch, dev):
+    """The scaled configuration's serving forward through
+    ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
+    uint8 batch [8, 32, 189, 336, 3]: launch counts (K1 1, K4 fwd 8, all
+    else 0), probabilities that spread, agreement with the same forward on
+    plain versions, and the softmax scale dropped in one block seen."""
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.ops import (
+        dequant_pad, flash_attention as fa, preprocess)
+
+    cfg = vivit_cfg()
+    pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
+    if tuple(pred.model.spatial_pos.shape) != (576, 384):
+        raise SystemExit(f"position table {tuple(pred.model.spatial_pos.shape)}")
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        # biases and LayerNorms redrawn as in phase 3, so a dropped one shows
+        for name, p in pred.model.named_parameters():
+            if name.endswith("bias") and p.dim() == 1:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in pred.model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.1)
+        pred.model.head.weight.mul_(LOGIT_SCALE)
+    T = cfg.data.num_frames
+    if pred._fold_stride() != 1 or T != 32:
+        raise SystemExit(f"fold stride {pred._fold_stride()}, T {T}")
+    frames = torch.stack([
+        torch.randint(12 * i, 256 - 16 * i, (T, *VIVIT_CONTENT, 3),
+                      generator=g, dtype=torch.uint8)
+        for i in range(VIVIT_BATCH)]).to(dev)
+    forward = pred._make_forward(folded_stride=False)
+    torch.cuda.synchronize()
+
+    counters = zero_counters()
+    probs = forward(frames)
+    torch.cuda.synchronize()
+    launches = expect_launches("vivit serve", counters, K1=1,
+                               K4_fwd=VIVIT_BLOCKS)
+    log(f"[vivit serve] probs {probs.tolist()}")
+    if tuple(probs.shape) != (VIVIT_BATCH, 3) or not bool(
+            torch.isfinite(probs).all()):
+        raise SystemExit(f"bad probabilities {probs}")
+    row_err = float((probs.sum(-1) - 1).abs().max())
+    if row_err > 1e-5:
+        raise SystemExit(f"probability rows do not sum to 1 ({row_err})")
+    spread = float((probs.max(0).values - probs.min(0).values).max())
+    log(f"[vivit serve] largest spread of one class across clips {spread:.4f}")
+    if spread < SPREAD_MIN:
+        raise SystemExit(f"probabilities too alike to test with ({spread})")
+
+    def plain_forward(fwd=None):
+        with swapped(*flash_plain_swaps(fwd=fwd),
+                     (preprocess, "dequant_normalize_pad",
+                      dequant_pad.dequant_normalize_pad_plain)):
+            out = forward(frames)
+            torch.cuda.synchronize()
+        return out
+
+    err = max_err(torch, probs, plain_forward())
+    # bf16 activations through 12 blocks: flips between kernel and plain
+    # propagate; probabilities must agree to 2e-2 absolute, as in phase 3
+    tol = 2e-2
+    log(f"[vivit serve] kernels vs plain: max |Δprob| {err:.3e} (tol {tol:.0e})")
+    if not err <= tol:
+        raise SystemExit("ViViT serving forward disagrees with its plain version")
+
+    def scale_dropped_in(block):
+        calls = [0]
+
+        def fwd(q, k, v, sm_scale, need_lse=True):
+            calls[0] += 1
+            return fa._flash_fwd_plain(
+                q, k, v, 1.0 if calls[0] == block else sm_scale, need_lse)
+        return fwd
+
+    power = {f"sm_scale_dropped_in_block_{b}": max_err(
+        torch, probs, plain_forward(scale_dropped_in(b)))
+        for b in (1, VIVIT_BLOCKS)}
+    for name, v in power.items():
+        log(f"[vivit serve] with fault {name}: max |Δprob| {v:.3e} (must "
+            f"exceed tol {tol:.0e})")
+    if not all(v > tol for v in power.values()):
+        raise SystemExit(f"the tolerance does not see a dropped scale: {power}")
+    return {"cfg": cfg, "pred": pred, "forward": forward, "frames": frames,
+            "summary": {"launches": launches, "probs": probs.tolist(),
+                        "max_abs_err_vs_plain": err, "tol": tol,
+                        "spread_across_clips": spread,
+                        "faults_max_abs_err": power, "row_sum_err": row_err}}
+
+
+def time_vivit_forward(torch, serve):
+    """The ViViT serving forward with ``attention_impl`` "flash" (K4) and
+    "xla" (stock attention) on the same weights, in turns (A B, B A); peak
+    memory of each; the profile of the "flash" forward."""
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+
+    frames = serve["frames"]
+    xla = CollisionPredictor(
+        serve["cfg"].override({"model.attention_impl": "xla"}),
+        serve["pred"].model.state_dict())
+    forwards = {"flash": serve["forward"], "xla": xla._make_forward(False)}
+    diff = max_err(torch, forwards["flash"](frames), forwards["xla"](frames))
+    log(f"[vivit forward] flash vs xla: max |Δprob| {diff:.3e}")
+    out = in_turns(torch, "vivit forward", {
+        name: (lambda fwd=fwd: fwd(frames)) for name, fwd in forwards.items()},
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10), VIVIT_BATCH)
+    out["flash_vs_xla_max_abs_dprob"] = diff
+    out["profile"] = profile_device(
+        torch, "vivit forward", lambda: forwards["flash"](frames), 3,
+        {"K1": "dequant_pad_kernel", "K4 fwd": "flash_fwd_kernel"})
+    return out
+
+
+def in_turns(torch, tag, variants, measure, batch):
+    """Each variant measured in turns (A B C, then C B A), its time the
+    mean of the two readings; peak device memory of one run of each."""
+    times = {name: [] for name in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            times[name].append(measure(variants[name]))
+    out = {}
+    for name, ts in times.items():
+        ms = sum(ts) / len(ts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        variants[name]()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[name] = {"ms": ms, "clips_per_s": batch / ms * 1e3, "batch": batch,
+                     "rounds_ms": ts, "peak_mem_bytes": peak}
+        log(f"[{tag}] {name}: {ms:.3f} ms per batch of {batch}, "
+            f"{batch / ms * 1e3:.2f} clips/s (rounds {ts[0]:.3f}, "
+            f"{ts[1]:.3f}); peak device memory {peak / 1e9:.2f} GB")
+    return out
+
+
+def vivit_training(torch, dev):
+    """One optimizer step of the scaled configuration through
+    ``create_train_state`` and ``make_train_step`` on a seeded uint8 batch
+    [8, 32, 189, 336, 3] with the default augmentation (blur off): launch
+    counts (each K4 kernel 8), a finite gradient for every parameter and a
+    nonzero one for every spatial block's projections; the same step on
+    plain versions; a fault in the dQ kernel's plain twin seen; the loss
+    falling on a fixed batch; remat on against off at B=2."""
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+    from vision_collision_detection_tpu_torch.train import (
+        TrainState, build_optimizer, create_train_state, make_train_step)
+
+    cfg = vivit_cfg()
+    T = cfg.data.num_frames
+
+    def batch_of(B, seed):
+        """Noise frames, each frame of its own brightness, so that the
+        temporal blocks see frames that differ."""
+        g = torch.Generator().manual_seed(seed)
+        noise = torch.randint(48, 208, (B, T, *VIVIT_CONTENT, 3), generator=g,
+                              dtype=torch.int16)
+        level = torch.randint(-48, 48, (B, T, 1, 1, 1), generator=g,
+                              dtype=torch.int16)
+        return ((noise + level).to(torch.uint8).to(dev),
+                (torch.arange(B) % cfg.model.num_classes).to(dev),
+                torch.ones(B, device=dev))
+
+    def fresh(cfg_):
+        model, state = create_train_state(
+            cfg_, torch.Generator().manual_seed(13),
+            steps_per_epoch=STEPS_PER_EPOCH)
+        return model, state, make_train_step(model, cfg_)
+
+    def grads_of(model):
+        return {n: p.grad.detach().float().clone()
+                for n, p in model.named_parameters()}
+
+    failed = []
+    model, state, step = fresh(cfg)
+    batch = batch_of(VIVIT_BATCH, 14)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_init = copy.deepcopy(state.optimizer.state_dict())
+
+    def run(fn=step):
+        """One step from the initial weights and optimizer state."""
+        model.load_state_dict(init)
+        state.optimizer.load_state_dict(opt_init)
+        state.step = 0
+        _, m = fn(state, *batch,
+                  torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in m.items()}, grads_of(model)
+
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    metrics, grads = run()
+    first_s = time.perf_counter() - t0
+    log(f"[vivit train] first step {first_s:.2f} s, metrics {metrics}")
+    launches = expect_launches(
+        "vivit train", counters, K4_fwd=VIVIT_BLOCKS,
+        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS)
+    if not math.isfinite(metrics["loss"]):
+        raise SystemExit(f"non-finite loss {metrics}")
+    bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
+    # a key bias shifts every logit of a query alike, so its true gradient
+    # is 0: the weights of all four projections and the other three biases
+    # must see a gradient
+    attn = [n for n in grads if n.startswith("spatial_") and ".attn." in n
+            and not n.endswith(".key.bias")]
+    zero = [n for n in attn if float(grads[n].abs().max()) == 0.0]
+    log(f"[vivit train] {len(grads)} parameters with a gradient; non-finite "
+        f"{bad}; {len(attn)} spatial attention parameters, zero {zero}")
+    if bad or zero or len(attn) != 7 * VIVIT_BLOCKS:
+        failed.append("a parameter's gradient is missing, non-finite or zero")
+
+    with swapped(*flash_plain_swaps()):
+        plain_metrics, plain_grads = run()
+    loss_err = abs(metrics["loss"] - plain_metrics["loss"]) / abs(
+        plain_metrics["loss"])
+    errs = rel_grad_errs(torch, grads, plain_grads, GRAD_FLOOR)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    total = math.sqrt(sum(float(v.norm()) ** 2 for v in plain_grads.values()))
+    log(f"[vivit train] global gradient norm {total:.4f}; norms of the worst: "
+        f"{[(n, f'{float(plain_grads[n].norm()):.2e}') for n, _ in worst]}")
+    log(f"[vivit train] kernels vs plain: loss {metrics['loss']:.6f} vs "
+        f"{plain_metrics['loss']:.6f} (rel {loss_err:.2e}); worst gradient "
+        f"errors {[(n, f'{e:.2e}') for n, e in worst]}")
+    loose = {n: e for n, e in errs.items() if n.startswith("temporal_")
+             and (".attn.query." in n or ".attn.key." in n)}
+    worst_loose = max(loose.items(), key=lambda kv: kv[1])
+    worst_rest = max(((n, e) for n, e in errs.items() if n not in loose),
+                     key=lambda kv: kv[1])
+    log(f"[vivit train] worst temporal query/key {worst_loose} (tol "
+        f"{VIVIT_TEMPORAL_QK_TOL:.0e}); worst of all other parameters "
+        f"{worst_rest} (tol {VIVIT_TRAIN_TOL:.0e})")
+    if (loss_err > VIVIT_TRAIN_TOL or worst_rest[1] > VIVIT_TRAIN_TOL
+            or worst_loose[1] > VIVIT_TEMPORAL_QK_TOL):
+        failed.append("the step disagrees with its plain version")
+
+    # The comparison's power: the plain step with di left out of the dQ
+    # twin's ds, and with the dK/dV twin's dv off by 10%
+    def dq_no_di(q, k, v, do, lse, di, sm_scale):
+        return fa.flash_mha_bwd_dq_plain(q, k, v, do, lse,
+                                         torch.zeros_like(di), sm_scale)
+
+    def dkv_dv_off(*args):
+        dk, dv = fa.flash_mha_bwd_dkv_plain(*args)
+        return dk, (dv.float() * 1.10).to(dv.dtype)
+
+    with swapped(*flash_plain_swaps(dq=dq_no_di, dkv=dkv_dv_off)):
+        _, fault_grads = run()
+    ferrs = rel_grad_errs(torch, fault_grads, grads, GRAD_FLOOR)
+    power = {
+        "dq_without_di": min(e for n, e in ferrs.items() if n.startswith(
+            "spatial_") and n.endswith(".attn.query.weight")),
+        "dv_10pct": min(e for n, e in ferrs.items() if n.startswith(
+            "spatial_") and n.endswith(".attn.value.weight"))}
+    log(f"[vivit train] faults, least relative gradient error over the "
+        f"affected parameters: {power} (must exceed tol {VIVIT_TRAIN_TOL:.0e})")
+    if not all(v > VIVIT_TRAIN_TOL for v in power.values()):
+        failed.append(f"the tolerance does not see a backward fault: {power}")
+    del plain_grads, fault_grads
+
+    fixed_cfg = cfg.override({"augment.enabled": False,
+                              "augment.horizontal_flip_prob": 0.0,
+                              "optim.learning_rate": VIVIT_FALL_RATE})
+    model.load_state_dict(init)
+    fixed_state = TrainState(
+        *build_optimizer(fixed_cfg.optim, model.parameters(),
+                         STEPS_PER_EPOCH),
+        float(fixed_cfg.optim.grad_clip_norm))
+    fixed_step = make_train_step(model, fixed_cfg)
+    losses = []
+    for _ in range(VIVIT_FALL_STEPS):
+        _, m = fixed_step(fixed_state, *batch,
+                          torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        losses.append(float(m["loss"]))
+    log(f"[vivit train] fixed batch, augmentation off: losses {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"the loss did not fall: {losses}")
+
+    # remat re-runs each spatial block's forward in the backward: the same
+    # loss and gradients, K4's forward launched twice per block
+    small = batch_of(VIVIT_REMAT_BATCH, 15)
+    remat = {}
+    for on in (False, True):
+        m_, s_, step_ = fresh(cfg.override({"model.remat": on}))
+        c = zero_counters()
+        _, met = step_(s_, *small,
+                       torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        torch.cuda.synchronize()
+        expect_launches(f"vivit train remat={on}", c,
+                        K4_fwd=VIVIT_BLOCKS * (2 if on else 1),
+                        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS)
+        remat[on] = (float(met["loss"]), grads_of(m_))
+        del m_, s_, step_
+    remat_loss = abs(remat[True][0] - remat[False][0]) / abs(remat[False][0])
+    remat_err = max(rel_grad_errs(torch, remat[True][1], remat[False][1],
+                                  GRAD_FLOOR).values())
+    # the recomputed forward repeats the first on the same inputs; 1e-6
+    # leaves room for a library kernel that sums in another order when run
+    # inside the backward
+    log(f"[vivit train] remat on vs off at B={VIVIT_REMAT_BATCH}: relative "
+        f"|Δloss| {remat_loss:.3e}, worst relative gradient difference "
+        f"{remat_err:.3e} (tol 1e-6)")
+    if remat_loss > 1e-6 or remat_err > 1e-6:
+        failed.append("remat changed the loss or a gradient")
+    del remat
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"ViViT training step: {failed}")
+    return {"cfg": cfg, "model": model, "state": state, "step": step,
+            "batch": batch,
+            "summary": {"launches": launches, "metrics": metrics,
+                        "first_step_s": first_s,
+                        "plain_metrics": plain_metrics,
+                        "loss_rel_err": loss_err,
+                        "worst_grad_rel_err": worst, "tol": VIVIT_TRAIN_TOL,
+                        "worst_temporal_qk": worst_loose,
+                        "tol_temporal_qk": VIVIT_TEMPORAL_QK_TOL,
+                        "worst_other": worst_rest,
+                        "faults_least_rel_err": power,
+                        "fixed_batch_losses": losses,
+                        "fixed_batch_rate": VIVIT_FALL_RATE,
+                        "remat_loss_diff": remat_loss,
+                        "remat_worst_grad_rel_diff": remat_err}}
+
+
+def time_vivit_training(torch, dev, tr):
+    """The ViViT training step with "flash" and with "xla" attention in
+    turns, peak memory of each, ``train_preprocess`` alone, and the
+    profile of the "flash" step."""
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        train_preprocess)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    cfg = tr["cfg"]
+    batch = tr["batch"]
+    xla_cfg = cfg.override({"model.attention_impl": "xla"})
+    xla_model, xla_state = create_train_state(
+        xla_cfg, torch.Generator().manual_seed(13),
+        steps_per_epoch=STEPS_PER_EPOCH)
+    variants = {"flash": (tr["state"], tr["step"]),
+                "xla": (xla_state, make_train_step(xla_model, xla_cfg))}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = in_turns(torch, "vivit train time", {
+        name: (lambda st=st, fn=fn: fn(st, *batch, gen))
+        for name, (st, fn) in variants.items()},
+        lambda fn: median_step_ms(torch, fn, warmup=2, iters=TRAIN_TIME_ITERS),
+        batch[0].shape[0])
+    del variants["xla"], xla_model, xla_state
+    torch.cuda.empty_cache()
+    pre_ms = median_step_ms(torch, lambda: train_preprocess(
+        gen, batch[0], cfg.augment, cfg.data.frame_size,
+        getattr(torch, cfg.model.dtype)), warmup=1, iters=TRAIN_TIME_ITERS)
+    out["train_preprocess_ms"] = pre_ms
+    out["train_preprocess_share"] = pre_ms / out["flash"]["ms"]
+    log(f"[vivit train time] train_preprocess {pre_ms:.2f} ms "
+        f"({out['train_preprocess_share']:.3f} of the flash step)")
+    out["profile"] = profile_device(
+        torch, "vivit train", lambda: tr["step"](tr["state"], *batch, gen), 1,
+        {"K4 fwd": "flash_fwd_kernel", "K4 bwd dKdV": "flash_bwd_dkv_kernel",
+         "K4 bwd dQ": "flash_bwd_dq_kernel"})
+    return out
+
+
+def time_flash_kernels(torch, dev, inputs):
+    """K4's kernels per launch at FLASH_MAIN (the main path's shape; rows of
+    the kernels line) and at the other whole-model bf16 shapes: the kernel,
+    its plain version, ``F.scaled_dot_product_attention`` forward and
+    backward (one call that returns dq, dk and dv, so both backward kernels
+    carry its time), and the bound worked from the shape."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+    rows, by_shape = [], []
+    g = torch.Generator().manual_seed(21)
+    for shape in FLASH_SHAPES[:4]:
+        B, S, H, D, dtype = shape
+        main = shape == FLASH_MAIN
+        if main:
+            q, k, v, do, o, lse, di = inputs["K4"]
+        else:
+            q, k, v, do = flash_inputs(torch, shape, dev, g)
+            o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
+            di = fa._row_dot(o, do)
+        scale = D ** -0.5
+        n, stats = q.numel(), B * H * S * 4
+        heads = B * H
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        with torch.no_grad():
+            fwd_ms = median_ms(torch, lambda: fa.flash_mha(q, k, v, scale))
+            lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale))
+        fwd_lse_ms = median_ms(torch, lambda: fa.flash_mha_fwd(q, k, v, scale))
+        args = (q, k, v, do, lse, di, scale)
+        dkv_ms = median_ms(torch, lambda: fa.flash_mha_bwd_dkv(*args))
+        dq_ms = median_ms(torch, lambda: fa.flash_mha_bwd_dq(*args))
+        di_ms = median_ms(torch, lambda: fa._row_dot(o, do))
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dot, retain_graph=True))
+        del lib_out, leaves
+        rec = {"shape": list(shape), "fwd_ms": fwd_ms,
+               "fwd_with_lse_ms": fwd_lse_ms, "dkv_ms": dkv_ms,
+               "dq_ms": dq_ms, "di_ms": di_ms, "library_fwd_ms": lib_fwd,
+               "library_bwd_ms": lib_bwd,
+               "fwd_tflops": 4 * S * S * D * heads / fwd_ms / 1e9,
+               "bwd_tflops": 14 * S * S * D * heads / (dkv_ms + dq_ms) / 1e9}
+        by_shape.append(rec)
+        log(f"[time] K4 {list(shape)}: fwd {fwd_ms:.4f} ms "
+            f"({rec['fwd_tflops']:.1f} TFLOP/s; with lse {fwd_lse_ms:.4f}; "
+            f"library {lib_fwd:.4f}), dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f} "
+            f"({rec['bwd_tflops']:.1f} TFLOP/s over both; library backward "
+            f"{lib_bwd:.4f}), di {di_ms:.4f}")
+        if not main:
+            continue
+        with torch.no_grad():
+            plain = {"K4 fwd": median_ms(
+                torch, lambda: fa.flash_mha_plain(q, k, v, scale), iters=5)}
+        plain["K4 bwd dKdV"] = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dkv_plain(*args), iters=5)
+        plain["K4 bwd dQ"] = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dq_plain(*args), iters=5)
+        # bytes: each input read once, each output written once (bf16; lse
+        # and di float32); flops: 2·S²·D per product and (batch, head)
+        work = {"K4 fwd": (fwd_ms, 4 * n * 2, 4, lib_fwd),
+                "K4 bwd dKdV": (dkv_ms, 6 * n * 2 + 2 * stats, 8, lib_bwd),
+                "K4 bwd dQ": (dq_ms, 5 * n * 2 + 2 * stats, 6, lib_bwd)}
+        for kernel, (ms, n_bytes, products, lib) in work.items():
+            b, by = bound_ms(n_bytes, products * S * S * D * heads, BF16_FLOPS)
+            rows.append({"kernel": kernel, "shape": list(shape),
+                         "per_forward": VIVIT_BLOCKS, "ms": ms,
+                         "plain_ms": plain[kernel], "library_ms": lib,
+                         "bound_ms": b, "bound_by": by})
+    for r in rows:
+        log(f"[time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
+            f"{r['library_ms']:.4f})")
+    return rows, by_shape
+
+
+def profile_device(torch, tag, run, n, groups):
+    """Device time by kernel over ``n`` runs (torch.profiler), grouped by
+    kernel-name substrings, and the device's idle share of the window's
+    wall time (inflated by the profiler's own cost on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append({"kernel": e.key, "ms": us / 1e3 / n,
+                     "launches": e.count / n})
+    busy = sum(r["ms"] for r in rows)
+    if busy <= 0:
+        log(f"[{tag} profile] the profiler recorded no device time: "
+            "not measured")
+        return None
+    by_group = {g: sum(r["ms"] for r in rows if key in r["kernel"])
+                for g, key in groups.items()}
+    by_group["other"] = busy - sum(by_group.values())
+    rows.sort(key=lambda r: -r["ms"])
+    idle = max(0.0, 1.0 - busy / wall_ms)
+    log(f"[{tag} profile] device busy {busy:.3f} ms of {wall_ms:.3f} ms wall "
+        f"per run (idle share {idle:.3f}); by kernel: "
+        + ", ".join(f"{g} {v:.3f}" for g, v in by_group.items()))
+    for r in rows[:12]:
+        log(f"[{tag} profile]   {r['ms']:.3f} ms x{r['launches']:.0f} "
+            f"{r['kernel'][:100]}")
+    return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
+            "by_group_ms": by_group, "top": rows[:25]}
 
 
 # ---- 4. timing ---------------------------------------------------------
@@ -976,95 +1782,36 @@ def time_kernels(torch, dev, inputs):
 
 def time_forward(torch, serve):
     """The serving forward with both kernels in the blocks (the default),
-    with one of them, and with stock blocks, timed in turns: A B C D, then
-    D C B A; each variant's time is the mean of its two medians."""
+    with one of them, and with stock blocks, in turns (``in_turns``)."""
     from vision_collision_detection_tpu_torch.infer.predictor import (
         CollisionPredictor)
 
     frames = serve["frames"]
-    B = frames.shape[0]
     forwards = {"kernels": serve["forward"]}
     for name, dw, mlp in (("k2_only", True, False), ("k3_only", False, True),
                           ("stock", False, False)):
         pred = CollisionPredictor(serve["pred"].cfg, None, dwconv_kernel=dw,
                                   fused_mlp=mlp)
         forwards[name] = pred._make_forward(True)
-    times = {name: [] for name in forwards}
-    for order in (list(forwards), list(forwards)[::-1]):
-        for name in order:
-            fwd = forwards[name]
-            times[name].append(
-                median_ms(torch, lambda: fwd(frames), warmup=2, iters=10))
-    out = {}
-    for name, ts in times.items():
-        ms = sum(ts) / len(ts)
-        out[name] = {"ms_per_batch": ms, "clips_per_s": B / ms * 1e3,
-                     "batch": B, "rounds_ms": ts}
-        log(f"[forward] {name} blocks: {ms:.3f} ms per batch of {B}, "
-            f"{B / ms * 1e3:.2f} clips/s (rounds {ts[0]:.3f}, {ts[1]:.3f})")
-    torch.cuda.reset_peak_memory_stats()
-    serve["forward"](frames)
-    torch.cuda.synchronize()
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    return out
-
-
-def profile_forward(torch, serve):
-    """Device time by kernel over three serving forwards (torch.profiler),
-    and the device's idle share of the window's wall time (inflated by
-    the profiler's own cost on the host)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fwd, frames = serve["forward"], serve["frames"]
-    n = 3
-    fwd(frames)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fwd(frames)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        rows.append({"kernel": e.key, "ms": us / 1e3 / n,
-                     "launches": e.count / n})
-    busy = sum(r["ms"] for r in rows)
-    if busy <= 0:
-        log("[profile] the profiler recorded no device time: not measured")
-        return None
-    groups = {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_kernel",
-              "K3": "convnext_mlp_kernel"}
-    by_group = {g: sum(r["ms"] for r in rows if key in r["kernel"])
-                for g, key in groups.items()}
-    by_group["other"] = busy - sum(by_group.values())
-    rows.sort(key=lambda r: -r["ms"])
-    idle = max(0.0, 1.0 - busy / wall_ms)
-    log(f"[profile] device busy {busy:.3f} ms of {wall_ms:.3f} ms wall per "
-        f"forward (idle share {idle:.3f}); by kernel: "
-        + ", ".join(f"{g} {v:.3f}" for g, v in by_group.items()))
-    for r in rows[:12]:
-        log(f"[profile]   {r['ms']:.3f} ms x{r['launches']:.0f} "
-            f"{r['kernel'][:100]}")
-    return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
-            "by_group_ms": by_group, "top": rows[:25]}
+    return in_turns(
+        torch, "forward",
+        {name: (lambda fwd=fwd: fwd(frames)) for name, fwd in forwards.items()},
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10), frames.shape[0])
 
 
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
-    runs (the serving forward and the training step, each counted from 0),
-    with the split in ``launches_by_path``; ms, plain_ms, bound_ms and
-    library_ms cover one pass over the stages (K1: one launch; the others:
-    the 18 launches of one pass through the blocks)."""
+    runs (the serving forward and the training step of the flagship and of
+    the scaled ViViT, each counted from 0), with the split in
+    ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
+    pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
+    pass through the ConvNeXt blocks; K4: the 8 launches of one pass
+    through the spatial blocks). Both K4 backward kernels carry the
+    library's whole backward as library_ms: it is one call."""
     csrc = "vision_collision_detection_tpu_torch/ops/csrc/"
     tpu = "vision_collision_detection_tpu/ops/"
+    # K4's pallas_call sits in the JAX library the TPU wrapper calls
+    lib = " (jax/experimental/pallas/ops/tpu/flash_attention.py:"
     meta = {
         "K1": ("dequant_pad", csrc + "dequant_pad.cu",
                tpu + "pallas_ops.py:81"),
@@ -1075,6 +1822,12 @@ def kernel_line(compare_rows, launches, timing):
                tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
+        "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention.cu",
+                   tpu + "flash_attention.py:96" + lib + "758)"),
+        "K4 bwd dKdV": ("flash_mha_bwd_dkv", csrc + "flash_attention_bwd.cu",
+                        tpu + "flash_attention.py:96" + lib + "1121)"),
+        "K4 bwd dQ": ("flash_mha_bwd_dq", csrc + "flash_attention_bwd.cu",
+                      tpu + "flash_attention.py:96" + lib + "1456)"),
     }
     out = []
     for k, (name, src, replaces) in meta.items():

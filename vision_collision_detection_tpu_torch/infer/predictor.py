@@ -3,7 +3,9 @@
 Counterpart of ``vision_collision_detection_tpu/infer/predictor.py``
 (``CollisionPredictor``: ``_make_forward``, ``_fold_stride``,
 ``display_results``). The path is K1 (``eval_preprocess``) → ConvNeXt with
-K2 and K3 in every block → bi-GRU → classifier MLP → softmax.
+K2 and K3 in every block → bi-GRU → classifier MLP → softmax; or, for a
+ViViT backbone, K1 → patch embedding → spatial blocks (K4 with
+``attention_impl="flash"``) → temporal blocks → head → softmax.
 
 ``predict(paths)``, ``evaluate`` and the sliding-window forward wait for
 the port of the C++ decoder (ROADMAP.md): this slice starts where the
@@ -37,7 +39,8 @@ class CollisionPredictor:
         self.device = resolve_device(device)
         self.model = build_model(cfg.model, device=self.device,
                                  dwconv_kernel=dwconv_kernel,
-                                 fused_mlp=fused_mlp)
+                                 fused_mlp=fused_mlp,
+                                 frame_size=cfg.data.frame_size)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.class_names = tuple(cfg.data.class_names)
@@ -71,8 +74,15 @@ class CollisionPredictor:
         return _forward
 
     def _fold_stride(self) -> int:
+        """The stride the decoder may keep frames at because the model
+        would subsample them anyway. A ViViT never subsamples, so its
+        stride is 1: the JAX predictor folds by ``frame_subsample`` for
+        every backbone, which hands a ViViT half the frames its unfolded
+        forward sees."""
         m = self.cfg.model
         T = self.cfg.data.num_frames
+        if m.backbone.startswith("vivit"):
+            return 1
         if m.frame_subsample > 1 and T > m.subsample_threshold:
             return m.frame_subsample
         return 1

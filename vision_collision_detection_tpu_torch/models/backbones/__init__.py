@@ -1,7 +1,9 @@
 """Frame-backbone registry (ConvNeXt family so far).
 
 Each backbone is an ``nn.Module`` taking NHWC frames [N, H, W, 3] and
-returning pooled per-frame float32 features [N, D].
+returning pooled per-frame float32 features [N, D]. The ViViT widths stand
+in ``feature_dim`` only: a ViViT is a whole video model
+(``models/vivit.py``), built by ``build_model``, not a frame backbone.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ _FEATURE_DIMS = {
     "convnext_tiny": 768,
     "convnext_base": 1024,
     "convnext_large": 1536,
+    "vivit_tiny": 64,
+    "vivit_small": 384,
+    "vivit_base": 768,
 }
 
 

@@ -3,8 +3,8 @@
 ``load_npz`` reads the flattened ``.npz`` tree that the JAX package's
 ``models/convert.py`` ``save_npz`` writes (keys are ``/``-joined paths), so
 the port needs neither JAX nor orbax to read it. ``from_flax_params`` maps a
-flax parameter tree of ``VideoClassifierModel`` onto this package's
-``state_dict``:
+flax parameter tree of ``VideoClassifierModel`` or ``ViViT`` onto this
+package's ``state_dict``:
 
 =====================================  =====================================
 flax                                   torch
@@ -16,6 +16,10 @@ LayerNorm scale / bias                 weight / bias
 GRU ir/iz/in kernels and biases        weight_ih_l0{,_reverse} / bias_ih (r, z, n)
 GRU hr/hz/hn kernels                   weight_hh_l0{,_reverse}
 GRU hn bias                            bias_hh = [0, 0, b_hn]
+attention query/key/value kernel       Linear weight [H·D, dim], bias [H·D]
+[dim, H, D], bias [H, D]
+attention out kernel [H, D, dim]       Linear weight [dim, H·D]
+spatial_pos / temporal_pos             the same name, unchanged
 =====================================  =====================================
 
 The forward GRU direction comes from ``fw_cell``, the reverse from
@@ -79,7 +83,7 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
     for name, child in node.items():
         path = f"{prefix}{name}"
         if not isinstance(child, Mapping):
-            if name == "gamma":
+            if name in ("gamma", "spatial_pos", "temporal_pos"):
                 out[path] = _t(child)
                 continue
             raise KeyError(f"unexpected parameter leaf {path!r}")
@@ -107,11 +111,17 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
                 w = k.permute(3, 2, 0, 1).contiguous()
             elif k.dim() == 2:
                 w = k.t().contiguous()
+            elif k.dim() == 3 and name in ("query", "key", "value"):
+                # DenseGeneral over heads: [dim, H, D], bias [H, D]
+                w = k.reshape(k.shape[0], -1).t().contiguous()
+            elif k.dim() == 3 and name == "out":
+                # DenseGeneral back from heads: [H, D, dim]
+                w = k.reshape(-1, k.shape[-1]).t().contiguous()
             else:
                 raise KeyError(f"unexpected kernel rank {k.dim()} at {path!r}")
             out[f"{path}.weight"] = w
             if "bias" in child:
-                out[f"{path}.bias"] = _t(child["bias"])
+                out[f"{path}.bias"] = _t(child["bias"]).reshape(-1)
             continue
         if "scale" in child:
             if set(child) != {"scale", "bias"}:
@@ -126,7 +136,8 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
 def from_flax_params(tree: Mapping, *, dwconv_kernel: bool = True
                      ) -> Dict[str, torch.Tensor]:
     """flax params (nested dict of arrays; a ``{"params": ...}`` variables
-    tree is unwrapped) → float32 ``state_dict`` of ``VideoClassifierModel``.
+    tree is unwrapped) → float32 ``state_dict`` of ``VideoClassifierModel``
+    or ``ViViT``.
     ``dwconv_kernel`` must match the model's blocks: it picks the depthwise
     weight layout."""
     if "params" in tree:

@@ -116,15 +116,25 @@ class VideoClassifierModel(nn.Module):
 
 def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
                 fused_mlp=None,
-                generator: Optional[torch.Generator] = None
-                ) -> VideoClassifierModel:
+                generator: Optional[torch.Generator] = None,
+                frame_size: Optional[int] = None) -> nn.Module:
     """The model of ``cfg`` on ``device`` (default: the card), in eval mode,
     with weights drawn by ``init_weights`` from ``generator`` (a CPU
-    ``torch.Generator``; default: one seeded 0)."""
-    if cfg.backbone.startswith("vivit"):
-        raise NotImplementedError(
-            "ViViT is not ported yet (ROADMAP.md, queue 1, item 15)")
+    ``torch.Generator``; default: one seeded 0). ``frame_size``: the side of
+    the square frames the model will see (default ``cfg.image_size``); a
+    ViViT sizes its spatial position table from it, as flax does from the
+    input it is initialised on."""
     dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if cfg.backbone.startswith("vivit"):
+        from vision_collision_detection_tpu_torch.models.vivit import (
+            build_vivit,
+        )
+
+        model = build_vivit(cfg, frame_size)
+        init_weights(model, generator)
+        return model.to(dev).eval()
     model = VideoClassifierModel(
         backbone=cfg.backbone, temporal_mode=cfg.temporal_mode,
         num_classes=cfg.num_classes, hidden_dim=cfg.hidden_dim,
@@ -137,8 +147,7 @@ def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
         gelu_approximate=cfg.gelu_approximate,
         dtype=getattr(torch, cfg.dtype), dwconv_kernel=dwconv_kernel,
         fused_mlp=fused_mlp)
-    init_weights(model, generator if generator is not None
-                 else torch.Generator().manual_seed(0))
+    init_weights(model, generator)
     return model.to(dev).eval()
 
 
@@ -152,7 +161,11 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):
 def init_weights(model: nn.Module, g: torch.Generator) -> None:
     """Draw every parameter from ``g`` with the flax initialisers' laws:
     lecun-normal kernels, orthogonal recurrent kernels, zero biases, unit
-    LayerNorm scales; layer-scale γ keeps its constructor value."""
+    LayerNorm scales, N(0, 0.02²) position tables; layer-scale γ keeps its
+    constructor value."""
+    for name, p in model.named_parameters():
+        if name in ("spatial_pos", "temporal_pos"):
+            nn.init.normal_(p, 0.0, 0.02, generator=g)
     for module in model.modules():
         if isinstance(module, nn.Conv2d):
             fan_in = module.weight[0].numel()

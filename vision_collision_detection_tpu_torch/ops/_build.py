@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_int64)  # host array of element strides
 # C entry → argument types (pointers and the stream as void*).
 _SIGNATURES = {
     "vcd_dequant_pad": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I,
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "vcd_dwconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_train": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "vcd_flash_fwd": [_P] * 5 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
+    "vcd_flash_bwd_dkv": [_P] * 8 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
+    "vcd_flash_bwd_dq": [_P] * 7 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _lib = None

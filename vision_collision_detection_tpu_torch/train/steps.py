@@ -3,8 +3,8 @@
 Counterpart of ``vision_collision_detection_tpu/train/steps.py``. A train
 step takes uint8 letterbox-content frames [B, T, ch, cw, 3], runs
 ``train_preprocess`` (flip, letterbox, augmentation, normalisation), the
-model's forward in train mode, ``weighted_loss``, the backward (K2's and
-K3's through their ``autograd.Function``s), gradient clipping and the
+model's forward in train mode, ``weighted_loss``, the backward (K2's, K3's
+and K4's through their ``autograd.Function``s), gradient clipping and the
 optimizer with its scheduled rate. Eager PyTorch around the hand-written
 kernels; no ``torch.compile``.
 
@@ -97,7 +97,8 @@ def create_train_state(cfg: ExperimentConfig, generator: torch.Generator,
     ``generator`` (a CPU generator: the model is initialised there and
     moved to ``device``, by default the card), then the pretrained backbone
     is loaded where the config names one."""
-    model = build_model(cfg.model, device=device, generator=generator)
+    model = build_model(cfg.model, device=device, generator=generator,
+                        frame_size=cfg.data.frame_size)
     if cfg.model.pretrained_path:
         load_pretrained_backbone(model, cfg.model.pretrained_path)
     opt, schedule = build_optimizer(cfg.optim, model.parameters(),
