@@ -56,31 +56,34 @@ failure:
    step: device time of K2 (forward and dx), K2 wgrad, K3 train, K3's
    torch backward, ``train_preprocess`` and the rest, and the idle share.
 
-8. Hold K4's three kernels (flash attention forward, backward dK/dV,
-   backward dQ) against ``flash_mha_plain`` and its written-out backward
-   at [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576,
-   6, 64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and
-   200, a length of 4, head_dim 16 and float32 inputs: o and the
-   log-sum-exp, dq, dk, dv on their largest and mean error (FLASH
-   tolerances in ``flash_tols``), the backward bit-equal over two runs,
-   strided views read without a copy, unsupported shapes refused. Faulty
-   plain versions (the scale dropped, keys past S attended, the last key
-   tile out of the normaliser, di left out of ds) must land outside. (Run
-   with phase 2.)
+8. Hold K4's kernels (flash attention forward, backward dK/dV, backward
+   dQ, and the backward's row kernel di = Σ o·do) against
+   ``flash_mha_plain``, its written-out backward and ``_row_dot`` at
+   [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576, 6,
+   64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and 200,
+   the lengths on the edges of the backward's 64-, 128- and 192-row tiles
+   (1, 63, 65, 127, 129, 193, 1030), a length of 4, head_dim 16 and
+   float32 inputs: o and the log-sum-exp, dq, dk, dv on their largest and
+   mean error (FLASH tolerances in ``flash_tols``), di within 2^-20 of
+   Σ|o·do|, the backward bit-equal over two runs, strided views read
+   without a copy, unsupported shapes refused. Faulty plain versions (the
+   scale dropped, keys past S attended, the last key tile out of the
+   normaliser, di left out of ds, do's last 8 columns left out of di)
+   must land outside. (Run with phase 2.)
 9. Run the scaled ViViT configuration's serving forward (vivit_small, 32
    frames of 336², ``attention_impl="flash"``) through
    ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
    uint8 batch [8, 32, 189, 336, 3]: launches K1 1, K4 fwd 8, all else 0;
    probabilities that spread; agreement with the same forward on plain
    versions, where the scale dropped in one block must not agree.
-10. Time K4's kernels, their plain versions and
-    ``F.scaled_dot_product_attention`` forward and backward
+10. Time K4's kernels (the di kernel beside ``_row_dot``), their plain
+    versions and ``F.scaled_dot_product_attention`` forward and backward
     (``library_ms``); the ViViT forward with "flash" and "xla" attention
     in turns, its peak memory and profile.
 11. Run one training step of the scaled configuration
     (``create_train_state``, ``make_train_step``, default augmentation
     with blur off) on a uint8 batch [8, 32, 189, 336, 3]: launches K4 fwd
-    8, dK/dV 8, dQ 8; every parameter a finite gradient, every spatial
+    8, dK/dV 8, dQ 8, di 8; every parameter a finite gradient, every spatial
     block's projections a nonzero one; the step on plain versions must
     agree (VIVIT_TRAIN_TOL), where di left out of dQ's ds and dv off by 10%
     must not; the loss must fall on a fixed batch; ``remat`` on and off
@@ -181,7 +184,7 @@ def main() -> int:
     log(f"[build] {lib_path} in {report['build_s']:.1f} s")
     for logf in sorted(lib_path.parent.glob("*.log")):
         for line in logf.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"[ptxas {logf.stem}] {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -553,7 +556,9 @@ def compare_train_kernels(torch, dev, inputs):
 # (B, S, H, D, dtype name): the scaled configuration's shape, the kernel A/B
 # shape of the JAX package's record, 448² frames, vivit_base's heads, ragged
 # tiles (S no multiple of 64), a sequence shorter than a tile, head_dim 16
-# (vivit_tiny) and float32 inputs.
+# (vivit_tiny) and float32 inputs; then the lengths on the edges of the
+# backward kernels' tiles (64 rows a warpgroup, 128 keys a dK/dV block, 192
+# queries a dQ block) and one past 1,024.
 FLASH_MAIN = (256, 576, 6, 64, "bfloat16")
 FLASH_SHAPES = (
     FLASH_MAIN,
@@ -566,6 +571,13 @@ FLASH_SHAPES = (
     (4, 200, 4, 16, "bfloat16"),
     (2, 200, 4, 16, "float32"),
     (2, 130, 6, 64, "float32"),
+    (3, 1, 2, 64, "bfloat16"),
+    (2, 63, 2, 64, "bfloat16"),
+    (2, 65, 2, 64, "bfloat16"),
+    (2, 127, 2, 64, "bfloat16"),
+    (2, 129, 2, 64, "bfloat16"),
+    (2, 193, 3, 64, "bfloat16"),
+    (2, 1030, 2, 64, "bfloat16"),
 )
 
 
@@ -595,12 +607,12 @@ def flash_tols(torch, ref, dtype):
 
 
 def compare_flash_kernels(torch, dev):
-    """K4's three kernels against ``flash_mha_plain`` and
-    its two plain backward versions at FLASH_SHAPES: o and the log-sum-exp, then dq,
-    dk, dv on the kernel's own o and lse (so the backward is held alone),
-    the backward bit-equal over two runs, the autograd Function equal to
-    the direct calls, strided views read without a copy. Faulty plain
-    versions must land outside the tolerances."""
+    """K4's kernels against ``flash_mha_plain``, its two plain backward
+    versions and ``_row_dot`` at FLASH_SHAPES: o and the log-sum-exp, di on
+    the kernel's o, then dq, dk, dv on the kernel's own o, lse and di (so
+    the backward is held alone), the backward bit-equal over two runs, the
+    autograd Function equal to the direct calls, strided views read without
+    a copy. Faulty plain versions must land outside the tolerances."""
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(11)
@@ -608,11 +620,25 @@ def compare_flash_kernels(torch, dev):
     record = recorder(rows, failed)
     inputs = {}
 
-    def held(name, shape, got, ref, dtype, entry):
-        tol, mean_tol = flash_tols(torch, ref, dtype)
+    def held(name, shape, got, ref, dtype, entry, floor=0.0):
+        tol, mean_tol = (max(t, floor) for t in flash_tols(torch, ref, dtype))
         record(name, shape, max_err(torch, got, ref), tol,
                mean_err(torch, got, ref), mean_tol, entry=entry)
         return tol, mean_tol
+
+    def di_held(name, shape, o, do):
+        """The row kernel against ``_row_dot``: float32 sums of D products
+        taken in another order, so 2^-20 of the largest Σ|o·do| of a row;
+        then bit-equal over two runs. → (di, its tolerance)."""
+        di = fa.flash_mha_bwd_di(o, do)
+        tol = float((o.float() * do.float()).abs().sum(-1).max()) * 2 ** -20
+        record(f"K4 bwd di{name}", shape,
+               max_err(torch, di, fa._row_dot(o, do)), tol,
+               entry="K4 bwd di")
+        record(f"K4 bwd di{name} twice (bit-equal)", shape,
+               max_err(torch, di, fa.flash_mha_bwd_di(o, do)), 0.0,
+               entry="K4 bwd di")
+        return di, tol
 
     def outside(got, ref, tols):
         return (max_err(torch, got, ref) > tols[0]
@@ -639,13 +665,20 @@ def compare_flash_kernels(torch, dev):
         record("K4 fwd without lse (bit-equal)", lst,
                max_err(torch, o_nolse, o), 0.0, entry="K4 fwd")
 
-        di = fa._row_dot(o, do)
+        di, tol_di = di_held("", lst, o, do)
         dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
         dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
         dq_ref, dk_ref, dv_ref = bwd_plain(q, k, v, do, lse, di, scale)
         torch.cuda.synchronize()
-        tol_dq = held("K4 bwd dq", lst, dq, dq_ref, dtype, "K4 bwd dQ")
-        tol_dk = held("K4 bwd dk", lst, dk, dk_ref, dtype, "K4 bwd dKdV")
+        # With one key the softmax has one weight and dq and dk are 0 in
+        # exact arithmetic: both versions return the float32 rounding noise
+        # of do·v − di times the scale, which is held to 2^-20 of the largest
+        # Σ|do·v| where a share of a reference that is 0 would hold nothing.
+        floor = 0.0 if S > 1 else scale * 2 ** -20 * float(
+            (do.float() * v.float()).abs().sum(-1).max())
+        tol_dq = held("K4 bwd dq", lst, dq, dq_ref, dtype, "K4 bwd dQ", floor)
+        tol_dk = held("K4 bwd dk", lst, dk, dk_ref, dtype, "K4 bwd dKdV",
+                      floor)
         tol_dv = held("K4 bwd dv", lst, dv, dv_ref, dtype, "K4 bwd dKdV")
         dk2, dv2 = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
         dq2 = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
@@ -653,7 +686,7 @@ def compare_flash_kernels(torch, dev):
                max(max_err(torch, a, b) for a, b in
                    ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0,
                entry="K4 bwd dKdV")
-        # the autograd Function runs the same three launches
+        # the autograd Function runs the same four launches
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         grads = torch.autograd.grad(fa.flash_mha(*leaves, scale), leaves, do)
         record("K4 through autograd (bit-equal)", lst,
@@ -696,6 +729,12 @@ def compare_flash_kernels(torch, dev):
                            max_abs_err=max_err(torch, got, wrong),
                            mean_abs_err=mean_err(torch, got, wrong))
             del no_di, no_scale
+            # a fault in di's plain version: the last 8 columns left out
+            short = fa._row_dot(o[..., :-8], do[..., :-8])
+            fault_seen(faults, failed, "K4 bwd di without do's last 8 "
+                       "columns", lst, max_err(torch, di, short) > tol_di,
+                       max_abs_err=max_err(torch, di, short))
+            del short
         if shape == FLASH_MAIN:
             inputs["K4"] = (q, k, v, do, o, lse, di)
         del q, k, v, do, o, lse, di, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
@@ -710,7 +749,13 @@ def compare_flash_kernels(torch, dev):
         dev, torch.bfloat16).permute(0, 2, 1, 3)
     fa.flash_mha.copies = 0
     o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
-    di = fa._row_dot(o, do)
+    # di on o as a transposed view too (the saved o is contiguous in the
+    # model; do is the view that arrives in training)
+    o_view = o.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    di, _ = di_held(" on strided views", [B, S, H, D], o_view, do)
+    record("K4 bwd di strided views vs contiguous (bit-equal)", [B, S, H, D],
+           max_err(torch, di, fa.flash_mha_bwd_di(o, do.contiguous())), 0.0,
+           entry="K4 bwd di")
     dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, D ** -0.5)
     dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, D ** -0.5)
     qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
@@ -733,6 +778,12 @@ def compare_flash_kernels(torch, dev):
             log(f"[compare] K4 refuses {tuple(bad_q.shape)} {bad_q.dtype}: {e}")
         else:
             failed.append(f"K4 took {tuple(bad_q.shape)} {bad_q.dtype}")
+        try:
+            fa.flash_mha_bwd_di(bad_q, bad_q)
+        except ValueError:
+            pass
+        else:
+            failed.append(f"K4 bwd di took {tuple(bad_q.shape)} {bad_q.dtype}")
     if failed:
         raise SystemExit(f"K4 disagrees with its plain version: {failed}")
     return {"rows": rows, "faults": faults, "inputs": inputs}
@@ -853,7 +904,8 @@ def kernel_counters():
             "K2 wgrad": k2.dwconv7x7_wgrad, "K3": k3.convnext_mlp,
             "K3 train": k3.convnext_mlp_train, "K4 fwd": fa.flash_mha,
             "K4 bwd dKdV": fa.flash_mha_bwd_dkv,
-            "K4 bwd dQ": fa.flash_mha_bwd_dq}
+            "K4 bwd dQ": fa.flash_mha_bwd_dq,
+            "K4 bwd di": fa.flash_mha_bwd_di}
 
 
 def zero_counters():
@@ -1187,13 +1239,14 @@ def vivit_cfg(**more):
 
 
 def flash_plain_swaps(fwd=None, dkv=None, dq=None):
-    """K4's three launches swapped for their plain twins (or for a faulty
+    """K4's four launches swapped for their plain twins (or for a faulty
     twin), as ``swapped`` takes them."""
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
     return ((fa, "_launch_fwd", fwd or fa._flash_fwd_plain),
             (fa, "_launch_bwd_dkv", dkv or fa.flash_mha_bwd_dkv_plain),
-            (fa, "_launch_bwd_dq", dq or fa.flash_mha_bwd_dq_plain))
+            (fa, "_launch_bwd_dq", dq or fa.flash_mha_bwd_dq_plain),
+            (fa, "_launch_bwd_di", fa._row_dot))
 
 
 def vivit_serving(torch, dev):
@@ -1340,7 +1393,7 @@ def vivit_training(torch, dev):
     """One optimizer step of the scaled configuration through
     ``create_train_state`` and ``make_train_step`` on a seeded uint8 batch
     [8, 32, 189, 336, 3] with the default augmentation (blur off): launch
-    counts (each K4 kernel 8), a finite gradient for every parameter and a
+    counts (each K4 kernel 8, the di kernel among them), a finite gradient for every parameter and a
     nonzero one for every spatial block's projections; the same step on
     plain versions; a fault in the dQ kernel's plain twin seen; the loss
     falling on a fixed batch; remat on against off at B=2."""
@@ -1396,7 +1449,8 @@ def vivit_training(torch, dev):
     log(f"[vivit train] first step {first_s:.2f} s, metrics {metrics}")
     launches = expect_launches(
         "vivit train", counters, K4_fwd=VIVIT_BLOCKS,
-        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS)
+        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
+        K4_bwd_di=VIVIT_BLOCKS)
     if not math.isfinite(metrics["loss"]):
         raise SystemExit(f"non-finite loss {metrics}")
     bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
@@ -1489,7 +1543,8 @@ def vivit_training(torch, dev):
         torch.cuda.synchronize()
         expect_launches(f"vivit train remat={on}", c,
                         K4_fwd=VIVIT_BLOCKS * (2 if on else 1),
-                        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS)
+                        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
+                        K4_bwd_di=VIVIT_BLOCKS)
         remat[on] = (float(met["loss"]), grads_of(m_))
         del m_, s_, step_
     remat_loss = abs(remat[True][0] - remat[False][0]) / abs(remat[False][0])
@@ -1559,7 +1614,8 @@ def time_vivit_training(torch, dev, tr):
     out["profile"] = profile_device(
         torch, "vivit train", lambda: tr["step"](tr["state"], *batch, gen), 1,
         {"K4 fwd": "flash_fwd_kernel", "K4 bwd dKdV": "flash_bwd_dkv_kernel",
-         "K4 bwd dQ": "flash_bwd_dq_kernel"})
+         "K4 bwd dQ": "flash_bwd_dq_kernel",
+         "K4 bwd di": "flash_bwd_di_kernel"})
     return out
 
 
@@ -1568,7 +1624,8 @@ def time_flash_kernels(torch, dev, inputs):
     the kernels line) and at the other whole-model bf16 shapes: the kernel,
     its plain version, ``F.scaled_dot_product_attention`` forward and
     backward (one call that returns dq, dk and dv, so both backward kernels
-    carry its time), and the bound worked from the shape."""
+    carry its time), the di kernel beside ``_row_dot``, and the bound worked
+    from the shape."""
     import torch.nn.functional as F
 
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
@@ -1583,7 +1640,7 @@ def time_flash_kernels(torch, dev, inputs):
         else:
             q, k, v, do = flash_inputs(torch, shape, dev, g)
             o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
-            di = fa._row_dot(o, do)
+            di = fa.flash_mha_bwd_di(o, do)
         scale = D ** -0.5
         n, stats = q.numel(), B * H * S * 4
         heads = B * H
@@ -1596,7 +1653,8 @@ def time_flash_kernels(torch, dev, inputs):
         args = (q, k, v, do, lse, di, scale)
         dkv_ms = median_ms(torch, lambda: fa.flash_mha_bwd_dkv(*args))
         dq_ms = median_ms(torch, lambda: fa.flash_mha_bwd_dq(*args))
-        di_ms = median_ms(torch, lambda: fa._row_dot(o, do))
+        di_ms = median_ms(torch, lambda: fa.flash_mha_bwd_di(o, do))
+        row_dot_ms = median_ms(torch, lambda: fa._row_dot(o, do))
         leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
         lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
         lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
@@ -1604,16 +1662,19 @@ def time_flash_kernels(torch, dev, inputs):
         del lib_out, leaves
         rec = {"shape": list(shape), "fwd_ms": fwd_ms,
                "fwd_with_lse_ms": fwd_lse_ms, "dkv_ms": dkv_ms,
-               "dq_ms": dq_ms, "di_ms": di_ms, "library_fwd_ms": lib_fwd,
+               "dq_ms": dq_ms, "di_ms": di_ms, "row_dot_ms": row_dot_ms,
+               "library_fwd_ms": lib_fwd,
                "library_bwd_ms": lib_bwd,
                "fwd_tflops": 4 * S * S * D * heads / fwd_ms / 1e9,
-               "bwd_tflops": 14 * S * S * D * heads / (dkv_ms + dq_ms) / 1e9}
+               "bwd_tflops": 14 * S * S * D * heads / (dkv_ms + dq_ms) / 1e9,
+               "bwd_all_ms": dkv_ms + dq_ms + di_ms}
         by_shape.append(rec)
         log(f"[time] K4 {list(shape)}: fwd {fwd_ms:.4f} ms "
             f"({rec['fwd_tflops']:.1f} TFLOP/s; with lse {fwd_lse_ms:.4f}; "
             f"library {lib_fwd:.4f}), dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f} "
             f"({rec['bwd_tflops']:.1f} TFLOP/s over both; library backward "
-            f"{lib_bwd:.4f}), di {di_ms:.4f}")
+            f"{lib_bwd:.4f}), di kernel {di_ms:.4f} (_row_dot "
+            f"{row_dot_ms:.4f}); dK/dV + dQ + di {rec['bwd_all_ms']:.4f}")
         if not main:
             continue
         with torch.no_grad():
@@ -1623,22 +1684,32 @@ def time_flash_kernels(torch, dev, inputs):
             torch, lambda: fa.flash_mha_bwd_dkv_plain(*args), iters=5)
         plain["K4 bwd dQ"] = median_ms(
             torch, lambda: fa.flash_mha_bwd_dq_plain(*args), iters=5)
+        plain["K4 bwd di"] = row_dot_ms
         # bytes: each input read once, each output written once (bf16; lse
         # and di float32); flops: 2·S²·D per product and (batch, head)
         work = {"K4 fwd": (fwd_ms, 4 * n * 2, 4, lib_fwd),
                 "K4 bwd dKdV": (dkv_ms, 6 * n * 2 + 2 * stats, 8, lib_bwd),
                 "K4 bwd dQ": (dq_ms, 5 * n * 2 + 2 * stats, 6, lib_bwd)}
+        bounds = {kernel: bound_ms(n_bytes, products * S * S * D * heads,
+                                   BF16_FLOPS)
+                  for kernel, (_, n_bytes, products, _) in work.items()}
+        # di: o and do read, di written; a multiply and an add per element on
+        # the CUDA cores. No single PyTorch call returns float32 row sums of
+        # bf16 products, so library_ms is null.
+        work["K4 bwd di"] = (di_ms, 2 * n * 2 + stats, None, None)
+        bounds["K4 bwd di"] = bound_ms(2 * n * 2 + stats, 2 * n, F32_FLOPS)
         for kernel, (ms, n_bytes, products, lib) in work.items():
-            b, by = bound_ms(n_bytes, products * S * S * D * heads, BF16_FLOPS)
+            b, by = bounds[kernel]
             rows.append({"kernel": kernel, "shape": list(shape),
                          "per_forward": VIVIT_BLOCKS, "ms": ms,
                          "plain_ms": plain[kernel], "library_ms": lib,
                          "bound_ms": b, "bound_by": by})
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
         log(f"[time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
-            f"{r['library_ms']:.4f})")
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library {lib})")
     return rows, by_shape
 
 
@@ -1807,7 +1878,9 @@ def kernel_line(compare_rows, launches, timing):
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass
     through the spatial blocks). Both K4 backward kernels carry the
-    library's whole backward as library_ms: it is one call."""
+    library's whole backward as library_ms: it is one call. ``K4 bwd di``
+    is the backward's row kernel: in the JAX library di is jnp beside the
+    two Pallas kernels (the line ``replaces`` names), not a kernel."""
     csrc = "vision_collision_detection_tpu_torch/ops/csrc/"
     tpu = "vision_collision_detection_tpu/ops/"
     # K4's pallas_call sits in the JAX library the TPU wrapper calls
@@ -1824,10 +1897,14 @@ def kernel_line(compare_rows, launches, timing):
                      tpu + "convnext_mlp_pallas.py:160"),
         "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention.cu",
                    tpu + "flash_attention.py:96" + lib + "758)"),
-        "K4 bwd dKdV": ("flash_mha_bwd_dkv", csrc + "flash_attention_bwd.cu",
+        "K4 bwd dKdV": ("flash_mha_bwd_dkv",
+                        csrc + "flash_attention_bwd_wgmma.cu",
                         tpu + "flash_attention.py:96" + lib + "1121)"),
-        "K4 bwd dQ": ("flash_mha_bwd_dq", csrc + "flash_attention_bwd.cu",
+        "K4 bwd dQ": ("flash_mha_bwd_dq",
+                      csrc + "flash_attention_bwd_wgmma.cu",
                       tpu + "flash_attention.py:96" + lib + "1456)"),
+        "K4 bwd di": ("flash_mha_bwd_di", csrc + "flash_attention_bwd.cu",
+                      tpu + "flash_attention.py:96" + lib + "1664)"),
     }
     out = []
     for k, (name, src, replaces) in meta.items():

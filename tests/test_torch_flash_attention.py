@@ -119,6 +119,62 @@ def test_gradients_match_jax_grad_of_the_reference(shape, dtype):
             assert np.abs(_np(t) - r).max() <= bound, name
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_row_term_matches_row_dot_and_the_library(shape, dtype):
+    """``flash_mha_bwd_di`` on the CPU is ``_row_dot``, and both are the
+    library's ``jnp.sum(o.astype(f32) * do.astype(f32), -1)`` (its
+    ``_flash_attention_bwd``), here as [B, H, S]. Both sum D float32
+    products, in another order: 2^-20 of the largest Σ|o·do| of a row."""
+    o, do = _qkv(shape, seed=sum(shape) + 1, n=2)
+    dt = getattr(torch, dtype)
+    to, tdo = (torch.from_numpy(a).to(dt) for a in (o, do))
+    di = fa.flash_mha_bwd_di(to, tdo)
+    assert di.dtype == torch.float32
+    assert tuple(di.shape) == (shape[0], shape[2], shape[1])
+    assert torch.equal(di, fa._row_dot(to, tdo))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jo, jdo = (jnp.asarray(a).astype(jdt) for a in (o, do))
+    want = jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), axis=-1)
+    want = np.asarray(want).transpose(0, 2, 1)
+    tol = float((to.float() * tdo.float()).abs().sum(-1).max()) * 2 ** -20
+    assert np.abs(_np(di) - want).max() <= tol
+
+
+def test_row_term_reads_strided_views():
+    """o and do as transposed views (the gradient arrives so in training)
+    give what their contiguous copies give."""
+    o, do = (torch.from_numpy(a).permute(0, 2, 1, 3)
+             for a in _qkv((2, 3, 9, 16), seed=5, n=2))
+    assert not do.is_contiguous()
+    assert torch.equal(fa.flash_mha_bwd_di(o, do),
+                       fa.flash_mha_bwd_di(o.contiguous(), do.contiguous()))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_prescaled_exponent_form_is_the_plain_backward(shape):
+    """The Hopper backward kernels compute p = 2^(s·scale·log2e − lse·log2e)
+    and ds = p·(dp·scale − di·scale), with lse·log2e and di·scale prepared
+    once per row, where the plain version writes exp(s·scale − lse) and
+    p·(dp − di)·scale. In float32 the two forms differ by roundings of
+    single operations on exponents of order 10: each p within 2^-18
+    relative, ds within 2^-18 of the largest |ds|."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(shape, seed=9, n=4))
+    scale = shape[-1] ** -0.5
+    o, lse = fa._flash_fwd_plain(q, k, v, scale)
+    di = fa._row_dot(o, do)
+    p_ref, ds_ref = fa._bwd_p_ds(q, k, v, do, lse, di, scale)
+    log2e = 1.4426950408889634
+    qf, kf, vf, dof = (fa._heads_first(t) for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    p = torch.exp2(s * (scale * log2e) - (lse * log2e)[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp * scale - (di * scale)[..., None])
+    assert ((p - p_ref).abs() <= p_ref * 2 ** -18 + 1e-30).all()
+    assert float((ds - ds_ref).abs().max()) <= float(
+        ds_ref.abs().max()) * 2 ** -18
+
+
 def test_written_out_backward_is_autograd_of_the_plain_forward():
     shape = (2, 37, 3, 16)
     q, k, v, g = (torch.from_numpy(a) for a in _qkv(shape, seed=3, n=4))
@@ -179,19 +235,23 @@ def test_module_parameters_are_those_of_flax_attention():
 
 
 def test_kernel_path_keeps_the_graph(monkeypatch):
-    """A tensor off the CPU takes the Function's kernel path. With the three
+    """A tensor off the CPU takes the Function's kernel path. With the four
     launches swapped for their plain twins (meta tensors carry shapes only),
     the output must have a grad_fn and the backward must reach q, k and v
-    through the dK/dV and the dQ launch, once each."""
-    calls = []
+    through the di, the dK/dV and the dQ launch, once each, with the shapes
+    and dtypes the C entries take."""
+    calls, seen_args = [], {}
 
     def twin(name, fn):
         def run(*args, **kwargs):
             calls.append(name)
+            seen_args[name] = [(tuple(a.shape), a.dtype) for a in args
+                               if isinstance(a, torch.Tensor)]
             return fn(*args, **kwargs)
         return run
 
     monkeypatch.setattr(fa, "_launch_fwd", twin("fwd", fa._flash_fwd_plain))
+    monkeypatch.setattr(fa, "_launch_bwd_di", twin("di", fa._row_dot))
     monkeypatch.setattr(fa, "_launch_bwd_dkv",
                         twin("dkv", fa.flash_mha_bwd_dkv_plain))
     monkeypatch.setattr(fa, "_launch_bwd_dq",
@@ -203,7 +263,11 @@ def test_kernel_path_keeps_the_graph(monkeypatch):
     params = list(mod.parameters())
     grads = torch.autograd.grad(out.float().sum(), params)
     assert [tuple(g.shape) for g in grads] == [tuple(p.shape) for p in params]
-    assert calls == ["fwd", "dkv", "dq"]
+    assert calls == ["fwd", "di", "dkv", "dq"]
+    operand = ((2, 576, 6, 64), torch.bfloat16)   # [B, S, H, D]
+    stat = ((2, 6, 576), torch.float32)           # [B, H, S]
+    assert seen_args["di"] == [operand] * 2       # o, do
+    assert seen_args["dkv"] == seen_args["dq"] == [operand] * 4 + [stat] * 2
     # without a gradient the forward alone runs, and saves no log-sum-exp
     seen = []
     monkeypatch.setattr(fa, "_launch_fwd", lambda q, k, v, s, need_lse: (
@@ -223,9 +287,15 @@ def test_dispatch_has_no_hidden_fallback():
                 torch.empty(2, 8, 2, 64, dtype=torch.float16, device="meta")):
         with pytest.raises(ValueError, match="flash_mha kernels take"):
             fa.flash_mha(bad, bad, bad, 1.0)
+        with pytest.raises(ValueError, match="flash_mha kernels take"):
+            fa.flash_mha_bwd_di(bad, bad)
     meta = torch.empty(2, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_mha(meta, meta, meta, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_mha_bwd_di(meta, meta)
+    with pytest.raises(ValueError, match="do must be"):
+        fa.flash_mha_bwd_di(meta, meta[:, :4])
     with pytest.raises(ValueError, match="one shape"):
         fa.flash_mha(q, q[:, :4], q, 1.0)
     with pytest.raises(ValueError, match="divisible"):

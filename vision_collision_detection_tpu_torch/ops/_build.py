@@ -26,6 +26,9 @@ LIB_NAME = "libvcd_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# K4's backward looks libcuda's tensor-map encoder up with dlsym
+LINK_FLAGS = ["-ldl"]
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -41,6 +44,7 @@ _SIGNATURES = {
     "vcd_flash_fwd": [_P] * 5 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_dkv": [_P] * 8 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_dq": [_P] * 7 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
+    "vcd_flash_bwd_di": [_P] * 3 + [_STRIDES, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -65,7 +69,7 @@ def _sources():
 
 def source_hash() -> str:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in cu + cuh:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -103,7 +107,7 @@ def build() -> Path:
         raise RuntimeError(f"nvcc failed for {failed}:\n{text}")
     subprocess.run(
         [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
-         *[str(tmp / (s.stem + ".o")) for s in cu]],
+         *[str(tmp / (s.stem + ".o")) for s in cu], *LINK_FLAGS],
         check=True, capture_output=True, text=True)
     try:
         os.replace(tmp, final)

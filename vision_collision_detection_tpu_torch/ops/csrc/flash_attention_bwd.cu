@@ -10,8 +10,9 @@
 // products, float32 accumulation.
 //   dv = p^T do            ds = p * (do v^T - di) * scale
 //   dk = ds^T q            dq = ds k
-// di = sum(o * do) per row, float32 [B, H, S], comes from the caller (it is
-// outside the Pallas kernels in the library too).
+// di = sum(o * do) per row, float32 [B, H, S], comes from the caller: in the
+// library it is jnp outside the Pallas kernels, here the row kernel
+// `flash_bwd_di_kernel` below, a helper of this backward.
 //
 // Two kernels, each block the only writer of its output rows and each sum
 // taken in a fixed order: no float atomics, so two runs agree bit for bit.
@@ -23,19 +24,24 @@
 // fused kernel would need 10*S^2*D; two kernels recompute the logits and
 // do v^T in each, which is the price of sums without atomics.
 //
-// Design (bf16). dK/dV: one block of 4 warps takes 64 keys of one (batch,
-// head), each warp keeping its 16 rows of K and V as mma A fragments, and
-// walks the queries in tiles of 64 (Q and dO through two cp.async buffers,
-// lse and di beside them). It works on the transposed tiles, p^T = exp(K Q^T
-// * scale - lse), dp^T = V dO^T, so that p^T and ds^T leave the
-// accumulators as A fragments of dv += P^T dO and dk += dS^T Q. dQ: one
-// block takes 64 queries (Q and dO as A fragments) and walks the keys the
-// same way: p, dp, ds, dq += dS K. Rows past S are zero-filled in shared
-// memory and left out of p.
+// bf16 with head_dim 64, the scaled ViViT configuration's case, takes the
+// wgmma kernels of flash_attention_bwd_wgmma.cu (their design is described
+// there). This file holds the C entries, the row kernel for di, and the
+// kernels of the cases off the main path:
+//
+// bf16, head_dim 16 (mma.sync). dK/dV: one block of 4 warps takes 64 keys
+// of one (batch, head), each warp keeping its 16 rows of K and V as mma A
+// fragments, and walks the queries in tiles of 64 (Q and dO through two
+// cp.async buffers, lse and di beside them). It works on the transposed
+// tiles, p^T = exp(K Q^T * scale - lse), dp^T = V dO^T, so that p^T and ds^T
+// leave the accumulators as A fragments of dv += P^T dO and dk += dS^T Q.
+// dQ: one block takes 64 queries (Q and dO as A fragments) and walks the
+// keys the same way: p, dp, ds, dq += dS K. Rows past S are zero-filled in
+// shared memory and left out of p.
 //
 // float32 inputs take plain CUDA-core kernels, one thread per key (dK/dV)
 // or query (dQ), every product in float32.
-#include "flash_common.cuh"
+#include "flash_bwd_args.cuh"
 
 namespace {
 
@@ -358,48 +364,96 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   for (int d = 0; d < D; ++d) out[d] = dq_acc[d];
 }
 
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *di;
-  Strides sq, sk, sv, sd;
-  int B, S, H;
-  float scale;
-  int dtype;
-  cudaStream_t stream;
-};
-
+// dQ/dK/dV: bf16 with head_dim 64 takes the wgmma kernels, bf16 with
+// head_dim 16 the mma.sync kernels above, float32 the CUDA-core kernels.
 template <int D>
-int launch_dkv(const Args& a, void* dk, void* dv) {
+int launch_dkv(const BwdArgs& a, void* dk, void* dv) {
   const dim3 grid((a.S + 63) / 64, a.H, a.B);
-  if (a.dtype == 0)
-    flash_bwd_dkv_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
-        (bf16*)dk, (bf16*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-  else
+  if (a.dtype == 0) {
+    if constexpr (D == 64) {
+      return launch_bwd_dkv_wgmma(a, dk, dv);
+    } else {
+      flash_bwd_dkv_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
+          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+          (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
+          (bf16*)dk, (bf16*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+    }
+  } else {
     flash_bwd_dkv_f32_kernel<D><<<grid, 64, 0, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dout, (const float*)a.lse, (const float*)a.di,
         (float*)dk, (float*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dq(const Args& a, void* dq) {
+int launch_dq(const BwdArgs& a, void* dq) {
   const dim3 grid((a.S + 63) / 64, a.H, a.B);
-  if (a.dtype == 0)
-    flash_bwd_dq_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
-        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
-        (bf16*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-  else
+  if (a.dtype == 0) {
+    if constexpr (D == 64) {
+      return launch_bwd_dq_wgmma(a, dq);
+    } else {
+      flash_bwd_dq_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
+          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+          (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
+          (bf16*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+    }
+  } else {
     flash_bwd_dq_f32_kernel<D><<<grid, 64, 0, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dout, (const float*)a.lse, (const float*)a.di,
         (float*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+  }
   return (int)cudaGetLastError();
 }
 
-bool valid(const Args& a, int D) {
+// di[b, h, s] = sum_d o[b, s, h, d] * dout[b, s, h, d] in float32: the row
+// term of ds that both kernels above subtract. Rows in o's memory order, 16
+// bytes of each operand a thread, D * sizeof(T) / 16 neighbouring lanes a
+// row; a lane sums its products in order and the lanes of a row add up by a
+// fixed butterfly, so two runs agree bit for bit. Bound: bytes, o and dout
+// read once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_di_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ di, Strides so, Strides sd, int S,
+                    int H, int D, int64_t rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lanes = D / VEC;  // 2, 4, 8 or 16
+  const int64_t gid = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  const int64_t row = gid / lanes;
+  const int col = (int)(gid % lanes) * VEC;
+  const int h = (int)(row % H), s = (int)(row / H % S);
+  const int64_t b = row / H / S;
+  float sum = 0.f;
+  if (row < rows) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        o + b * so.b + s * so.s + h * so.h + col);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        dout + b * sd.b + s * sd.s + h * sd.h + col);
+    const T* oe = reinterpret_cast<const T*>(&ov);
+    const T* de = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum += (float)oe[i] * (float)de[i];
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && col == 0) di[(b * H + h) * S + s] = sum;
+}
+
+template <typename T>
+int launch_di(const void* o, const void* dout, void* di, const int64_t* s,
+              int B, int S, int H, int D, cudaStream_t stream) {
+  const int64_t rows = (int64_t)B * S * H;
+  const int64_t threads = rows * (D * (int)sizeof(T) / 16);
+  flash_bwd_di_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      (const T*)o, (const T*)dout, (float*)di, {s[0], s[1], s[2]},
+      {s[3], s[4], s[5]}, S, H, D, rows);
+  return (int)cudaGetLastError();
+}
+
+bool valid(const BwdArgs& a, int D) {
   return (a.dtype == 0 || a.dtype == 1) && (D == 16 || D == 64) && a.B >= 1 &&
          a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535;
 }
@@ -417,7 +471,7 @@ extern "C" int vcd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const int64_t* strides, int B, int S, int H,
                                  int D, float scale, int dtype, void* stream) {
   const int64_t* s = strides;
-  const Args a{q, k, v, dout, lse, di,
+  const BwdArgs a{q, k, v, dout, lse, di,
                {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
                {s[9], s[10], s[11]}, B, S, H, scale, dtype,
                (cudaStream_t)stream};
@@ -431,10 +485,25 @@ extern "C" int vcd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const int64_t* strides, int B, int S, int H,
                                 int D, float scale, int dtype, void* stream) {
   const int64_t* s = strides;
-  const Args a{q, k, v, dout, lse, di,
+  const BwdArgs a{q, k, v, dout, lse, di,
                {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
                {s[9], s[10], s[11]}, B, S, H, scale, dtype,
                (cudaStream_t)stream};
   if (!valid(a, D)) return (int)cudaErrorInvalidValue;
   return D == 64 ? launch_dq<64>(a, dq) : launch_dq<16>(a, dq);
+}
+
+// o, dout: [B, S, H, D] of `dtype` given with element strides `strides[6]` =
+// (batch, sequence, head) of o, dout, the last axis contiguous and every row
+// 16-byte aligned. di: float32 [B, H, S].
+extern "C" int vcd_flash_bwd_di(const void* o, const void* dout, void* di,
+                                const int64_t* strides, int B, int S, int H,
+                                int D, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (D != 16 && D != 64) || B < 1 || S < 1 ||
+      H < 1 || (int64_t)B * S * H > (int64_t)1 << 34)
+    return (int)cudaErrorInvalidValue;
+  return dtype == 0 ? launch_di<bf16>(o, dout, di, strides, B, S, H, D,
+                                      (cudaStream_t)stream)
+                    : launch_di<float>(o, dout, di, strides, B, S, H, D,
+                                       (cudaStream_t)stream);
 }

@@ -6,7 +6,7 @@ reaches in the JAX library (``jax/experimental/pallas/ops/tpu/
 flash_attention.py``): the forward ``_flash_attention_impl``, the backward
 ``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``, tied by a
 ``jax.custom_vjp`` there and by the ``torch.autograd.Function``
-``_FlashMHA`` here. Three CUDA kernels:
+``_FlashMHA`` here. Three CUDA kernels and a helper:
 
 - forward (``ops/csrc/flash_attention.cu``): ``o = softmax(q·kᵀ·scale)·v``
   per (batch, head) with an online softmax, and one float32 log-sum-exp per
@@ -14,12 +14,23 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
   4·S²·D flops per (batch, head) against 8·S·D bytes (bf16), S/2 flops per
   byte: at S = 576 that is 288, a hair under the H100's ridge of 295, so
   the bound is bytes there and operations from S = 592 on.
-- backward dK/dV and backward dQ (``ops/csrc/flash_attention_bwd.cu``):
-  each recomputes p from q, k and the saved log-sum-exp; no float atomics,
-  so two runs agree bit for bit. ``di = Σ(o ⊙ do)`` is a torch reduction, as
-  it is ``jnp`` outside the Pallas kernels in the library. Bound:
+- backward dK/dV and backward dQ: each recomputes p from q, k and the saved
+  log-sum-exp; no float atomics, so two runs agree bit for bit. Bound:
   operations, 8·S²·D flops per (batch, head) for dK/dV and 6·S²·D for dQ
-  (the logits and do·vᵀ in each), against 12·S·D and 10·S·D bytes.
+  (the logits and do·vᵀ in each), against 12·S·D and 10·S·D bytes. For bf16
+  with head_dim 64, the scaled ViViT configuration's case, they are built
+  for Hopper (``ops/csrc/flash_attention_bwd_wgmma.cu``): warpgroup products
+  (``wgmma``) on 128-byte-swizzled tiles that TMA writes from one tensor map
+  per operand, a producer warp and ``mbarrier``s around a ring of tiles,
+  blocks of 128 keys (dK/dV) or 192 queries (dQ). head_dim 16 and float32
+  keep the ``mma.sync`` and CUDA-core kernels of
+  ``ops/csrc/flash_attention_bwd.cu``; the choice is by dtype and head_dim
+  in the C launcher.
+- ``di = Σ(o ⊙ do)``, the row term of ds, by the row kernel
+  ``vcd_flash_bwd_di`` (``ops/csrc/flash_attention_bwd.cu``; bound: bytes, o
+  and do read once). In the library it is ``jnp`` outside the Pallas
+  kernels, so it is a helper of this backward, not a TPU kernel of its own;
+  ``_row_dot`` is its plain version.
 
 Numerics, shared by the kernels and the plain versions: logits, softmax and
 every accumulation in float32; p (and, in the backward, ds) rounded to the
@@ -128,14 +139,16 @@ def flash_mha_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float):
     return _tokens_first(torch.matmul(ds, _heads_first(k)), q.dtype)
 
 
-def _kernel_view(t: torch.Tensor, name: str) -> torch.Tensor:
+def _kernel_view(t: torch.Tensor, name: str,
+                 vectors: bool = False) -> torch.Tensor:
     """``t`` as the kernels read it: a CUDA tensor whose last axis is
-    contiguous and, for bf16, whose rows start on 16-byte boundaries. A
-    view that is not (a transposed gradient, an odd offset) is copied, and
-    the copy is counted in ``flash_mha.copies``."""
+    contiguous and, for bf16 (``vectors``: for any dtype), whose rows start
+    on 16-byte boundaries. A view that is not (a transposed gradient, an
+    odd offset) is copied, and the copy is counted in ``flash_mha.copies``."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    align = 16 // t.element_size() if t.dtype == torch.bfloat16 else 1
+    align = (16 // t.element_size()
+             if vectors or t.dtype == torch.bfloat16 else 1)
     ok = (t.stride(-1) == 1 and t.data_ptr() % (align * t.element_size()) == 0
           and all(s % align == 0 for s in t.stride()[:-1]))
     if not ok:
@@ -221,6 +234,35 @@ def _launch_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
     return dq
 
 
+def _launch_bwd_di(o, do):
+    """The row kernel on CUDA tensors: di float32 [B, H, S]."""
+    B, S, H, D = _kernel_dims(o)
+    if do.shape != o.shape or do.dtype != o.dtype:
+        raise ValueError(f"do must be {tuple(o.shape)} {o.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    o, do = (_kernel_view(t, n, vectors=True) for t, n in ((o, "o"),
+                                                           (do, "do")))
+    di = torch.empty((B, H, S), dtype=torch.float32, device=o.device)
+    err = _build.lib().vcd_flash_bwd_di(
+        o.data_ptr(), do.data_ptr(), di.data_ptr(), _strides(o, do), B, S, H,
+        D, _DTYPE_CODE[o.dtype], _build.stream_ptr(o.device))
+    _build.check(err, "vcd_flash_bwd_di")
+    flash_mha_bwd_di.launches += 1
+    return di
+
+
+def flash_mha_bwd_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = Σ_d o·do in float32, [B, H, S], for o and do [B, S, H, D]: the
+    row term of ds in both backward kernels. A CPU tensor takes the plain
+    version ``_row_dot``; a CUDA tensor launches the row kernel."""
+    if o.device.type == "cpu":
+        return _row_dot(o, do)
+    return _launch_bwd_di(o, do)
+
+
+flash_mha_bwd_di.launches = 0
+
+
 def flash_mha_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
     """K4's dK/dV backward: (dk, dv). A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel."""
@@ -255,7 +297,8 @@ def flash_mha_fwd(q, k, v, sm_scale: float):
 
 class _FlashMHA(torch.autograd.Function):
     """K4 with the JAX library's ``custom_vjp``: the forward saves q, k, v,
-    o and the log-sum-exp; the backward runs the dK/dV and the dQ kernel."""
+    o and the log-sum-exp; the backward runs the row kernel for di, then the
+    dK/dV and the dQ kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
@@ -267,7 +310,7 @@ class _FlashMHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        args = (q, k, v, do, lse, _row_dot(o, do), ctx.sm_scale)
+        args = (q, k, v, do, lse, flash_mha_bwd_di(o, do), ctx.sm_scale)
         dk, dv = flash_mha_bwd_dkv(*args)
         return flash_mha_bwd_dq(*args), dk, dv, None
 
