@@ -15,9 +15,13 @@ failure:
    GELU), random weights with layer-scale γ of order 1, TF32 off for the
    plain side. K3 is held on its largest and its mean error, and faulty
    plain versions (γ off by 1%, b2 dropped, the other GELU form) must land
-   outside those tolerances. Then the variants off the main path (K3 at
-   the base/large widths, K2 and K3 on float32 activations) at small
-   shapes. Then the training path's kernels at the same shapes: K2 wgrad
+   outside those tolerances. K3 in bf16 runs on its Hopper kernel
+   (``convnext_mlp_wgmma.cu``), held again at every width it takes (96 to
+   768), eval and train, both GELU forms, at 100 and 2,000 rows, with the
+   same faults. Then what stays on the mma.sync kernel, off the main path
+   (K3 at widths 1024 and 1536, K2 and K3 on float32 activations), at
+   small shapes; the launch counters show which kernel each call took.
+   Then the training path's kernels at the same shapes: K2 wgrad
    against its plain version relative to Σ|x·g| and bit-equal over two
    runs (flipped or transposed taps must land outside), K2 dx (the
    forward kernel on flipped taps, through the autograd Function) against
@@ -36,7 +40,8 @@ failure:
    K3 bias lands outside that tolerance (smaller faults are reported).
 4. Time each kernel, its plain version, cuDNN's depthwise conv beside K2
    (``library_ms``), the stock LN→Linear→GELU→Linear chain beside K3 (for
-   information; it is not one call), and the whole forward (both kernels,
+   information; it is not one call), K3's mma.sync kernel on the same
+   inputs (``mma_sync_ms``), and the whole forward (both kernels,
    K2 only, K3 only, stock blocks) with CUDA events, as medians after
    warm-up.
 5. Profile three forwards with ``torch.profiler``: device time by kernel
@@ -57,7 +62,10 @@ failure:
    torch backward, ``train_preprocess`` and the rest, and the idle share.
 
 8. Hold K4's kernels (flash attention forward, backward dK/dV, backward
-   dQ, and the backward's row kernel di = Σ o·do) against
+   dQ, and the backward's row kernel di = Σ o·do; the forward on its
+   Hopper kernel for bf16 with head_dim 64, on the mma.sync kernel of
+   ``flash_attention.cu`` for head_dim 16 and float32, the counter showing
+   which) against
    ``flash_mha_plain``, its written-out backward and ``_row_dot`` at
    [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576, 6,
    64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and 200,
@@ -76,8 +84,9 @@ failure:
    uint8 batch [8, 32, 189, 336, 3]: launches K1 1, K4 fwd 8, all else 0;
    probabilities that spread; agreement with the same forward on plain
    versions, where the scale dropped in one block must not agree.
-10. Time K4's kernels (the di kernel beside ``_row_dot``), their plain
-    versions and ``F.scaled_dot_product_attention`` forward and backward
+10. Time K4's kernels (the di kernel beside ``_row_dot``, the forward
+    beside the mma.sync kernel, ``mma_sync_ms``), their plain versions and
+    ``F.scaled_dot_product_attention`` forward and backward
     (``library_ms``); the ViViT forward with "flash" and "xla" attention
     in turns, its peak memory and profile.
 11. Run one training step of the scaled configuration
@@ -212,7 +221,7 @@ def main() -> int:
     report["profile"] = profile_device(
         torch, "forward", lambda: serve["forward"](serve["frames"]), 3,
         {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_kernel",
-         "K3": "convnext_mlp_kernel"})
+         "K3": "convnext_mlp_wgmma_kernel"})
     del serve
 
     train = training_step(torch, dev)
@@ -335,7 +344,45 @@ K3_FAULTS = {
 }
 
 
+def check_k3_small(torch, dev, g, C, M, record, faults, failed):
+    """K3's eval and train variants against their plain version at [M, C]
+    bf16, both GELU forms (K3's rule; the train variant's out bit-equal to
+    the eval variant's), and K3's faults in the plain version, which must
+    land outside."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+
+    xs = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
+    y = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
+    p = k3_params(torch, C, g, dev)
+    for approximate in (True, False):
+        with torch.no_grad():
+            got = k3.convnext_mlp(xs, y, approximate=approximate, **p)
+        train = k3.convnext_mlp_train(xs, y, approximate=approximate, **p)
+        ref = k3.convnext_mlp_train_plain(xs, y, approximate=approximate, **p)
+        torch.cuda.synchronize()
+        tols = {}
+        for name, v, r in zip(("out", "t", "h_pre", "m"), (got, *train[1:]),
+                              ref):
+            tols[name] = (float(r.float().abs().max()) * 2 ** -6,
+                          float(r.float().abs().mean()) * 2 ** -12)
+            record(f"K3 {name} width {C} approximate={approximate}", [M, C],
+                   max_err(torch, v, r), tols[name][0],
+                   mean_err(torch, v, r), tols[name][1],
+                   entry="K3" if name == "out" else "K3 train")
+        record(f"K3 train out vs eval width {C} (bit-equal)", [M, C],
+               max_err(torch, train[0], got), 0.0, entry="K3 train")
+    # got, ref and tols are those of approximate=False
+    for fault, change in K3_FAULTS.items():
+        fp, fap = change(p, False)
+        bad = k3.convnext_mlp_plain(xs, y, approximate=fap, **fp)
+        err, mean = max_err(torch, bad, ref[0]), mean_err(torch, bad, ref[0])
+        fault_seen(faults, failed, f"K3 {fault} width {C}", [M, C],
+                   err > tols["out"][0] or mean > tols["out"][1],
+                   max_abs_err=err, mean_abs_err=mean)
+
+
 def compare_kernels(torch, dev):
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
         convnext_mlp, convnext_mlp_plain)
     from vision_collision_detection_tpu_torch.ops.dequant_pad import (
@@ -347,6 +394,7 @@ def compare_kernels(torch, dev):
     rows, faults, failed = [], [], []
     inputs = {}
     record = recorder(rows, failed)
+    k3.convnext_mlp.wgmma_launches = 0
 
     mean, std = (0.45,) * 3, (0.225,) * 3
     u8 = torch.randint(0, 256, (N_FRAMES, *CONTENT, 3), generator=g,
@@ -417,11 +465,20 @@ def compare_kernels(torch, dev):
                 failed.append(f"K3 fault {fault} not seen at C={C}")
         inputs[("K3", C)] = (xs, x, p)
 
-    # The other compiled variants, off the main path: K3 at the convnext
-    # base/large widths, and K2 and K3 on float32 activations. A row
-    # count that is no multiple of any block's rows exercises the tail.
+    # The Hopper kernel (``convnext_mlp_wgmma.cu``) at every width it
+    # takes, eval and train, both GELU forms, at 100 rows (less than one
+    # block's) and 2,000 (no multiple of any block's rows), with K3's
+    # faults; the stage shapes above already went through it.
+    for C in k3.WGMMA_DIMS:
+        for M in (100, 2000):
+            check_k3_small(torch, dev, g, C, M, record, faults, failed)
+    k3_routed = k3.convnext_mlp.wgmma_launches
+    # The other compiled variants, off the main path, on the mma.sync
+    # kernel (``convnext_mlp.cu``): K3 at the widths the Hopper kernel does
+    # not take, and K2 and K3 on float32 activations. A row count that is
+    # no multiple of any block's rows exercises the tail.
     rows_off = 2000
-    for C in (128, 256, 512, 1024, 1536):
+    for C in (1024, 1536):
         xs = torch.randn(rows_off, C, generator=g).to(dev, torch.bfloat16)
         y = torch.randn(rows_off, C, generator=g).to(dev, torch.bfloat16)
         p = k3_params(torch, C, g, dev)
@@ -449,6 +506,14 @@ def compare_kernels(torch, dev):
     # float32 sums of 49 taps in another order
     record("K2 float32", [8, 56, 56, 96], max_err(torch, got, ref),
            float(ref.abs().max()) * 2 ** -16)
+    # the route by dtype and width: the four stage shapes (two GELU forms
+    # each) and the small checks took the Hopper kernel, the rest did not
+    want = 4 * 2 + len(k3.WGMMA_DIMS) * 2 * 2
+    log(f"[compare] K3 launches on the Hopper kernel {k3_routed} (expected "
+        f"{want}), after the mma.sync checks "
+        f"{k3.convnext_mlp.wgmma_launches}")
+    if not k3_routed == want == k3.convnext_mlp.wgmma_launches:
+        failed.append("K3 took the wrong kernel")
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
     return {"rows": rows, "faults": faults, "inputs": inputs}
@@ -653,9 +718,13 @@ def compare_flash_kernels(torch, dev):
         lst = list(shape)
         scale = D ** -0.5
         q, k, v, do = flash_inputs(torch, shape, dev, g)
+        fa.flash_mha.wgmma_launches = 0
         o, lse = fa.flash_mha_fwd(q, k, v, scale)
         o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, scale)
         torch.cuda.synchronize()
+        # bf16 with head_dim 64 on the Hopper kernel, the rest on mma.sync
+        if fa.flash_mha.wgmma_launches != ((dtype, D) == ("bfloat16", 64)):
+            failed.append(f"K4 fwd took the wrong kernel at {lst}")
         tol_o = held("K4 fwd o", lst, o, o_ref, dtype, "K4 fwd")
         # float32 exp and log of another library on sums in another order
         record("K4 fwd lse", lst, max_err(torch, lse, lse_ref), 1e-4,
@@ -912,17 +981,27 @@ def zero_counters():
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "wgmma_launches"):
+            fn.wgmma_launches = 0
     return counters
 
 
 def expect_launches(tag, counters, **expected):
-    """Every counter must read what ``expected`` says, 0 where it is silent."""
+    """Every counter must read what ``expected`` says, 0 where it is silent;
+    and where a wrapper has two kernels (K3, K3 train, K4 fwd), every
+    launch on the main paths must have taken the Hopper one."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
-    log(f"[{tag}] launches {launches}")
+    hopper = {k: fn.wgmma_launches for k, fn in counters.items()
+              if hasattr(fn, "wgmma_launches")}
+    log(f"[{tag}] launches {launches}; of them on the Hopper kernels "
+        f"{hopper}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
+    if any(v != launches[k] for k, v in hopper.items()):
+        raise SystemExit(f"{tag}: a launch took the mma.sync kernel: "
+                         f"{hopper} of {launches}")
     return launches
 
 
@@ -1177,7 +1256,7 @@ def profile_training(torch, tr):
         return None
     groups = {"K2 fwd and dx": ("dwconv7x7_kernel",),
               "K2 wgrad": ("dwconv_wgrad_kernel", "wgrad_sum_parts"),
-              "K3 train": ("convnext_mlp_kernel",)}
+              "K3 train": ("convnext_mlp_wgmma_kernel",)}
     by_group = {name: sum(r["ms"] for r in rows
                           if any(k in r["kernel"] for k in keys))
                 for name, keys in groups.items()}
@@ -1361,7 +1440,7 @@ def time_vivit_forward(torch, serve):
     out["flash_vs_xla_max_abs_dprob"] = diff
     out["profile"] = profile_device(
         torch, "vivit forward", lambda: forwards["flash"](frames), 3,
-        {"K1": "dequant_pad_kernel", "K4 fwd": "flash_fwd_kernel"})
+        {"K1": "dequant_pad_kernel", "K4 fwd": "flash_fwd_wgmma_kernel"})
     return out
 
 
@@ -1613,7 +1692,8 @@ def time_vivit_training(torch, dev, tr):
         f"({out['train_preprocess_share']:.3f} of the flash step)")
     out["profile"] = profile_device(
         torch, "vivit train", lambda: tr["step"](tr["state"], *batch, gen), 1,
-        {"K4 fwd": "flash_fwd_kernel", "K4 bwd dKdV": "flash_bwd_dkv_kernel",
+        {"K4 fwd": "flash_fwd_wgmma_kernel",
+         "K4 bwd dKdV": "flash_bwd_dkv_kernel",
          "K4 bwd dQ": "flash_bwd_dq_kernel",
          "K4 bwd di": "flash_bwd_di_kernel"})
     return out
@@ -1647,6 +1727,9 @@ def time_flash_kernels(torch, dev, inputs):
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
         with torch.no_grad():
             fwd_ms = median_ms(torch, lambda: fa.flash_mha(q, k, v, scale))
+            with swapped((fa, "fwd_route", lambda dtype, head_dim: "mma")):
+                mma_fwd = median_ms(torch, lambda: fa.flash_mha(q, k, v,
+                                                                scale))
             lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, scale=scale))
         fwd_lse_ms = median_ms(torch, lambda: fa.flash_mha_fwd(q, k, v, scale))
@@ -1661,6 +1744,7 @@ def time_flash_kernels(torch, dev, inputs):
             lib_out, leaves, dot, retain_graph=True))
         del lib_out, leaves
         rec = {"shape": list(shape), "fwd_ms": fwd_ms,
+               "mma_sync_fwd_ms": mma_fwd,
                "fwd_with_lse_ms": fwd_lse_ms, "dkv_ms": dkv_ms,
                "dq_ms": dq_ms, "di_ms": di_ms, "row_dot_ms": row_dot_ms,
                "library_fwd_ms": lib_fwd,
@@ -1671,7 +1755,8 @@ def time_flash_kernels(torch, dev, inputs):
         by_shape.append(rec)
         log(f"[time] K4 {list(shape)}: fwd {fwd_ms:.4f} ms "
             f"({rec['fwd_tflops']:.1f} TFLOP/s; with lse {fwd_lse_ms:.4f}; "
-            f"library {lib_fwd:.4f}), dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f} "
+            f"mma.sync kernel {mma_fwd:.4f}; library {lib_fwd:.4f}), "
+            f"dK/dV {dkv_ms:.4f}, dQ {dq_ms:.4f} "
             f"({rec['bwd_tflops']:.1f} TFLOP/s over both; library backward "
             f"{lib_bwd:.4f}), di kernel {di_ms:.4f} (_row_dot "
             f"{row_dot_ms:.4f}); dK/dV + dQ + di {rec['bwd_all_ms']:.4f}")
@@ -1702,6 +1787,8 @@ def time_flash_kernels(torch, dev, inputs):
             b, by = bounds[kernel]
             rows.append({"kernel": kernel, "shape": list(shape),
                          "per_forward": VIVIT_BLOCKS, "ms": ms,
+                         "mma_sync_ms": mma_fwd if kernel == "K4 fwd"
+                         else None,
                          "plain_ms": plain[kernel], "library_ms": lib,
                          "bound_ms": b, "bound_by": by})
     for r in rows:
@@ -1763,6 +1850,7 @@ def profile_device(torch, tag, run, n, groups):
 def time_kernels(torch, dev, inputs):
     import torch.nn.functional as F
 
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
         convnext_mlp, convnext_mlp_plain, convnext_mlp_train,
         convnext_mlp_train_plain)
@@ -1809,14 +1897,21 @@ def time_kernels(torch, dev, inputs):
             h = F.gelu(F.linear(t, w1t, b1), approximate="tanh")
             return xs + F.linear(h, w2t, b2) * gam
 
+        stock_ms = median_ms(torch, stock)
+        with swapped((k3, "route", lambda dtype, C: "mma")):
+            mma_ms = {"K3": median_ms(torch, lambda: convnext_mlp(
+                xs, y, approximate=True, **p)),
+                      "K3 train": median_ms(torch, lambda: convnext_mlp_train(
+                          xs, y, approximate=True, **p))}
         rows.append({
             "kernel": "K3", "shape": list(x.shape), "per_forward": blocks,
+            "mma_sync_ms": mma_ms["K3"],
             "ms": median_ms(torch, lambda: convnext_mlp(
                 xs, y, approximate=True, **p)),
             "plain_ms": median_ms(torch, lambda: convnext_mlp_plain(
                 xs, y, approximate=True, **p)),
             "library_ms": None,
-            "stock_chain_ms": median_ms(torch, stock),
+            "stock_chain_ms": stock_ms,
             "bound_ms": b, "bound_by": by})
 
         # K2 wgrad: x and g read once, float32 dw written; 98 flops each
@@ -1838,6 +1933,8 @@ def time_kernels(torch, dev, inputs):
         b, by = bound_ms(18 * n + 8 * C * C * 2, 16 * M * C * C, BF16_FLOPS)
         rows.append({
             "kernel": "K3 train", "shape": list(x.shape), "per_forward": blocks,
+            "mma_sync_ms": mma_ms["K3 train"],
+            "stock_chain_ms": stock_ms,
             "ms": median_ms(torch, lambda: convnext_mlp_train(
                 xs, y, approximate=True, **p)),
             "plain_ms": median_ms(torch, lambda: convnext_mlp_train_plain(
@@ -1847,7 +1944,8 @@ def time_kernels(torch, dev, inputs):
         log(f"[time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
-            f"{r['library_ms']}; stock chain {r.get('stock_chain_ms')})")
+            f"{r['library_ms']}; stock chain {r.get('stock_chain_ms')}; "
+            f"mma.sync kernel {r.get('mma_sync_ms')})")
     return rows
 
 
@@ -1891,11 +1989,11 @@ def kernel_line(compare_rows, launches, timing):
         "K2": ("dwconv7x7", csrc + "dwconv.cu", tpu + "dwconv_pallas.py:78"),
         "K2 wgrad": ("dwconv7x7_wgrad", csrc + "dwconv_wgrad.cu",
                      tpu + "dwconv_pallas.py:114"),
-        "K3": ("convnext_mlp", csrc + "convnext_mlp.cu",
+        "K3": ("convnext_mlp", csrc + "convnext_mlp_wgmma.cu",
                tpu + "convnext_mlp_pallas.py:160"),
-        "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp.cu",
+        "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
-        "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention.cu",
+        "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention_fwd_wgmma.cu",
                    tpu + "flash_attention.py:96" + lib + "758)"),
         "K4 bwd dKdV": ("flash_mha_bwd_dkv",
                         csrc + "flash_attention_bwd_wgmma.cu",
@@ -1913,20 +2011,25 @@ def kernel_line(compare_rows, launches, timing):
         by_path = {path: counts.get(k, 0) for path, counts in launches.items()}
 
         def total(key):
-            vals = [r[key] for r in rows]
+            vals = [r.get(key) for r in rows]
             if any(v is None for v in vals):
                 return None
             return sum(v * r["per_forward"] for v, r in zip(vals, rows))
 
         by_ops = sum(r["bound_by"] == "operations" for r in rows)
-        out.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(errs), "ms": total("ms"),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * by_ops > len(rows) else "bytes",
-            "library_ms": total("library_ms")})
+            "library_ms": total("library_ms")}
+        # the mma.sync kernel that still serves the other dtypes and widths,
+        # timed on the same inputs
+        if total("mma_sync_ms") is not None:
+            entry["mma_sync_ms"] = total("mma_sync_ms")
+        out.append(entry)
     for r in out:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise SystemExit(f"non-finite timing in {r}")

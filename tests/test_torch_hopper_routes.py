@@ -1,0 +1,217 @@
+"""Which kernel a CUDA call of K3 or K4's forward takes, and how K3's
+weights reach it, checked on the CPU.
+
+K3 and K4's forward each have two CUDA kernels: a Hopper one (wgmma, TMA)
+for the main paths' dtype and widths, and the mma.sync one for the rest.
+The choice is a rule on dtype and width (``convnext_mlp.route``,
+``flash_attention.fwd_route``), and the Hopper K3 reads W1 and W2 in
+nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
+it the weight's storage with no copy. The launches are held here with the
+C library swapped for a recorder (the kernels run only on a card, where
+``chip_smoke.py`` holds them against their plain versions); the block with
+transposed weight views is held against the JAX package's
+``convnext_mlp_block`` run in interpret mode.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import bf16_ulp
+from vision_collision_detection_tpu.ops.convnext_mlp_pallas import (
+    convnext_mlp_block,
+)
+from vision_collision_detection_tpu_torch.models.backbones import convnext
+from vision_collision_detection_tpu_torch.ops import _build
+from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+K3_NAMES = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
+
+
+@pytest.mark.parametrize("C", k3.KERNEL_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_route_rule(C, dtype):
+    want = ("wgmma" if dtype == torch.bfloat16 and C not in (1024, 1536)
+            else "mma")
+    assert k3.route(dtype, C) == want
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fwd_route_rule(head_dim, dtype):
+    want = "wgmma" if (dtype, head_dim) == (torch.bfloat16, 64) else "mma"
+    assert fa.fwd_route(dtype, head_dim) == want
+
+
+def _linears(C, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    lin1, lin2 = torch.nn.Linear(C, 4 * C), torch.nn.Linear(4 * C, C)
+    with torch.no_grad():
+        for lin in (lin1, lin2):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * 0.1)
+    return lin1.to(dtype), lin2.to(dtype)
+
+
+@pytest.mark.parametrize("weight_dtype", [torch.bfloat16, torch.float32])
+def test_kernel_weights_take_linear_storage(weight_dtype):
+    lin1, lin2 = _linears(96, weight_dtype)
+    w1, w2 = k3.kernel_weights(lin1.weight.t(), lin2.weight.t(), "wgmma")
+    assert w1.shape == (384, 96) and w2.shape == (96, 384)
+    assert w1.is_contiguous() and w2.is_contiguous()
+    assert w1.dtype == w2.dtype == torch.bfloat16
+    assert torch.equal(w1, lin1.weight.to(torch.bfloat16))
+    assert torch.equal(w2, lin2.weight.to(torch.bfloat16))
+    if weight_dtype == torch.bfloat16:
+        # the view's own storage, not a copy
+        assert w1.data_ptr() == lin1.weight.data_ptr()
+        assert w2.data_ptr() == lin2.weight.data_ptr()
+    f1, f2 = k3.kernel_weights(lin1.weight.t(), lin2.weight.t(), "mma")
+    assert f1.shape == (96, 384) and f1.is_contiguous()
+    assert torch.equal(f1, lin1.weight.t().to(torch.bfloat16))
+    assert torch.equal(f2, lin2.weight.t().to(torch.bfloat16))
+
+
+class _Recorder:
+    """Stands in for the kernel library: records each entry called and its
+    arguments, returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "lib", lambda: rec)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a, **k: None)
+    return rec
+
+
+def _k3_args(C, dtype, weight_dtype=torch.bfloat16, M=5):
+    g = torch.Generator().manual_seed(C)
+    lin1, lin2 = _linears(C, weight_dtype)
+    x = torch.randn(M, C, generator=g).to(dtype)
+    y = torch.randn(M, C, generator=g).to(dtype)
+    params = dict(ln_w=torch.ones(C), ln_b=torch.zeros(C),
+                  w1=lin1.weight.t(), b1=lin1.bias, w2=lin2.weight.t(),
+                  b2=lin2.bias, gamma=torch.ones(C))
+    return x, y, params, lin1, lin2
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("C", [96, 384, 768, 1024])
+def test_k3_launch_takes_the_routed_entry_and_weights(recorder, C, train):
+    """A bf16 call at a Hopper width launches ``vcd_convnext_mlp_wgmma``
+    with the Linear weights' own storage and counts it; another width
+    launches the mma.sync entry with flax-layout copies."""
+    x, y, p, lin1, lin2 = _k3_args(C, torch.bfloat16)
+    counter = k3.convnext_mlp_train if train else k3.convnext_mlp
+    before, before_w = counter.launches, counter.wgmma_launches
+    launch = k3._launch_train if train else k3._launch_eval
+    launch(x, y, approximate=True, **p)
+    (name, args), = recorder.calls
+    hopper = C in k3.WGMMA_DIMS
+    assert name == ("vcd_convnext_mlp_wgmma" if hopper else
+                    "vcd_convnext_mlp_train" if train else "vcd_convnext_mlp")
+    assert counter.launches == before + 1
+    assert counter.wgmma_launches == before_w + hopper
+    w1_ptr, w2_ptr = args[4], args[6]
+    if hopper:
+        assert (w1_ptr, w2_ptr) == (lin1.weight.data_ptr(),
+                                    lin2.weight.data_ptr())
+        # eval: t, h_pre and m null; train: all three given
+        saved = args[10:13]
+        assert all(s is not None for s in saved) == train
+        assert all(s is None for s in saved) == (not train)
+    else:
+        assert w1_ptr != lin1.weight.data_ptr()
+
+
+def test_k3_float32_activations_take_the_mma_entry(recorder):
+    x, y, p, _, _ = _k3_args(96, torch.float32)
+    k3._launch_eval(x, y, approximate=False, **p)
+    (name, args), = recorder.calls
+    assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
+
+
+@pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
+                                            (torch.bfloat16, 16),
+                                            (torch.float32, 64)])
+def test_flash_fwd_launch_takes_the_routed_entry(recorder, monkeypatch,
+                                                 dtype, head_dim):
+    monkeypatch.setattr(fa, "_kernel_view", lambda t, name, vectors=False: t)
+    q = torch.randn(2, 8, 2, head_dim).to(dtype)
+    before = fa.flash_mha.wgmma_launches
+    o, lse = fa._launch_fwd(q, q, q, 0.125, need_lse=True)
+    (name, args), = recorder.calls
+    hopper = (dtype, head_dim) == (torch.bfloat16, 64)
+    assert name == ("vcd_flash_fwd_wgmma" if hopper else "vcd_flash_fwd")
+    assert fa.flash_mha.wgmma_launches == before + hopper
+    assert o.shape == q.shape and lse.shape == (2, 2, 8)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("C", [16, 32])
+def test_block_with_linear_weight_views_matches_jax(C, approximate):
+    """K3 given W1 and W2 as transposed views of nn.Linear weights, as the
+    ConvNeXt block passes them, against the JAX package's
+    ``convnext_mlp_block`` on the flax-layout weights, and bit-equal to the
+    same call with contiguous flax-layout copies."""
+    rng = np.random.default_rng(11 + C)
+    x = rng.normal(size=(2, 4, 5, C)).astype(np.float32)
+    y = rng.normal(size=(2, 4, 5, C)).astype(np.float32)
+    p = dict(ln_w=1 + 0.1 * rng.normal(size=C), ln_b=0.1 * rng.normal(size=C),
+             w1=rng.normal(0, C ** -0.5, (C, 4 * C)),
+             b1=0.1 * rng.normal(size=4 * C),
+             w2=rng.normal(0, (4 * C) ** -0.5, (4 * C, C)),
+             b2=0.1 * rng.normal(size=C), gamma=rng.uniform(0.5, 1.5, C))
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    ref = np.asarray(convnext_mlp_block(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16),
+        *(jnp.asarray(p[k]) for k in K3_NAMES), approximate)).astype(
+            np.float32)
+    lin1, lin2 = torch.nn.Linear(C, 4 * C), torch.nn.Linear(4 * C, C)
+    with torch.no_grad():
+        lin1.weight.copy_(torch.from_numpy(p["w1"].T.copy()))
+        lin2.weight.copy_(torch.from_numpy(p["w2"].T.copy()))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    views = dict(tp, w1=lin1.weight.t(), w2=lin2.weight.t())
+    assert not views["w1"].is_contiguous()
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    with torch.no_grad():
+        got = k3.convnext_mlp(tx, ty, approximate=approximate, **views)
+        flat = k3.convnext_mlp(tx, ty, approximate=approximate, **tp)
+    assert torch.equal(got, flat)
+    got = got.float().numpy()
+    # as test_k3_plain_matches_pallas: 2 bf16 ulps of each output and 2 of
+    # the largest, for rare h_pre rounding flips between the two GELUs
+    bound = 2 * bf16_ulp(ref) + 2 * bf16_ulp(np.abs(ref).max())
+    assert np.all(np.abs(got - ref) <= bound), np.abs(got - ref).max()
+
+
+def test_convnext_block_passes_linear_views(monkeypatch):
+    """The block's fused path hands K3 ``pwconv1.weight.t()`` and
+    ``pwconv2.weight.t()``: views of the Linear weights, no copies."""
+    seen = {}
+
+    def spy(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
+        seen.update(w1=w1, w2=w2)
+        return x
+
+    monkeypatch.setattr(convnext, "convnext_mlp", spy)
+    block = convnext.ConvNeXtBlock(32, fused_mlp=True).eval()
+    with torch.no_grad():
+        block(torch.randn(1, 7, 7, 32))
+    assert seen["w1"].shape == (32, 128)
+    assert seen["w1"].data_ptr() == block.pwconv1.weight.data_ptr()
+    assert seen["w2"].data_ptr() == block.pwconv2.weight.data_ptr()

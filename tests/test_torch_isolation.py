@@ -23,7 +23,9 @@ def _imported_roots(path: Path):
 
 def test_no_forbidden_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "check_flash_bwd.py"]
+        ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / f"check_{name}.py"
+        for name in ("flash_bwd", "flash_fwd", "convnext_mlp")]
     assert len(files) > 10
     assert {PORT / "models" / "vivit.py",
             PORT / "ops" / "flash_attention.py"} <= set(files)

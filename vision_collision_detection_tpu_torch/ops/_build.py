@@ -26,7 +26,7 @@ LIB_NAME = "libvcd_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# K4's backward looks libcuda's tensor-map encoder up with dlsym
+# the Hopper kernels look libcuda's tensor-map encoder up with dlsym
 LINK_FLAGS = ["-ldl"]
 
 _P = ctypes.c_void_p
@@ -41,7 +41,9 @@ _SIGNATURES = {
     "vcd_dwconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_train": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "vcd_convnext_mlp_wgmma": [_P] * 13 + [_I, _I, _I, _P],
     "vcd_flash_fwd": [_P] * 5 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
+    "vcd_flash_fwd_wgmma": [_P] * 5 + [_STRIDES, _I, _I, _I, _F, _P],
     "vcd_flash_bwd_dkv": [_P] * 8 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_dq": [_P] * 7 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_di": [_P] * 3 + [_STRIDES, _I, _I, _I, _I, _I, _P],

@@ -5,7 +5,14 @@ Replaces the TPU kernels of
 ``vision_collision_detection_tpu/ops/convnext_mlp_pallas.py``
 ``convnext_mlp_block`` (math ``_ln_mlp``), wired into ``jax.custom_vjp``
 there and into the ``torch.autograd.Function`` ``_ConvNeXtMLP`` here. Both
-variants are one template in ``ops/csrc/convnext_mlp.cu``:
+variants are one template, in two kernels chosen by ``route``: bf16
+activations at the widths ``WGMMA_DIMS`` (every convnext tiny, base and
+large width but 1024 and 1536) take the Hopper kernel
+``ops/csrc/convnext_mlp_wgmma.cu`` (wgmma, TMA-fed weight tiles in
+nn.Linear's own layout, a persistent block of 128 rows up to C = 256 and
+of 64 rows shared by two warpgroups above); float32 activations
+and the other widths take the ``mma.sync`` kernel
+``ops/csrc/convnext_mlp.cu``, which reads the weights in the flax layout.
 
 - **eval** (``_eval_kernel``): out only. Its bound on the H100 is
   operations: 16·M·C² flops per launch, ≈ 92 GFLOP per launch on the
@@ -47,6 +54,8 @@ LN_EPS = 1e-6
 # The widths the kernel is compiled for: every stage of convnext tiny, base
 # and large.
 KERNEL_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
+# The widths of the Hopper kernel (bf16 activations only).
+WGMMA_DIMS = (96, 128, 192, 256, 384, 512, 768)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -123,9 +132,28 @@ def convnext_mlp_train_plain(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
     return out, t, h_pre, m.to(torch.bfloat16)
 
 
+def route(dtype: torch.dtype, C: int) -> str:
+    """Which kernel a CUDA call takes: ``"wgmma"`` (the Hopper kernel) for
+    bf16 activations at a width of ``WGMMA_DIMS``, else ``"mma"``."""
+    return "wgmma" if dtype == torch.bfloat16 and C in WGMMA_DIMS else "mma"
+
+
+def kernel_weights(w1: torch.Tensor, w2: torch.Tensor, kernel_route: str):
+    """W1 [C, 4C] and W2 [4C, C] (the flax layout, as the public functions
+    take them) as the kernel of ``kernel_route`` reads them, contiguous
+    bf16: ``"wgmma"`` in nn.Linear's layout, W1 as [4C, C] and W2 as
+    [C, 4C]; ``"mma"`` in the flax layout. A block passes
+    ``pwconv1.weight.t()``: for the Hopper kernel that view's own storage
+    is the layout, so only a dtype cast (none for bf16 weights) is made."""
+    if kernel_route == "wgmma":
+        w1, w2 = w1.t(), w2.t()
+    return (w1.to(torch.bfloat16).contiguous(),
+            w2.to(torch.bfloat16).contiguous())
+
+
 def _kernel_operands(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma):
     """Check a kernel call and cast the parameters to the kernel's types
-    (W1, W2 to contiguous bf16, the rest to float32)."""
+    (W1, W2 to contiguous bf16 in its layout, the rest to float32)."""
     _check(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma)
     C = x.shape[-1]
     if x.dtype not in _DTYPE_CODE or y.dtype != x.dtype:
@@ -137,8 +165,7 @@ def _kernel_operands(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma):
             f"convnext_mlp kernel takes C in {KERNEL_DIMS}, got {C}")
     ln_w, ln_b, b1, b2, gamma = [t.to(torch.float32).contiguous()
                                  for t in (ln_w, ln_b, b1, b2, gamma)]
-    w1 = w1.to(torch.bfloat16).contiguous()
-    w2 = w2.to(torch.bfloat16).contiguous()
+    w1, w2 = kernel_weights(w1, w2, route(x.dtype, C))
     # x, y, W1 and W2 are read 16 bytes at a time
     for t, name in ((x, "x"), (y, "y"), (w1, "w1"), (w2, "w2")):
         _build.require_cuda(t, name, align=16)
@@ -155,10 +182,18 @@ def _launch_eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     ptrs, _keep, M, C = _kernel_operands(x, y, ln_w, ln_b, w1, b1, w2, b2,
                                          gamma)
     out = torch.empty_like(x)
-    err = _build.lib().vcd_convnext_mlp(
-        *ptrs, out.data_ptr(), M, C, int(bool(approximate)),
-        _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
-    _build.check(err, "vcd_convnext_mlp")
+    stream = _build.stream_ptr(x.device)
+    if route(x.dtype, C) == "wgmma":
+        err = _build.lib().vcd_convnext_mlp_wgmma(
+            *ptrs, out.data_ptr(), None, None, None, M, C,
+            int(bool(approximate)), stream)
+        _build.check(err, "vcd_convnext_mlp_wgmma")
+        convnext_mlp.wgmma_launches += 1
+    else:
+        err = _build.lib().vcd_convnext_mlp(
+            *ptrs, out.data_ptr(), M, C, int(bool(approximate)),
+            _DTYPE_CODE[x.dtype], stream)
+        _build.check(err, "vcd_convnext_mlp")
     convnext_mlp.launches += 1
     return out
 
@@ -171,11 +206,18 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     bf = dict(dtype=torch.bfloat16, device=x.device)
     t, m = torch.empty(M, C, **bf), torch.empty(M, C, **bf)
     h_pre = torch.empty(M, 4 * C, **bf)
-    err = _build.lib().vcd_convnext_mlp_train(
-        *ptrs, out.data_ptr(), t.data_ptr(), h_pre.data_ptr(), m.data_ptr(),
-        M, C, int(bool(approximate)), _DTYPE_CODE[x.dtype],
-        _build.stream_ptr(x.device))
-    _build.check(err, "vcd_convnext_mlp_train")
+    saved = (out.data_ptr(), t.data_ptr(), h_pre.data_ptr(), m.data_ptr())
+    stream = _build.stream_ptr(x.device)
+    if route(x.dtype, C) == "wgmma":
+        err = _build.lib().vcd_convnext_mlp_wgmma(
+            *ptrs, *saved, M, C, int(bool(approximate)), stream)
+        _build.check(err, "vcd_convnext_mlp_wgmma")
+        convnext_mlp_train.wgmma_launches += 1
+    else:
+        err = _build.lib().vcd_convnext_mlp_train(
+            *ptrs, *saved, M, C, int(bool(approximate)),
+            _DTYPE_CODE[x.dtype], stream)
+        _build.check(err, "vcd_convnext_mlp_train")
     convnext_mlp_train.launches += 1
     return out, t, h_pre, m
 
@@ -192,6 +234,8 @@ def convnext_mlp_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
 
 
 convnext_mlp_train.launches = 0
+# the launches among them that took the Hopper kernel (``route``)
+convnext_mlp_train.wgmma_launches = 0
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -286,3 +330,5 @@ def convnext_mlp(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
 
 
 convnext_mlp.launches = 0
+# the launches among them that took the Hopper kernel (``route``)
+convnext_mlp.wgmma_launches = 0

@@ -20,6 +20,10 @@
 // at 8*C), 0.9*C flops/byte: bytes at C <= 192, operations above; over the
 // flagship's 18 blocks the bytes dominate.
 //
+// For bf16 activations at the widths of convnext_mlp_wgmma.cu (the Python
+// wrapper's `route`) the Hopper kernel there takes the call; this one
+// serves float32 activations and the widths 1024 and 1536.
+//
 // Design. One block of 8 to 16 warps takes BM rows (64 up to C=384, 48 at
 // C=768, 32 or 16 above), so the float32 [BM, C] product of the second
 // matmul stays in registers (mma.sync m16n8k16 accumulators, at most 60% of
@@ -46,13 +50,12 @@
 // second product runs, and writes m beside out in the epilogue.
 #include <type_traits>
 
+#include "convnext_mlp_common.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using namespace vcd;
-
-constexpr float LN_EPS = 1e-6f;
 
 // Tiling per channel count. BM rows per block, NC hidden columns per chunk,
 // WARPS warps; the second product's warps form a WR2 x (WARPS/WR2) grid
@@ -133,19 +136,6 @@ struct Plan {
   static_assert(BM * LDO * 4 <= HS_OFF, "output tile over t, W1s, W2s");
   static_assert(C % 32 == 0 && CF % (2 * KS1) == 0, "LN lanes, K pairs");
 };
-
-// GELU in float32. The tanh form is evaluated as v * sigmoid(2u), since
-// 0.5 * (1 + tanh(u)) = 1 / (1 + exp(-2u)): one exp and one division on
-// the fast paths (relative error ~1e-6, far under h's bf16 rounding)
-// instead of tanhf's branches. exp's argument is capped so that the
-// divisor stays finite.
-__device__ __forceinline__ float gelu(float v, int approximate) {
-  if (approximate) {
-    const float u = 0.7978845608028654f * (v + 0.044715f * (v * v * v));
-    return __fdividef(v, 1.0f + __expf(fminf(-2.0f * u, 80.0f)));
-  }
-  return v * (erff(v / 1.4142135623730951f) + 1.0f) / 2.0f;
-}
 
 // W1[:, j0:j0+NC] -> w1s [C][LDW1], 16 bytes per copy.
 template <int C>

@@ -20,6 +20,10 @@
 // configuration's S = 576, a hair under the card's ridge of ~295 (bytes
 // bind there, operations from S = 592 on).
 //
+// bf16 with head_dim 64 takes the Hopper kernel of
+// flash_attention_fwd_wgmma.cu (the Python wrapper's `fwd_route`); this
+// file serves head_dim 16 and float32.
+//
 // Design (bf16). One block of 4 warps takes 64 queries of one (batch,
 // head); each warp keeps its 16 query rows as mma A fragments in registers
 // for the whole walk over the keys. K and V arrive in tiles of 64 keys

@@ -46,11 +46,8 @@
 // their own, of which one warp works, so that setmaxnreg can hand its
 // registers to the consumers (232 a thread with two consumer warpgroups,
 // 160 with three).
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "flash_bwd_args.cuh"
-#include "hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -83,18 +80,6 @@ struct Layout {
   static constexpr int PRODUCER_REGS = NWG == 2 ? 40 : 32;
   static_assert(NWG == 2 || NWG == 3, "two or three consumer warpgroups");
 };
-
-// The grid is persistent: block i takes the work items i, i + gridDim.x, ...
-// One item is one block of 64 * NWG rows of one (batch, head); neighbouring
-// items share a head, so the blocks at work together read the same K, V, Q
-// and dO out of L2.
-struct Item {
-  int r0, h, b;
-};
-__device__ __forceinline__ Item item_at(int w, int row_blocks, int rows,
-                                        int H) {
-  return {w % row_blocks * rows, w / row_blocks % H, w / row_blocks / H};
-}
 
 // The producer warp: per item the block's resident tiles into the buffer
 // the consumers have freed, then the streamed tiles of queries with their
@@ -449,48 +434,6 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     int items, int row_blocks, int S, int H, float scale) {
   bwd_block<false, DQ_NWG>(map_q, map_k, map_v, map_do, lse, di, dq, nullptr,
                            items, row_blocks, S, H, scale);
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled out of libcuda, which the process already has
-// loaded (the kernels link against the runtime only).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return libcuda ? reinterpret_cast<EncodeTiled>(
-                         dlsym(libcuda, "cuTensorMapEncodeTiled"))
-                  : nullptr;
-  }();
-  return fn;
-}
-
-// The map of one bf16 [B, S, H, 64] operand, dimensions (D, S, H, B)
-// innermost first with the tensor's own strides, a box of 64 rows of one
-// (batch, head), 128-byte swizzle, zeros past S.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, const Strides& st,
-                     int B, int S, int H) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)S, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  // bytes; an axis of one element is never stepped along, and a view may
-  // give it any stride, so it gets one the encoder takes
-  const cuuint64_t strides[3] = {S > 1 ? (cuuint64_t)st.s * 2 : 128,
-                                 H > 1 ? (cuuint64_t)st.h * 2 : 128,
-                                 B > 1 ? (cuuint64_t)st.b * 2 : 128};
-  const cuuint32_t box[4] = {64, TILE_ROWS, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Encodes the four maps and launches `kernel` as one persistent block per SM

@@ -45,27 +45,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
-// Two float32 values rounded to bf16 in one register, the first in the low
-// half: a pair of neighbouring columns of an mma A fragment.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// The A fragments (16 rows x 16 columns each) of a warp's 16 x 64 float32
-// tile held as mma accumulators, rounded to bf16: accumulator column tiles
-// 2j and 2j + 1 are the two halves of fragment j.
-__device__ __forceinline__ void acc_to_a(const float (&acc)[8][4],
-                                         unsigned (&a)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j][0] = pack_bf16(acc[2 * j][0], acc[2 * j][1]);
-    a[j][1] = pack_bf16(acc[2 * j][2], acc[2 * j][3]);
-    a[j][2] = pack_bf16(acc[2 * j + 1][0], acc[2 * j + 1][1]);
-    a[j][3] = pack_bf16(acc[2 * j + 1][2], acc[2 * j + 1][3]);
-  }
-}
-
 // Lane addressing of the two ldmatrix patterns. As the A operand, or with
 // .trans as the B operand of a [k][n] row-major tile: lanes 0-15 give rows
 // 0-15 at column 0, lanes 16-31 the same rows at column 8. As the B operand

@@ -1,6 +1,6 @@
-// Hopper-only primitives (sm_90a) of K4's backward: warpgroup matrix
-// products (wgmma) over 128-byte-swizzled tiles in shared memory, mbarriers,
-// and tensor-map (TMA) loads.
+// Hopper-only primitives (sm_90a) of the Hopper kernels (K3, K4's forward
+// and backward): warpgroup matrix products (wgmma) over 128-byte-swizzled
+// tiles in shared memory, mbarriers, and tensor-map (TMA) loads and stores.
 //
 // One tile layout serves every operand: 64 rows of 64 bf16 (128 bytes a
 // row, 8 KB a tile), the tile 1024-byte aligned, the 16-byte chunk c of row
@@ -16,9 +16,16 @@
 // - MN-major (the rows are the product's k index, the operand's N index runs
 //   along the row; the instruction's tnspB bit): the k-th step of 16 rows
 //   starts 2048·k bytes in.
-// A operands come from registers: ldmatrix reads them out of a tile by the
-// same rule.
+// A operands come from registers (ldmatrix reads them out of a tile by the
+// same rule) or from a tile in shared memory, read K-major like B.
+//
+// Host side: tensor maps of bf16 operands, encoded through libcuda's
+// cuTensorMapEncodeTiled (found with dlsym: the kernels link against the
+// runtime only).
 #pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
 
 #include "mma.cuh"
 
@@ -72,6 +79,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void acc_fence(float (&d)[8][4]) {
   asm volatile("" : VCD_ACC32(d)::"memory");
 }
+__device__ __forceinline__ void acc_fence(float (&d)[4][4]) {
+  asm volatile(""
+               : VCD_ACC8(d, 0), VCD_ACC8(d, 1), VCD_ACC8(d, 2),
+                 VCD_ACC8(d, 3)::"memory");
+}
 
 // d[64 x 64] (+)= A[64 x 16] · B[16 x 64], float32 += bf16 · bf16, started by
 // the four warps of a warpgroup together and asynchronous until wgmma_wait.
@@ -94,15 +106,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
         "r"(accumulate), "n"(B_MN_MAJOR));
 }
 
-// d = A · Bᵀ over head_dim 64, A[64 x 64] as four register fragments (one
-// per 16 columns) and B a swizzled tile whose 64 rows are the product's n
-// index (logits = Q · Kᵀ): four k-steps, 32 bytes (2 descriptor units)
-// apart, the first of which overwrites d.
+// d[64 x 64] (+)= A[64 x 16] · B[16 x 64] with both operands K-major tiles
+// in shared memory (descriptors a_desc, b_desc).
+__device__ __forceinline__ void wgmma_ss64(float (&d)[8][4], uint64_t a_desc,
+                                           uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VCD_ACC32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VCD_ACC32(d)
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// The same with N = 32: d[64 x 32], a warp's 16 x 32 tile as d[4][4].
+__device__ __forceinline__ void wgmma_ss32(float (&d)[4][4], uint64_t a_desc,
+                                           uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : VCD_ACC8(d, 0), VCD_ACC8(d, 1), VCD_ACC8(d, 2), VCD_ACC8(d, 3)
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
+}
+
+// d (+)= A · Bᵀ over a depth of 64, A[64 x 64] as four register fragments
+// (one per 16 columns) and B a swizzled tile whose 64 rows are the
+// product's n index (logits = Q · Kᵀ): four k-steps, 32 bytes (2
+// descriptor units) apart, the first of which overwrites d unless
+// `accumulate`.
 __device__ __forceinline__ void wgmma_tile_abt(float (&d)[8][4],
                                                const unsigned (&a)[4][4],
-                                               uint64_t b) {
+                                               uint64_t b,
+                                               int accumulate = 0) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_rs<0>(d, a[ks], b + 2 * ks, ks > 0);
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_rs<0>(d, a[ks], b + 2 * ks, ks > 0 || accumulate);
 }
 
 // d += A · B with A[64 x 64] as four register fragments and B a swizzled
@@ -129,6 +168,18 @@ __device__ __forceinline__ void load_a_sw128(unsigned (&a)[4][4],
         : "=r"(a[ks][0]), "=r"(a[ks][1]), "=r"(a[ks][2]), "=r"(a[ks][3])
         : "r"(at));
   }
+}
+
+// Orders this thread's generic writes to shared memory before later reads
+// by the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `threads` threads (a multiple of 32) under the named barrier
+// `id` (1-15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Moves registers between the warpgroups of a block: every warp of a
@@ -199,6 +250,75 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The same for a 2-D map at (c0, c1).
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const void* map,
+                                            unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A box of the 2-D tensor map `map` at (c0, c1) from shared memory at
+// `src`, as one bulk group of this thread; parts outside the tensor are not
+// written.
+__device__ __forceinline__ void tma_store_2d(const void* map, unsigned src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(map), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Waits until this thread's bulk groups are complete.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- tensor maps (host) -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled out of libcuda, which the process already has
+// loaded.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return libcuda ? reinterpret_cast<EncodeTiled>(
+                         dlsym(libcuda, "cuTensorMapEncodeTiled"))
+                   : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a bf16 tensor of `rank` dimensions, innermost first, with the
+// byte strides of dimensions 1 to rank - 1 and a box of `box` elements: the
+// box's 64 innermost elements fill one 128-byte swizzled row, elements past
+// the tensor's end read as zeros.
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace vcd

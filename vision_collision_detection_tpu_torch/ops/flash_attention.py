@@ -8,12 +8,17 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
 ``jax.custom_vjp`` there and by the ``torch.autograd.Function``
 ``_FlashMHA`` here. Three CUDA kernels and a helper:
 
-- forward (``ops/csrc/flash_attention.cu``): ``o = softmax(q·kᵀ·scale)·v``
-  per (batch, head) with an online softmax, and one float32 log-sum-exp per
-  row (the TPU kernel's l and m in one number) where a gradient is needed.
-  4·S²·D flops per (batch, head) against 8·S·D bytes (bf16), S/2 flops per
-  byte: at S = 576 that is 288, a hair under the H100's ridge of 295, so
-  the bound is bytes there and operations from S = 592 on.
+- forward: ``o = softmax(q·kᵀ·scale)·v`` per (batch, head) with an online
+  softmax, and one float32 log-sum-exp per row (the TPU kernel's l and m in
+  one number) where a gradient is needed. 4·S²·D flops per (batch, head)
+  against 8·S·D bytes (bf16), S/2 flops per byte: at S = 576 that is 288, a
+  hair under the H100's ridge of 295, so the bound is bytes there and
+  operations from S = 592 on. For bf16 with head_dim 64 it is built for
+  Hopper (``ops/csrc/flash_attention_fwd_wgmma.cu``: a persistent block of
+  three consumer warpgroups, 192 queries, K and V tiles streamed by TMA,
+  two key tiles a step so that one tile's softmax runs under the other's
+  products); head_dim 16 and float32 keep the ``mma.sync`` and CUDA-core
+  kernels of ``ops/csrc/flash_attention.cu``. ``fwd_route`` is the rule.
 - backward dK/dV and backward dQ: each recomputes p from q, k and the saved
   log-sum-exp; no float atomics, so two runs agree bit for bit. Bound:
   operations, 8·S²·D flops per (batch, head) for dK/dV and 6·S²·D for dQ
@@ -176,6 +181,14 @@ def _kernel_dims(q: torch.Tensor):
     return B, S, H, D
 
 
+def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel a CUDA call takes: ``"wgmma"`` (the Hopper
+    kernel) for bf16 with head_dim 64, ``"mma"`` (``flash_attention.cu``)
+    for the other dtypes and head_dims the kernels take."""
+    return ("wgmma" if dtype == torch.bfloat16 and head_dim == 64
+            else "mma")
+
+
 def _launch_fwd(q, k, v, sm_scale: float, need_lse: bool):
     """The forward kernel on CUDA tensors: (o, lse or None)."""
     B, S, H, D = _kernel_dims(q)
@@ -183,11 +196,18 @@ def _launch_fwd(q, k, v, sm_scale: float, need_lse: bool):
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    err = _build.lib().vcd_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr() if need_lse else None, _strides(q, k, v), B, S, H, D,
-        float(sm_scale), _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
-    _build.check(err, "vcd_flash_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if need_lse else None, _strides(q, k, v))
+    stream = _build.stream_ptr(q.device)
+    if fwd_route(q.dtype, D) == "wgmma":
+        err = _build.lib().vcd_flash_fwd_wgmma(*ptrs, B, S, H,
+                                               float(sm_scale), stream)
+        _build.check(err, "vcd_flash_fwd_wgmma")
+        flash_mha.wgmma_launches += 1
+    else:
+        err = _build.lib().vcd_flash_fwd(*ptrs, B, S, H, D, float(sm_scale),
+                                         _DTYPE_CODE[q.dtype], stream)
+        _build.check(err, "vcd_flash_fwd")
     flash_mha.launches += 1
     return o, lse
 
@@ -333,6 +353,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_mha.launches = 0
+# the launches among them that took the Hopper kernel (``fwd_route``)
+flash_mha.wgmma_launches = 0
 flash_mha.copies = 0
 
 
