@@ -18,13 +18,19 @@ failure:
    outside those tolerances. K3 in bf16 runs on its Hopper kernel
    (``convnext_mlp_wgmma.cu``), held again at every width it takes (96 to
    768), eval and train, both GELU forms, at 100 and 2,000 rows, with the
-   same faults. Then what stays on the mma.sync kernel, off the main path
-   (K3 at widths 1024 and 1536, K2 and K3 on float32 activations), at
+   same faults. K2 in bf16 runs on its Hopper kernel (``dwconv_hopper.cu``,
+   a CUDA-core stencil), held at the four stage shapes, bit-equal over two
+   runs, with the taps transposed (dy ↔ dx) in the plain version landing
+   outside; ``dwconv.cu`` on the same inputs, the route forced; then the
+   Hopper kernel's forward and dx at the last stage of 112² and 40² frames
+   ([200, 4, 4, 768], [64, 2, 2, 768]) and at odd sides ([64, 3, 5, 384],
+   [64, 10, 6, 96]). Then what stays on the mma.sync kernel, off the main
+   path (K3 at widths 1024 and 1536, K2 and K3 on float32 activations), at
    small shapes; the launch counters show which kernel each call took.
    Then the training path's kernels at the same shapes: K2 wgrad
    against its plain version relative to Σ|x·g| and bit-equal over two
    runs (flipped or transposed taps must land outside), K2 dx (the
-   forward kernel on flipped taps, through the autograd Function) against
+   routed forward kernel on flipped taps, through the autograd Function) against
    autograd through the plain conv, and K3 train (out bit-equal to the
    eval kernel's; t, h_pre and m by K3's rule, with m saved without b2
    and h_pre saved after GELU landing outside).
@@ -38,8 +44,13 @@ failure:
    and that the result matches the same forward with every kernel swapped
    for its plain version; then that the plain forward with a dropped K2 or
    K3 bias lands outside that tolerance (smaller faults are reported).
+   Every K2 launch must take its Hopper kernel. Then the same forward at
+   ``data.frame_size`` 112 on [8, 25, 63, 112, 3] (stages of 28, 14, 7 and
+   4 after flax's SAME padding): launch counts and agreement with plain
+   versions.
 4. Time each kernel, its plain version, cuDNN's depthwise conv beside K2
-   (``library_ms``), the stock LN→Linear→GELU→Linear chain beside K3 (for
+   (``library_ms``; K2's Hopper kernel and ``dwconv.cu`` in turns, each its
+   own entry of the kernels line), the stock LN→Linear→GELU→Linear chain beside K3 (for
    information; it is not one call), K3's mma.sync kernel on the same
    inputs (``mma_sync_ms``), and the whole forward (both kernels,
    K2 only, K3 only, stock blocks) with CUDA events, as medians after
@@ -220,9 +231,16 @@ def main() -> int:
     report["forward"] = forward_ms
     report["profile"] = profile_device(
         torch, "forward", lambda: serve["forward"](serve["frames"]), 3,
-        {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_kernel",
+        {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_hopper_kernel",
+         "K2 dwconv.cu": "dwconv7x7_kernel",
          "K3": "convnext_mlp_wgmma_kernel"})
     del serve
+    # 112² frames, as train/notebook.py suggests: stages of 28, 14, 7 and 4
+    # rows, the last after a SAME pad of (0, 1)
+    serve112 = serving_forward(torch, dev, size=112, content=(63, 112),
+                               tag="serve 112", power=False)
+    report["serving_112"] = serve112["summary"]
+    del serve112
 
     train = training_step(torch, dev)
     report["training"] = train["summary"]
@@ -381,12 +399,114 @@ def check_k3_small(torch, dev, g, C, M, record, faults, failed):
                    max_abs_err=err, mean_abs_err=mean)
 
 
+# K2 beyond the four stages: the last stage of 112² frames (4×4) and of
+# 40² frames (2×2, smaller than the kernel), and odd sides.
+K2_ODD_SHAPES = ((N_FRAMES, 4, 4, 768), (64, 2, 2, 768), (64, 3, 5, 384),
+                 (64, 10, 6, 96))
+
+
+def k2_inputs(torch, dev, g, shape):
+    """Seeded bf16 x [N, H, W, C], w [49, C] (taps of order 1/7) and b [C]."""
+    N, H, W, C = shape
+    x = torch.randn(N, H, W, C, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(49, C, generator=g) / 7).to(dev, torch.bfloat16)
+    b = (torch.randn(C, generator=g) * 0.1).to(dev, torch.bfloat16)
+    return x, w, b
+
+
+def k2_entry(torch, x):
+    """The kernels-line entry of the forward kernel ``dwconv.route`` picks."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    return ("K2 (hopper)" if k2.route(x.dtype, x.shape[-1]) == "hopper"
+            else "K2")
+
+
+def check_k2(torch, x, w, b, record, faults, failed):
+    """K2's forward on the kernel of ``dwconv.route`` against its plain
+    version, and bit-equal over two runs; the plain version on taps
+    transposed (dy ↔ dx) must land outside; both launches must count on the
+    routed kernel."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    shape = list(x.shape)
+    entry = k2_entry(torch, x)
+    before = k2.dwconv7x7.hopper_launches
+    got = k2.dwconv7x7(x, w, b)
+    again = k2.dwconv7x7(x, w, b)
+    ref = k2.dwconv7x7_plain(x, w, b)
+    torch.cuda.synchronize()
+    # float32 sums in another order, then one bf16 rounding: 1 ulp at the
+    # largest magnitude
+    tol = float(ref.float().abs().max()) * 2 ** -7
+    record(entry, shape, max_err(torch, got, ref), tol, entry=entry)
+    record(f"{entry} twice (bit-equal)", shape, max_err(torch, got, again),
+           0.0, entry=entry)
+    C = x.shape[-1]
+    taps_t = w.view(7, 7, C).transpose(0, 1).reshape(49, C).contiguous()
+    err = max_err(torch, k2.dwconv7x7_plain(x, taps_t, b), ref)
+    fault_seen(faults, failed, f"{entry} taps transposed", shape, err > tol,
+               max_abs_err=err)
+    if k2.dwconv7x7.hopper_launches - before != 2 * (entry != "K2"):
+        failed.append(f"{entry} {shape} did not take the routed kernel")
+
+
+def check_k2_dx(torch, x, w, b, gy, record, failed):
+    """K2's dx (the routed forward kernel on flipped taps, zero bias,
+    through the autograd Function) against autograd through the plain
+    conv."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    entry = k2_entry(torch, x)
+    before = k2.dwconv7x7.hopper_launches
+    xr = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(k2.dwconv7x7(xr, w, b), xr, gy)
+    xp = x.detach().requires_grad_(True)
+    (dx_ref,) = torch.autograd.grad(k2.dwconv7x7_plain(xp, w, b), xp, gy)
+    torch.cuda.synchronize()
+    # float32 sums of 49 taps in another order, one bf16 rounding
+    record(f"{entry} dx", list(x.shape), max_err(torch, dx, dx_ref),
+           float(dx_ref.float().abs().max()) * 2 ** -7, entry=entry)
+    if k2.dwconv7x7.hopper_launches - before != 2 * (entry != "K2"):
+        failed.append(f"{entry} dx {list(x.shape)} did not take the routed "
+                      "kernel")
+
+
+def time_k2(torch, x, w, b):
+    """ms per launch of K2's Hopper kernel and of ``dwconv.cu`` on the same
+    inputs (the route forced), in turns (Hopper, dwconv.cu, dwconv.cu,
+    Hopper; the mean of each kernel's two medians), cuDNN's depthwise
+    ``conv2d`` on a channels_last view, and the bound."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    C, n = x.shape[-1], x.numel()
+
+    def hopper():
+        return median_ms(torch, lambda: k2.dwconv7x7(x, w, b))
+
+    def tile():
+        with swapped((k2, "route", lambda dtype, C_: "tile")):
+            return median_ms(torch, lambda: k2.dwconv7x7(x, w, b))
+
+    h1, t1, t2, h2 = hopper(), tile(), tile(), hopper()
+    w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
+    x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
+    cudnn = median_ms(torch, lambda: F.conv2d(x_cl, w_cudnn, b, padding=3,
+                                              groups=C))
+    bound, by = bound_ms(2 * n * 2 + 50 * C * 2, 98 * n, F32_FLOPS)
+    return {"hopper": (h1 + h2) / 2, "tile": (t1 + t2) / 2, "cudnn": cudnn,
+            "bound": bound}, by
+
+
 def compare_kernels(torch, dev):
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
         convnext_mlp, convnext_mlp_plain)
     from vision_collision_detection_tpu_torch.ops.dequant_pad import (
         dequant_normalize_pad, dequant_normalize_pad_plain)
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
     from vision_collision_detection_tpu_torch.ops.dwconv import (
         dwconv7x7, dwconv7x7_plain)
 
@@ -422,16 +542,12 @@ def compare_kernels(torch, dev):
     del u8v, got, ref
 
     for H, C, _ in STAGES:
-        x = torch.randn(N_FRAMES, H, H, C, generator=g).to(dev, torch.bfloat16)
-        w = (torch.randn(49, C, generator=g) / 7).to(dev, torch.bfloat16)
-        b = (torch.randn(C, generator=g) * 0.1).to(dev, torch.bfloat16)
-        got = dwconv7x7(x, w, b)
-        ref = dwconv7x7_plain(x, w, b)
-        torch.cuda.synchronize()
-        # float32 sums in another order, then one bf16 rounding: 1 ulp at
-        # the largest magnitude
-        tol = float(ref.float().abs().max()) * 2 ** -7
-        record("K2", [N_FRAMES, H, H, C], max_err(torch, got, ref), tol)
+        x, w, b = k2_inputs(torch, dev, g, (N_FRAMES, H, H, C))
+        check_k2(torch, x, w, b, record, faults, failed)
+        # dwconv.cu on the same inputs (the route forced): it serves float32
+        # and other widths, and is timed beside the Hopper kernel
+        with swapped((k2, "route", lambda dtype, C_: "tile")):
+            check_k2(torch, x, w, b, record, faults, failed)
         inputs[("K2", C)] = (x, w, b)
 
         xs = torch.randn(N_FRAMES, H, H, C, generator=g).to(dev, torch.bfloat16)
@@ -464,6 +580,15 @@ def compare_kernels(torch, dev):
             if not seen:
                 failed.append(f"K3 fault {fault} not seen at C={C}")
         inputs[("K3", C)] = (xs, x, p)
+
+    # K2's Hopper kernel at the stage sizes of other frame sizes and odd
+    # sides, forward and dx
+    for shape in K2_ODD_SHAPES:
+        x, w, b = k2_inputs(torch, dev, g, shape)
+        check_k2(torch, x, w, b, record, faults, failed)
+        gy = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        check_k2_dx(torch, x, w, b, gy, record, failed)
+        del x, w, b, gy
 
     # The Hopper kernel (``convnext_mlp_wgmma.cu``) at every width it
     # takes, eval and train, both GELU forms, at 100 rows (less than one
@@ -562,14 +687,7 @@ def compare_train_kernels(torch, dev, inputs):
         inputs[("K2 wgrad", C)] = (x, gy)
 
         # dx: the Function's backward against autograd through F.conv2d
-        xr = x.detach().requires_grad_(True)
-        (dx,) = torch.autograd.grad(k2.dwconv7x7(xr, w, b), xr, gy)
-        xp = x.detach().requires_grad_(True)
-        (dx_ref,) = torch.autograd.grad(k2.dwconv7x7_plain(xp, w, b), xp, gy)
-        torch.cuda.synchronize()
-        # float32 sums of 49 taps in another order, one bf16 rounding
-        record("K2 dx", shape, max_err(torch, dx, dx_ref),
-               float(dx_ref.float().abs().max()) * 2 ** -7)
+        check_k2_dx(torch, x, w, b, gy, record, failed)
 
         xs, y, p = inputs[("K3", C)]
         with torch.no_grad():
@@ -860,7 +978,11 @@ def compare_flash_kernels(torch, dev):
 
 # ---- 3. serving forward ------------------------------------------------
 
-def serving_forward(torch, dev):
+def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
+                    power=True):
+    """The flagship's serving forward at ``size``² frames of ``content``
+    letterbox rows and columns, against the same forward on plain versions;
+    ``power``: the faults that must land outside the tolerance."""
     from vision_collision_detection_tpu_torch.config import ExperimentConfig
     from vision_collision_detection_tpu_torch.infer.predictor import (
         CollisionPredictor)
@@ -869,6 +991,8 @@ def serving_forward(torch, dev):
         convnext_mlp, dequant_pad, dwconv, preprocess)
 
     cfg = ExperimentConfig()
+    if size != S:
+        cfg = cfg.override({"data.frame_size": size})
     pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
     g = torch.Generator().manual_seed(2)
     with torch.no_grad():
@@ -889,7 +1013,7 @@ def serving_forward(torch, dev):
     T = cfg.data.num_frames // pred._fold_stride()
     # noise of another level and contrast in each clip, so the clips differ
     frames = torch.stack([
-        torch.randint(12 * i, 256 - 16 * i, (T, *CONTENT, 3), generator=g,
+        torch.randint(12 * i, 256 - 16 * i, (T, *content, 3), generator=g,
                       dtype=torch.uint8) for i in range(8)])
     forward = pred._make_forward(folded_stride=True)
     frames_dev = frames.to(dev)
@@ -898,8 +1022,8 @@ def serving_forward(torch, dev):
     counters = zero_counters()
     probs = forward(frames_dev)
     torch.cuda.synchronize()
-    log(f"[serve] probs {probs.tolist()}")
-    launches = expect_launches("serve", counters, K1=1, K2=18, K3=18)
+    log(f"[{tag}] probs {probs.tolist()}")
+    launches = expect_launches(tag, counters, K1=1, K2=18, K3=18)
     if tuple(probs.shape) != (8, 3) or not bool(torch.isfinite(probs).all()):
         raise SystemExit(f"bad probabilities {probs}")
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -909,7 +1033,7 @@ def serving_forward(torch, dev):
     spread = {"min": float(probs.min()), "max": float(probs.max()),
               "across_clips": float((probs.max(0).values
                                      - probs.min(0).values).max())}
-    log(f"[serve] probabilities span {spread['min']:.4f}..{spread['max']:.4f}; "
+    log(f"[{tag}] probabilities span {spread['min']:.4f}..{spread['max']:.4f}; "
         f"largest spread of one class across clips {spread['across_clips']:.4f}")
     if spread["across_clips"] < SPREAD_MIN:
         raise SystemExit(f"probabilities too alike to test with ({spread})")
@@ -930,9 +1054,15 @@ def serving_forward(torch, dev):
     # bf16 activations through 18 blocks: 1-ulp flips between kernel and
     # plain sums propagate; probabilities must agree to 2e-2 absolute
     tol = 2e-2
-    log(f"[serve] kernels vs plain: max |Δprob| {err:.3e} (tol {tol:.0e})")
+    log(f"[{tag}] kernels vs plain: max |Δprob| {err:.3e} (tol {tol:.0e})")
     if not err <= tol:
-        raise SystemExit("serving forward disagrees with its plain version")
+        raise SystemExit(f"{tag}: forward disagrees with its plain version")
+    summary = {"frame_size": size, "launches": launches,
+               "probs": probs.tolist(), "max_abs_err_vs_plain": err,
+               "tol": tol, "spread": spread, "row_sum_err": row_err}
+    if not power:
+        return {"pred": pred, "forward": forward, "frames": frames_dev,
+                "summary": summary}
 
     # The check's power: the plain forward with one fault in every block.
     # A dropped bias must land outside the tolerance; the smaller faults
@@ -943,22 +1073,19 @@ def serving_forward(torch, dev):
             return convnext_mlp.convnext_mlp_plain(x, y, approximate=ap, **p)
         return mlp
 
-    power = {name: max_err(torch, probs, plain_forward(mlp=k3_with(change)))
-             for name, change in K3_FAULTS.items()}
-    power["dwconv_bias_dropped"] = max_err(torch, probs, plain_forward(
+    seen = {name: max_err(torch, probs, plain_forward(mlp=k3_with(change)))
+            for name, change in K3_FAULTS.items()}
+    seen["dwconv_bias_dropped"] = max_err(torch, probs, plain_forward(
         dw=lambda x, w, b: dwconv.dwconv7x7_plain(x, w, b * 0)))
     required = ("b2_dropped", "dwconv_bias_dropped")
-    for name, v in power.items():
-        log(f"[serve] with fault {name}: max |Δprob| {v:.3e} "
+    for name, v in seen.items():
+        log(f"[{tag}] with fault {name}: max |Δprob| {v:.3e} "
             f"({'must exceed' if name in required else 'beside'} tol "
             f"{tol:.0e})")
-    if not all(power[name] > tol for name in required):
-        raise SystemExit(f"the tolerance does not see a dropped bias: {power}")
+    if not all(seen[name] > tol for name in required):
+        raise SystemExit(f"the tolerance does not see a dropped bias: {seen}")
     return {"pred": pred, "forward": forward, "frames": frames_dev,
-            "summary": {"launches": launches, "probs": probs.tolist(),
-                        "max_abs_err_vs_plain": err, "tol": tol,
-                        "spread": spread, "faults_max_abs_err": power,
-                        "row_sum_err": row_err}}
+            "summary": dict(summary, faults_max_abs_err=seen)}
 
 
 # ---- 3b. training step -------------------------------------------------
@@ -981,28 +1108,39 @@ def zero_counters():
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "wgmma_launches"):
-            fn.wgmma_launches = 0
+        for name in HOPPER_COUNTS:
+            if hasattr(fn, name):
+                setattr(fn, name, 0)
     return counters
+
+
+# A wrapper with two kernels counts the launches of its Hopper one under
+# one of these names beside ``launches``.
+HOPPER_COUNTS = ("wgmma_launches", "hopper_launches")
 
 
 def expect_launches(tag, counters, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
-    and where a wrapper has two kernels (K3, K3 train, K4 fwd), every
-    launch on the main paths must have taken the Hopper one."""
+    and where a wrapper has two kernels (K2, K3, K3 train, K4 fwd), every
+    launch on the main paths must have taken the Hopper one. Returns the
+    launches by kernels-line entry: K2's split into ``K2`` (``dwconv.cu``)
+    and ``K2 (hopper)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
-    hopper = {k: fn.wgmma_launches for k, fn in counters.items()
-              if hasattr(fn, "wgmma_launches")}
+    hopper = {k: getattr(fn, name) for k, fn in counters.items()
+              for name in HOPPER_COUNTS if hasattr(fn, name)}
     log(f"[{tag}] launches {launches}; of them on the Hopper kernels "
         f"{hopper}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
     if any(v != launches[k] for k, v in hopper.items()):
-        raise SystemExit(f"{tag}: a launch took the mma.sync kernel: "
-                         f"{hopper} of {launches}")
-    return launches
+        raise SystemExit(f"{tag}: a launch took the kernel for the other "
+                         f"dtypes and widths: {hopper} of {launches}")
+    by_entry = dict(launches)
+    by_entry["K2 (hopper)"] = hopper["K2"]
+    by_entry["K2"] = launches["K2"] - hopper["K2"]
+    return by_entry
 
 
 GRAD_FLOOR = 1e-3              # of the global gradient norm; see rel_grad_errs
@@ -1254,7 +1392,8 @@ def profile_training(torch, tr):
         log("[train profile] the profiler recorded no device time: "
             "not measured")
         return None
-    groups = {"K2 fwd and dx": ("dwconv7x7_kernel",),
+    groups = {"K2 fwd and dx": ("dwconv7x7_hopper_kernel",
+                                "dwconv7x7_kernel"),
               "K2 wgrad": ("dwconv_wgrad_kernel", "wgrad_sum_parts"),
               "K3 train": ("convnext_mlp_wgmma_kernel",)}
     by_group = {name: sum(r["ms"] for r in rows
@@ -1857,7 +1996,7 @@ def time_kernels(torch, dev, inputs):
     from vision_collision_detection_tpu_torch.ops.dequant_pad import (
         dequant_normalize_pad, dequant_normalize_pad_plain)
     from vision_collision_detection_tpu_torch.ops.dwconv import (
-        dwconv7x7, dwconv7x7_plain, dwconv7x7_wgrad, dwconv7x7_wgrad_plain)
+        dwconv7x7_plain, dwconv7x7_wgrad, dwconv7x7_wgrad_plain)
 
     rows = []
     u8, mean, std = inputs["K1"]
@@ -1872,16 +2011,18 @@ def time_kernels(torch, dev, inputs):
     for H, C, blocks in STAGES:
         x, w, bias = inputs[("K2", C)]
         n = x.numel()
-        b, by = bound_ms(2 * n * 2 + 50 * C * 2, 98 * n, F32_FLOPS)
-        w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
+        t, by = time_k2(torch, x, w, bias)
+        plain_ms = median_ms(torch, lambda: dwconv7x7_plain(x, w, bias))
+        # the Hopper kernel (the main path's) and dwconv.cu on the same
+        # inputs, each its own entry of the kernels line
+        for kernel, ms in (("K2 (hopper)", t["hopper"]), ("K2", t["tile"])):
+            rows.append({
+                "kernel": kernel, "shape": list(x.shape),
+                "per_forward": blocks, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": t["cudnn"], "bound_ms": t["bound"],
+                "bound_by": by})
         x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
-        rows.append({
-            "kernel": "K2", "shape": list(x.shape), "per_forward": blocks,
-            "ms": median_ms(torch, lambda: dwconv7x7(x, w, bias)),
-            "plain_ms": median_ms(torch, lambda: dwconv7x7_plain(x, w, bias)),
-            "library_ms": median_ms(torch, lambda: F.conv2d(
-                x_cl, w_cudnn, bias, padding=3, groups=C)),
-            "bound_ms": b, "bound_by": by})
+        w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
         xs, y, p = inputs[("K3", C)]
         M = n // C
         b, by = bound_ms(3 * n * 2 + 8 * C * C * 2, 16 * M * C * C,
@@ -1987,6 +2128,8 @@ def kernel_line(compare_rows, launches, timing):
         "K1": ("dequant_pad", csrc + "dequant_pad.cu",
                tpu + "pallas_ops.py:81"),
         "K2": ("dwconv7x7", csrc + "dwconv.cu", tpu + "dwconv_pallas.py:78"),
+        "K2 (hopper)": ("dwconv7x7_hopper", csrc + "dwconv_hopper.cu",
+                        tpu + "dwconv_pallas.py:78"),
         "K2 wgrad": ("dwconv7x7_wgrad", csrc + "dwconv_wgrad.cu",
                      tpu + "dwconv_pallas.py:114"),
         "K3": ("convnext_mlp", csrc + "convnext_mlp_wgmma.cu",

@@ -71,10 +71,53 @@ def test_kernel_path_fp32_matches_stock_path_to_bf16_level():
     assert float((a - b).abs().mean()) < 0.02
 
 
-def test_frame_size_must_divide():
-    tm = _port(True, True)
-    with pytest.raises(ValueError, match="divide"):
-        tm(torch.zeros(1, 36, 32, 3))
+@pytest.mark.parametrize("kernels", [False, True], ids=["stock", "kernels"])
+@pytest.mark.parametrize("hw", [(40, 40), (38, 38), (36, 32)],
+                         ids=["40x40", "38x38", "36x32"])
+def test_same_padding_matches_flax_at_sizes_not_divisible_by_32(hw, kernels):
+    """flax pads the stem and downsample convolutions as ``SAME``: at 38
+    the 4×4/4 stem takes (1, 1), at 40 the last stage is 2×2 after (0, 1)
+    on 3 rows, smaller than the 7×7 kernel, so only the halo keeps it right."""
+    x = np.random.default_rng(6).normal(size=(2, *hw, 3)).astype(np.float32)
+    fm = _flax(True, True)
+    params = _params(fm, x, seed=7)
+    ref = np.asarray(fm.apply({"params": params}, jnp.asarray(x)))
+    switches = {} if kernels else dict(dwconv_kernel=False, fused_mlp=False)
+    tm = _port(True, True, **switches)
+    load_flax_params(tm, params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == (2, DIMS[-1]) and np.isfinite(got).all()
+    if kernels:
+        # tolerance: K3's plain version rounds t, h_pre and h to bf16 in 4
+        # blocks, head-normed (the kernel path's bound above)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=0.1)
+        assert float(np.abs(got - ref).mean()) < 0.02
+    else:
+        # tolerance: float32 convolutions and products summed in other orders
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_convnext_tiny_at_112_matches_flax():
+    """The frame size ``train/notebook.py`` suggests: stages of 28, 14, 7
+    and 4 (the last after a (0, 1) pad), stock path, float32."""
+    from vision_collision_detection_tpu.models.backbones.convnext import (
+        convnext_tiny as flax_tiny,
+    )
+
+    x = np.random.default_rng(8).normal(size=(1, 112, 112, 3)).astype(
+        np.float32)
+    fm = flax_tiny(dtype=jnp.float32)
+    params = _params(fm, x, seed=9)
+    ref = np.asarray(fm.apply({"params": params}, jnp.asarray(x)))
+    tm = convnext.convnext_tiny(dtype=torch.float32, dwconv_kernel=False,
+                                fused_mlp=False).eval()
+    load_flax_params(tm, params)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert got.shape == (1, 768)
+    # tolerance: float32 convolutions and products summed in other orders
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_registry_builds_tiny_with_bridged_shapes():

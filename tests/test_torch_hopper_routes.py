@@ -1,10 +1,13 @@
-"""Which kernel a CUDA call of K3 or K4's forward takes, and how K3's
-weights reach it, checked on the CPU.
+"""Which kernel a CUDA call of K2's forward, K3 or K4's forward takes, and
+how K3's weights reach it, checked on the CPU.
 
 K3 and K4's forward each have two CUDA kernels: a Hopper one (wgmma, TMA)
-for the main paths' dtype and widths, and the mma.sync one for the rest.
-The choice is a rule on dtype and width (``convnext_mlp.route``,
-``flash_attention.fwd_route``), and the Hopper K3 reads W1 and W2 in
+for the main paths' dtype and widths, and the mma.sync one for the rest;
+K2's forward has the CUDA-core stencil of ``dwconv_hopper.cu`` for bf16
+at widths that divide by 32 and ``dwconv.cu`` for the rest.
+The choice is a rule on dtype and width (``dwconv.route``,
+``convnext_mlp.route``, ``flash_attention.fwd_route``), and the Hopper K3
+reads W1 and W2 in
 nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
 it the weight's storage with no copy. The launches are held here with the
 C library swapped for a recorder (the kernels run only on a card, where
@@ -25,6 +28,7 @@ from vision_collision_detection_tpu.ops.convnext_mlp_pallas import (
 from vision_collision_detection_tpu_torch.models.backbones import convnext
 from vision_collision_detection_tpu_torch.ops import _build
 from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+from vision_collision_detection_tpu_torch.ops import dwconv as k2
 from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
 K3_NAMES = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
@@ -36,6 +40,16 @@ def test_k3_route_rule(C, dtype):
     want = ("wgmma" if dtype == torch.bfloat16 and C not in (1024, 1536)
             else "mma")
     assert k3.route(dtype, C) == want
+
+
+@pytest.mark.parametrize("C", [96, 128, 192, 256, 384, 512, 768, 1024, 1536,
+                               48])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_route_rule(C, dtype):
+    """Every ConvNeXt width (96 to 1536) in bf16 takes the Hopper stencil;
+    float32, and a width that does not divide by 32, take dwconv.cu."""
+    want = "hopper" if dtype == torch.bfloat16 and C != 48 else "tile"
+    assert k2.route(dtype, C) == want
 
 
 @pytest.mark.parametrize("head_dim", [16, 64])
@@ -141,6 +155,49 @@ def test_k3_float32_activations_take_the_mma_entry(recorder):
     k3._launch_eval(x, y, approximate=False, **p)
     (name, args), = recorder.calls
     assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_function_forward_and_dx_take_the_routed_entry(recorder,
+                                                          monkeypatch, dtype):
+    """``_DwConv7x7``'s forward and its dx each launch the routed entry:
+    ``vcd_dwconv7x7_hopper`` for bf16, ``vcd_dwconv7x7`` (with its dtype
+    code) for float32; the dx call gets the taps flipped in both axes and a
+    zero bias, and both count as launches."""
+    C = 64
+    seen = []
+    launch = k2._launch_fwd
+
+    def spy(x, w, b):
+        seen.append((x, w, b))
+        return launch(x, w, b)
+
+    # the CPU tensors go down the card's path: launcher, then the recorder
+    monkeypatch.setattr(k2, "_forward", spy)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 5, 6, C, generator=g).to(dtype).requires_grad_(True)
+    w = torch.randn(49, C, generator=g).to(dtype).requires_grad_(True)
+    b = torch.randn(C, generator=g).to(dtype).requires_grad_(True)
+    before = (k2.dwconv7x7.launches, k2.dwconv7x7.hopper_launches)
+    y = k2.dwconv7x7(x, w, b)
+    (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert dx.shape == x.shape and dx.dtype == dtype
+    names = [name for name, _ in recorder.calls
+             if name.startswith("vcd_dwconv7x7")]
+    hopper = dtype == torch.bfloat16
+    want = "vcd_dwconv7x7_hopper" if hopper else "vcd_dwconv7x7"
+    assert names == [want, want]
+    assert (k2.dwconv7x7.launches, k2.dwconv7x7.hopper_launches) == (
+        before[0] + 2, before[1] + 2 * hopper)
+    (fx, fw, fb), (gx, gw, gb) = seen
+    assert fw is w and fb is b
+    assert torch.equal(gw, w.detach().view(7, 7, C).flip(0, 1).reshape(49, C))
+    assert torch.equal(gb, torch.zeros(C, dtype=dtype))
+    for (name, args), (t_x, t_w, t_b) in zip(recorder.calls, seen):
+        assert args[:3] == (t_x.data_ptr(), t_w.data_ptr(), t_b.data_ptr())
+        assert args[4:8] == (2, 5, 6, C)
+        if not hopper:
+            assert args[8] == 1  # dtype code float32
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),

@@ -50,10 +50,29 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
                         norm.weight, norm.bias, norm.eps).to(dtype)
 
 
-def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
-    """flax ``nn.Conv(dtype=dtype)`` on NHWC ``x``, without padding: callers
-    assert that H and W divide by the stride, where flax's SAME adds none."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
+def same_pads(size: int, k: int, s: int):
+    """flax's ``SAME`` padding of one spatial axis for a ``k``-wide window
+    at stride ``s``: ⌈size/s⌉ outputs, the total pad split with the smaller
+    half first."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype,
+              same: bool = False) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=dtype)`` on NHWC ``x``. ``same``: pad with zeros
+    in ``dtype`` as flax's default ``SAME`` does (the stem and downsample
+    convolutions, whose ``conv.padding`` is 0); otherwise ``conv.padding``
+    (the stock depthwise conv's explicit 3)."""
+    x = x.to(dtype)
+    if same:
+        top, bottom = same_pads(x.shape[1], conv.kernel_size[0],
+                                conv.stride[0])
+        left, right = same_pads(x.shape[2], conv.kernel_size[1],
+                                conv.stride[1])
+        if top or bottom or left or right:
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dtype),
                  conv.bias.to(dtype), stride=conv.stride,
                  padding=conv.padding, groups=conv.groups)
     return y.permute(0, 2, 3, 1).contiguous()
@@ -137,7 +156,8 @@ class ConvNeXtBlock(nn.Module):
 
 class ConvNeXt(nn.Module):
     """NHWC frames [N, H, W, 3] → pooled (and head-normed) features [N, D]
-    in float32. H and W must divide by 4·2^(stages−1)."""
+    in float32. Any H and W: the stem and downsample convolutions pad as
+    flax's ``SAME`` does."""
 
     def __init__(self, depths: Sequence[int], dims: Sequence[int],
                  drop_path_rate: float = 0.0,
@@ -175,19 +195,13 @@ class ConvNeXt(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the drop-path masks' source in training."""
         dt = self.dtype
-        H, W = x.shape[1], x.shape[2]
-        div = 4 * 2 ** (len(self.depths) - 1)
-        if H % div or W % div:
-            # flax's SAME padding equals padding=0 only for even division.
-            raise ValueError(
-                f"frame {H}x{W} must divide by {div} for the stem and "
-                "downsample convolutions")
-        x = conv_nhwc(x, self.stem_conv, dt)
+        x = conv_nhwc(x, self.stem_conv, dt, same=True)
         x = layer_norm(x, self.stem_norm, dt)
         for stage, depth in enumerate(self.depths):
             if stage > 0:
                 x = layer_norm(x, getattr(self, f"downsample{stage}_norm"), dt)
-                x = conv_nhwc(x, getattr(self, f"downsample{stage}_conv"), dt)
+                x = conv_nhwc(x, getattr(self, f"downsample{stage}_conv"), dt,
+                               same=True)
             for blk in range(depth):
                 x = getattr(self, f"stage{stage}_block{blk}")(x, generator)
         # global mean pool: float32 sum, result in the compute dtype

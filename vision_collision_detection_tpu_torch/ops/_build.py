@@ -38,6 +38,9 @@ _SIGNATURES = {
     "vcd_dequant_pad": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I,
                         _P],
     "vcd_dwconv7x7": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vcd_dwconv7x7_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vcd_dwconv7x7_hopper_geometry": [_I, _I, _I, _I,
+                                      ctypes.POINTER(ctypes.c_int)],
     "vcd_dwconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_train": [_P] * 13 + [_I, _I, _I, _I, _P],

@@ -6,12 +6,17 @@ Replaces the TPU kernels of ``vision_collision_detection_tpu/ops/dwconv_pallas.p
 gradient ``_run_wgrad`` (``_wgrad_kernel``), wired into ``jax.custom_vjp``
 there and into the ``torch.autograd.Function`` ``_DwConv7x7`` here.
 
-- The forward kernel is ``ops/csrc/dwconv.cu``; it masks the 3-pixel halo
-  while loading its tile instead of padding the input in device memory.
-  Its bound on the H100 is operations: each of the flagship forward's 18
-  launches reads x and writes y once (≈ 1.7 GB over the 18 at B=8,
-  ≈ 0.51 ms at 3.35 TB/s), but its 98 float32 flops per output (≈ 42 GFLOP
-  over the 18) take ≈ 0.63 ms on the CUDA cores at 67 TFLOP/s.
+- The forward has two kernels, chosen by ``route``: for bf16 activations
+  with C a multiple of 32 (every ConvNeXt width)
+  ``ops/csrc/dwconv_hopper.cu``, a CUDA-core stencil (a persistent grid of
+  32-channel slabs, bands staged by cp.async and converted to float32
+  once, 2×7 or 2×8 outputs a thread); for float32 and other widths
+  ``ops/csrc/dwconv.cu`` (16×8 output tiles). Both mask the 3-pixel halo
+  while loading instead of padding the input in device memory. The bound
+  on the H100 is operations: each of the flagship forward's 18 launches
+  reads x and writes y once (≈ 1.7 GB over the 18 at B=8, ≈ 0.51 ms at
+  3.35 TB/s), but its 98 float32 flops per output (≈ 42 GFLOP over the 18)
+  take ≈ 0.63 ms on the CUDA cores at 67 TFLOP/s.
 - The weight-gradient kernel is ``ops/csrc/dwconv_wgrad.cu``: float32
   ``dw[49, C]``, per-block partial sums added in a fixed order, so two runs
   agree bit for bit. Its bound is operations too: 98 flops per element of
@@ -40,6 +45,8 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _WGRAD_BLOCKS_PER_SM = 4
 _WGRAD_TILE = (8, 8)
 _WGRAD_SLAB = 32
+# Channels per block of the Hopper forward kernel: C must divide by it.
+HOPPER_SLAB = 32
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -66,25 +73,56 @@ def dwconv7x7_plain(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def route(dtype: torch.dtype, C: int) -> str:
+    """Which forward kernel a CUDA call takes: ``"hopper"``
+    (``dwconv_hopper.cu``) for bf16 activations with C a multiple of
+    ``HOPPER_SLAB``, else ``"tile"`` (``dwconv.cu``)."""
+    return ("hopper" if dtype == torch.bfloat16 and C % HOPPER_SLAB == 0
+            else "tile")
+
+
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
-    """The forward kernel on CUDA tensors (bf16 or float32, C even, all
-    contiguous)."""
-    # channel pairs are read and written as one value of twice the size
-    for t, name in ((x, "x"), (w, "w"), (b, "b")):
-        _build.require_cuda(t, name, align=2 * x.element_size())
+    """The forward kernel of ``route`` on CUDA tensors (bf16 or float32, C
+    even, all contiguous)."""
     N, H, W, C = x.shape
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"dwconv7x7 kernel takes bf16 or float32, got {x.dtype}")
     if C % 2:
         raise ValueError(f"dwconv7x7 kernel needs an even channel count, got {C}")
+    # channel pairs are read and written as one value of twice the size
+    for t, name in ((x, "x"), (w, "w"), (b, "b")):
+        _build.require_cuda(t, name, align=2 * x.element_size())
     out = torch.empty_like(x)
-    err = _build.lib().vcd_dwconv7x7(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        N, H, W, C, _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
-    _build.check(err, "vcd_dwconv7x7")
+    stream = _build.stream_ptr(x.device)
+    if route(x.dtype, C) == "hopper":
+        # x is copied 16 bytes (8 channels) at a time
+        _build.require_cuda(x, "x", align=16)
+        err = _build.lib().vcd_dwconv7x7_hopper(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            N, H, W, C, stream)
+        _build.check(err, "vcd_dwconv7x7_hopper")
+        dwconv7x7.hopper_launches += 1
+    else:
+        err = _build.lib().vcd_dwconv7x7(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            N, H, W, C, _DTYPE_CODE[x.dtype], stream)
+        _build.check(err, "vcd_dwconv7x7")
     dwconv7x7.launches += 1
     return out
+
+
+def hopper_geometry(N: int, H: int, W: int, C: int) -> dict:
+    """The launch ``dwconv_hopper.cu`` makes for an [N, H, W, C] input, read
+    from the library without launching (needs the card)."""
+    import ctypes
+
+    geo = (ctypes.c_int * 10)()
+    _build.check(_build.lib().vcd_dwconv7x7_hopper_geometry(N, H, W, C, geo),
+                 "vcd_dwconv7x7_hopper_geometry")
+    keys = ("columns_per_thread", "slots", "frames", "rows", "cols",
+            "groups", "items_per_slab", "grid", "smem_bytes", "bands")
+    return dict(zip(keys, list(geo)))
 
 
 def _forward(x, w, b):
@@ -180,7 +218,8 @@ class _DwConv7x7(torch.autograd.Function):
 def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
     """K2. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel. Where a gradient is needed, the call goes through ``_DwConv7x7``,
+    kernel of ``route`` (``hopper_launches`` counts those that took
+    ``dwconv_hopper.cu``). Where a gradient is needed, the call goes through ``_DwConv7x7``,
     whose backward launches the forward kernel once more (dx) and the
     weight-gradient kernel."""
     _check(x, w, b)
@@ -191,3 +230,4 @@ def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
 
 
 dwconv7x7.launches = 0
+dwconv7x7.hopper_launches = 0
