@@ -10,7 +10,9 @@ failure:
 
 1. Build the kernels; print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   flagship shapes (K1 at N=200, 126×224 → 224 writing bf16 and float32;
+   flagship shapes (K1 at N=200, 126×224 → 224, at the ViViT's 256 frames
+   of 189×336 → 336 and at 120×213 → 224, bars on every side and content
+   rows off the 16-byte boundary, each writing bf16 and float32, bit-equal;
    K2 and K3 at the four ConvNeXt stage shapes, K3 with tanh and erf
    GELU), random weights with layer-scale γ of order 1, TF32 off for the
    plain side. K3 is held on its largest and its mean error, and faulty
@@ -23,13 +25,17 @@ failure:
    runs, with the taps transposed (dy ↔ dx) in the plain version landing
    outside; ``dwconv.cu`` on the same inputs, the route forced; then the
    Hopper kernel's forward and dx at the last stage of 112² and 40² frames
-   ([200, 4, 4, 768], [64, 2, 2, 768]) and at odd sides ([64, 3, 5, 384],
-   [64, 10, 6, 96]). Then what stays on the mma.sync kernel, off the main
+   ([200, 4, 4, 768], [64, 2, 2, 768]), at odd sides ([64, 3, 5, 384],
+   [64, 10, 6, 96]) and at [64, 16, 64, 96], a short frame too wide to be
+   staged whole. Then what stays on the mma.sync kernel, off the main
    path (K3 at widths 1024 and 1536, K2 and K3 on float32 activations), at
    small shapes; the launch counters show which kernel each call took.
-   Then the training path's kernels at the same shapes: K2 wgrad
-   against its plain version relative to Σ|x·g| and bit-equal over two
-   runs (flipped or transposed taps must land outside), K2 dx (the
+   Then the training path's kernels at the same shapes: K2 wgrad on its
+   Hopper kernel (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
+   (the route forced) against its plain version relative to Σ|x·g| and
+   bit-equal over two runs (flipped or transposed taps must land outside),
+   the Hopper kernel again at the odd shapes and ``dwconv_wgrad.cu`` on
+   float32 inputs, K2 dx (the
    routed forward kernel on flipped taps, through the autograd Function) against
    autograd through the plain conv, and K3 train (out bit-equal to the
    eval kernel's; t, h_pre and m by K3's rule, with m saved without b2
@@ -49,12 +55,15 @@ failure:
    4 after flax's SAME padding): launch counts and agreement with plain
    versions.
 4. Time each kernel, its plain version, cuDNN's depthwise conv beside K2
-   (``library_ms``; K2's Hopper kernel and ``dwconv.cu`` in turns, each its
-   own entry of the kernels line), the stock LN→Linear→GELU→Linear chain beside K3 (for
+   and its ``convolution_backward`` beside K2 wgrad (``library_ms``; K2's
+   and K2 wgrad's Hopper kernels and ``dwconv.cu`` / ``dwconv_wgrad.cu`` in
+   turns, each its own entry of the kernels line, with a per-stage table;
+   K1 also at the ViViT's shape), the stock LN→Linear→GELU→Linear chain beside K3 (for
    information; it is not one call), K3's mma.sync kernel on the same
    inputs (``mma_sync_ms``), and the whole forward (both kernels,
    K2 only, K3 only, stock blocks) with CUDA events, as medians after
-   warm-up.
+   warm-up; each kernel call (not the forwards) queued behind a
+   device-side wait, so that the host's time to issue it is not timed.
 5. Profile three forwards with ``torch.profiler``: device time by kernel
    and the device's idle share.
 6. Run one training step (``create_train_state(ExperimentConfig())`` and
@@ -70,7 +79,9 @@ failure:
 7. Time the training step with kernels and with stock blocks in turns,
    ``train_preprocess`` alone and the step's peak memory; profile one
    step: device time of K2 (forward and dx), K2 wgrad, K3 train, K3's
-   torch backward, ``train_preprocess`` and the rest, and the idle share.
+   torch backward, ``train_preprocess`` and the rest, the idle share, and
+   the torch ops' kernels under K2's backward; K2's bias gradient summed from
+   a float32 copy of g against summed as read, timed at the stage shapes.
 
 8. Hold K4's kernels (flash attention forward, backward dK/dV, backward
    dQ, and the backward's row kernel di = Σ o·do; the forward on its
@@ -106,7 +117,10 @@ failure:
     8, dK/dV 8, dQ 8, di 8; every parameter a finite gradient, every spatial
     block's projections a nonzero one; the step on plain versions must
     agree (VIVIT_TRAIN_TOL), where di left out of dQ's ds and dv off by 10%
-    must not; the loss must fall on a fixed batch; ``remat`` on and off
+    must not; both bf16 steps against the same step in float32 (K4 on its
+    plain float32 version, remat on), where the kernel step's temporal
+    query/key gradients must be no further from it than twice the plain
+    step's; the loss must fall on a fixed batch; ``remat`` on and off
     must agree at B=2. Then the step with "flash" and "xla" in turns,
     peak memory and profile.
 
@@ -135,6 +149,7 @@ F32_FLOPS = 67e12              # CUDA-core float32 (FMA = 2 flops)
 
 N_FRAMES = 200                 # B=8 clips × 25 folded frames
 CONTENT = (126, 224)           # 16:9 source letterboxed into 224²
+K1_SIDE_CONTENT = (120, 213)   # bars on all four sides, rows of 639 bytes
 S = 224
 STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))  # (H=W, C, blocks)
 LOGIT_SCALE = 10.0             # fc_out weights × this in the serving forward
@@ -156,12 +171,24 @@ def log(*a):
     print(*a, flush=True)
 
 
-def median_ms(torch, fn, warmup=3, iters=10):
+# A device-side wait (about 1 ms on an H100) that each timed call is queued
+# behind: the host issues the call while the device waits, so the events
+# time the device's work and not the host's time to issue it, which is the
+# longer of the two for a short kernel (K1 takes about 35 µs).
+WAIT_CYCLES = 2_000_000
+
+
+def median_ms(torch, fn, warmup=3, iters=10, queued=True):
+    """Median over ``iters`` calls of ``fn``, CUDA events around each, after
+    ``warmup`` calls. ``queued``: each call waits behind WAIT_CYCLES on the
+    device; off for the forwards, whose host time users see."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
+        if queued:
+            torch.cuda._sleep(WAIT_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -231,7 +258,7 @@ def main() -> int:
     report["forward"] = forward_ms
     report["profile"] = profile_device(
         torch, "forward", lambda: serve["forward"](serve["frames"]), 3,
-        {"K1": "dequant_pad_kernel", "K2": "dwconv7x7_hopper_kernel",
+        {"K1": "dequant_pad_rows", "K2": "dwconv7x7_hopper_kernel",
          "K2 dwconv.cu": "dwconv7x7_kernel",
          "K3": "convnext_mlp_wgmma_kernel"})
     del serve
@@ -400,9 +427,11 @@ def check_k3_small(torch, dev, g, C, M, record, faults, failed):
 
 
 # K2 beyond the four stages: the last stage of 112² frames (4×4) and of
-# 40² frames (2×2, smaller than the kernel), and odd sides.
+# 40² frames (2×2, smaller than the kernel), odd sides, and a short wide
+# frame (16×64) whose whole frame would not fit the Hopper kernels' shared
+# memory, so it takes bands.
 K2_ODD_SHAPES = ((N_FRAMES, 4, 4, 768), (64, 2, 2, 768), (64, 3, 5, 384),
-                 (64, 10, 6, 96))
+                 (64, 10, 6, 96), (64, 16, 64, 96))
 
 
 def k2_inputs(torch, dev, g, shape):
@@ -500,6 +529,35 @@ def time_k2(torch, x, w, b):
             "bound": bound}, by
 
 
+def time_k2_wgrad(torch, x, gy):
+    """ms per launch of K2 wgrad's Hopper kernel and of ``dwconv_wgrad.cu``
+    on the same inputs (the route forced), in turns (Hopper, dwconv_wgrad.cu,
+    dwconv_wgrad.cu, Hopper; the mean of each kernel's two medians), cuDNN's
+    depthwise weight and bias gradient (``convolution_backward`` on
+    channels_last views), and the bound: x and g read once, float32 dw
+    written, 98 flops per element."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    C, n = x.shape[-1], x.numel()
+
+    def hopper():
+        return median_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy))
+
+    def tile():
+        with swapped((k2, "wgrad_route", lambda dtype, C_: "tile")):
+            return median_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy))
+
+    h1, t1, t2, h2 = hopper(), tile(), tile(), hopper()
+    x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    w_cudnn = torch.zeros(C, 1, 7, 7, dtype=x.dtype, device=x.device)
+    cudnn = median_ms(torch, lambda: torch.ops.aten.convolution_backward(
+        gy_cl, x_cl, w_cudnn, [C], [1, 1], [3, 3], [1, 1], False, [0, 0], C,
+        [False, True, True]))
+    bound, by = bound_ms(2 * n * 2 + 49 * C * 4, 98 * n, F32_FLOPS)
+    return {"hopper": (h1 + h2) / 2, "tile": (t1 + t2) / 2, "cudnn": cudnn,
+            "bound": bound}, by
+
+
 def compare_kernels(torch, dev):
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
@@ -534,12 +592,24 @@ def compare_kernels(torch, dev):
     # letterbox pad) into 336²
     u8v = torch.randint(0, 256, (256, *VIVIT_CONTENT, 3), dtype=torch.uint8,
                         generator=torch.Generator().manual_seed(6)).to(dev)
-    got = dequant_normalize_pad(u8v, VIVIT_S, mean, std, torch.bfloat16)
-    ref = dequant_normalize_pad_plain(u8v, VIVIT_S, mean, std, torch.bfloat16)
-    torch.cuda.synchronize()
-    record("K1 into 336²", [256, *VIVIT_CONTENT, 3],
-           max_err(torch, got, ref), 0.0)
-    del u8v, got, ref
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = dequant_normalize_pad(u8v, VIVIT_S, mean, std, out_dtype)
+        ref = dequant_normalize_pad_plain(u8v, VIVIT_S, mean, std, out_dtype)
+        torch.cuda.synchronize()
+        record(f"K1 into 336² {str(out_dtype)[6:]}", [256, *VIVIT_CONTENT, 3],
+               max_err(torch, got, ref), 0.0, entry="K1")
+    # side bars on every row and content rows of 639 bytes, which start off
+    # the 16-byte boundary: the row kernel's narrow loads and its mixed
+    # bar/content vectors
+    u8s = torch.randint(0, 256, (64, *K1_SIDE_CONTENT, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(7)).to(dev)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = dequant_normalize_pad(u8s, S, mean, std, out_dtype)
+        ref = dequant_normalize_pad_plain(u8s, S, mean, std, out_dtype)
+        torch.cuda.synchronize()
+        record(f"K1 side bars {str(out_dtype)[6:]}", [64, *K1_SIDE_CONTENT, 3],
+               max_err(torch, got, ref), 0.0, entry="K1")
+    del u8v, u8s, got, ref
 
     for H, C, _ in STAGES:
         x, w, b = k2_inputs(torch, dev, g, (N_FRAMES, H, H, C))
@@ -646,11 +716,14 @@ def compare_kernels(torch, dev):
 
 def compare_train_kernels(torch, dev, inputs):
     """The training path's kernels against their plain versions at the
-    flagship shapes, on phase 2's K2 and K3 inputs (bf16): K2 wgrad (and
-    bit-equal over two runs), K2 dx (the forward kernel on flipped taps,
+    flagship shapes, on phase 2's K2 and K3 inputs (bf16): K2 wgrad on its
+    Hopper kernel and on ``dwconv_wgrad.cu`` (the route forced), each
+    bit-equal over two runs, K2 dx (the forward kernel on flipped taps,
     through the autograd Function, against autograd through the plain
     conv) and K3 train (out bit-equal to the eval kernel; t, h_pre, m held
-    by K3's rule). Faulty plain versions must land outside each tolerance."""
+    by K3's rule). Faulty plain versions must land outside each tolerance.
+    Then the Hopper wgrad kernel at the odd shapes and ``dwconv_wgrad.cu``
+    on float32 inputs."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
 
@@ -661,29 +734,11 @@ def compare_train_kernels(torch, dev, inputs):
         shape = [N_FRAMES, H, H, C]
         x, w, b = inputs[("K2", C)]
         gy = torch.randn(N_FRAMES, H, H, C, generator=g).to(dev, torch.bfloat16)
-        got = k2.dwconv7x7_wgrad(x, gy)
-        again = k2.dwconv7x7_wgrad(x, gy)
-        ref = k2.dwconv7x7_wgrad_plain(x, gy)
-        # Σ|x·g| per tap and channel: the scale of a float32 sum's rounding
-        scale = k2.dwconv7x7_wgrad_plain(x.abs(), gy.abs()).clamp_min(1e-30)
-        torch.cuda.synchronize()
-
-        def rel(a):
-            return float(((a - ref).abs() / scale).max())
-
-        # float32 sums of up to 627,200 products in another order: each
-        # partial sum rounds at 2^-24 of its size, far under 1e-6 of Σ|x·g|,
-        # while a wrong tap order is off by ~1/√(N·H·W) of it (≥ 1e-3 here)
-        record("K2 wgrad (err / Σ|x·g|)", shape, rel(got), WGRAD_TOL,
-               abs_err=max_err(torch, got, ref), entry="K2 wgrad")
-        record("K2 wgrad twice (bit-equal)", shape,
-               max_err(torch, got, again), 0.0, entry="K2 wgrad")
-        taps = ref.view(7, 7, C)
-        for name, bad in (("taps flipped", taps.flip(0, 1)),
-                          ("dy and dx swapped", taps.transpose(0, 1))):
-            err = rel(bad.reshape(49, C))
-            fault_seen(faults, failed, f"K2 wgrad {name}", shape,
-                       err > WGRAD_TOL, err=err)
+        check_k2_wgrad(torch, x, gy, record, failed, faults)
+        # dwconv_wgrad.cu on the same inputs (the route forced): it serves
+        # float32 and other widths, and is timed beside the Hopper kernel
+        with swapped((k2, "wgrad_route", lambda dtype, C_: "tile")):
+            check_k2_wgrad(torch, x, gy, record, failed)
         inputs[("K2 wgrad", C)] = (x, gy)
 
         # dx: the Function's backward against autograd through F.conv2d
@@ -728,10 +783,70 @@ def compare_train_kernels(torch, dev, inputs):
             fault_seen(faults, failed, f"K3 train {fault}", shape,
                        err > tols[name][0] or mean > tols[name][1],
                        max_abs_err=err, mean_abs_err=mean)
+    # the Hopper wgrad kernel at the odd shapes, and dwconv_wgrad.cu on
+    # float32 inputs (its route on the card)
+    for shape in K2_ODD_SHAPES:
+        x, _, _ = k2_inputs(torch, dev, g, shape)
+        gy = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
+        check_k2_wgrad(torch, x, gy, record, failed)
+    x = torch.randn(8, 56, 56, 96, generator=g).to(dev)
+    gy = torch.randn(8, 56, 56, 96, generator=g).to(dev)
+    check_k2_wgrad(torch, x, gy, record, failed)
+    del x, gy
     if failed:
         raise SystemExit(f"training kernel disagrees with its plain version: "
                          f"{failed}")
     return {"rows": rows, "faults": faults}
+
+
+def k2_wgrad_entry(torch, x):
+    """The kernels-line entry of the wgrad kernel ``dwconv.wgrad_route``
+    picks."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    return ("K2 wgrad (hopper)"
+            if k2.wgrad_route(x.dtype, x.shape[-1]) == "hopper"
+            else "K2 wgrad")
+
+
+def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
+    """K2's weight gradient on the kernel of ``dwconv.wgrad_route`` against
+    its plain version, relative to Σ|x·g| per tap and channel, and bit-equal
+    over two runs; both launches must count on the routed kernel. With
+    ``faults``, the plain result with its taps flipped, and with dy and dx
+    swapped, must land outside."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    shape, C = list(x.shape), x.shape[-1]
+    entry = k2_wgrad_entry(torch, x)
+    tag = entry + (" float32" if x.dtype == torch.float32 else "")
+    before = k2.dwconv7x7_wgrad.hopper_launches
+    got = k2.dwconv7x7_wgrad(x, gy)
+    again = k2.dwconv7x7_wgrad(x, gy)
+    ref = k2.dwconv7x7_wgrad_plain(x, gy)
+    # Σ|x·g| per tap and channel: the scale of a float32 sum's rounding
+    scale = k2.dwconv7x7_wgrad_plain(x.abs(), gy.abs()).clamp_min(1e-30)
+    torch.cuda.synchronize()
+
+    def rel(a):
+        return float(((a - ref).abs() / scale).max())
+
+    # float32 sums of up to 627,200 products in another order: each partial
+    # sum rounds at 2^-24 of its size, far under 1e-6 of Σ|x·g|, while a
+    # wrong tap order is off by ~1/√(N·H·W) of it (≥ 1e-3 at the stages)
+    record(f"{tag} (err / Σ|x·g|)", shape, rel(got), WGRAD_TOL,
+           abs_err=max_err(torch, got, ref), entry=entry)
+    record(f"{tag} twice (bit-equal)", shape, max_err(torch, got, again), 0.0,
+           entry=entry)
+    if faults is not None:
+        taps = ref.view(7, 7, C)
+        for name, bad in (("taps flipped", taps.flip(0, 1)),
+                          ("dy and dx swapped", taps.transpose(0, 1))):
+            err = rel(bad.reshape(49, C))
+            fault_seen(faults, failed, f"{tag} {name}", shape,
+                       err > WGRAD_TOL, err=err)
+    if k2.dwconv7x7_wgrad.hopper_launches - before != 2 * (entry != "K2 wgrad"):
+        failed.append(f"{tag} {shape} did not take the routed kernel")
 
 
 # ---- 2c. K4 against its plain version ------------------------------------
@@ -1121,10 +1236,11 @@ HOPPER_COUNTS = ("wgmma_launches", "hopper_launches")
 
 def expect_launches(tag, counters, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
-    and where a wrapper has two kernels (K2, K3, K3 train, K4 fwd), every
-    launch on the main paths must have taken the Hopper one. Returns the
-    launches by kernels-line entry: K2's split into ``K2`` (``dwconv.cu``)
-    and ``K2 (hopper)``."""
+    and where a wrapper has two kernels (K2, K2 wgrad, K3, K3 train, K4
+    fwd), every launch on the main paths must have taken the Hopper one.
+    Returns the launches by kernels-line entry: K2's split into ``K2``
+    (``dwconv.cu``) and ``K2 (hopper)``, K2 wgrad's into ``K2 wgrad``
+    (``dwconv_wgrad.cu``) and ``K2 wgrad (hopper)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1138,8 +1254,9 @@ def expect_launches(tag, counters, **expected):
         raise SystemExit(f"{tag}: a launch took the kernel for the other "
                          f"dtypes and widths: {hopper} of {launches}")
     by_entry = dict(launches)
-    by_entry["K2 (hopper)"] = hopper["K2"]
-    by_entry["K2"] = launches["K2"] - hopper["K2"]
+    for k in ("K2", "K2 wgrad"):
+        by_entry[f"{k} (hopper)"] = hopper[k]
+        by_entry[k] = launches[k] - hopper[k]
     return by_entry
 
 
@@ -1348,6 +1465,7 @@ def profile_training(torch, tr):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
     from vision_collision_detection_tpu_torch.train import steps
 
     def ranged(label, fn):
@@ -1364,6 +1482,8 @@ def profile_training(torch, tr):
 
     with swapped((k3, "convnext_mlp_bwd",
                   ranged("vcd_k3_backward", k3.convnext_mlp_bwd)),
+                 (k2._DwConv7x7, "backward", staticmethod(
+                     ranged("vcd_k2_backward", k2._DwConv7x7.backward))),
                  (steps, "train_preprocess",
                   ranged("vcd_train_preprocess", steps.train_preprocess))):
         run()
@@ -1394,7 +1514,9 @@ def profile_training(torch, tr):
         return None
     groups = {"K2 fwd and dx": ("dwconv7x7_hopper_kernel",
                                 "dwconv7x7_kernel"),
-              "K2 wgrad": ("dwconv_wgrad_kernel", "wgrad_sum_parts"),
+              "K2 wgrad": ("dwconv_wgrad_hopper_kernel",
+                           "wgrad_hopper_sum_parts", "dwconv_wgrad_kernel",
+                           "wgrad_sum_parts"),
               "K3 train": ("convnext_mlp_wgmma_kernel",)}
     by_group = {name: sum(r["ms"] for r in rows
                           if any(k in r["kernel"] for k in keys))
@@ -1404,6 +1526,14 @@ def profile_training(torch, tr):
                  if e.name == label and e.device_type == DeviceType.CPU)
         by_group[name] = us / 1e3 if us > 0 else None
     by_group["rest"] = busy - sum(v for v in by_group.values() if v)
+    k2_bwd = kernels_in_range(prof, "vcd_k2_backward")
+    # the hand-written kernels launch through ctypes, outside any torch op,
+    # so the range shows the torch ops' kernels: db, the taps' flip, casts
+    log("[train profile] torch kernels in K2's backward, per step: "
+        + ("; ".join(
+            f"{v['launches']} x {k[:70]} {v['ms']:.3f} ms"
+            for k, v in sorted(k2_bwd.items(), key=lambda kv: -kv[1]["ms"]))
+            or "not measured"))
     rows.sort(key=lambda r: -r["ms"])
     idle = max(0.0, 1.0 - busy / wall_ms)
     log(f"[train profile] device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
@@ -1414,7 +1544,54 @@ def profile_training(torch, tr):
         log(f"[train profile]   {r['ms']:.3f} ms x{r['launches']} "
             f"{r['kernel'][:100]}")
     return {"busy_ms": busy, "wall_ms": wall_ms, "idle_share": idle,
-            "by_part_ms": by_group, "top": rows[:30]}
+            "by_part_ms": by_group, "k2_backward_kernels": k2_bwd,
+            "db": time_k2_db(torch, frames.device), "top": rows[:30]}
+
+
+def kernels_in_range(prof, label):
+    """Device kernels of the torch ops under the record_function ranges
+    ``label`` of a profile: name → launches and device ms."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.name != label or e.device_type != DeviceType.CPU:
+            continue
+        stack = [e]
+        while stack:
+            ev = stack.pop()
+            for k in getattr(ev, "kernels", []):
+                d = out.setdefault(k.name, {"launches": 0, "ms": 0.0})
+                d["launches"] += 1
+                d["ms"] += k.duration / 1e3
+            stack.extend(ev.cpu_children)
+    return out
+
+
+def time_k2_db(torch, dev):
+    """K2's bias gradient at the four stage shapes: Σg in float32 from a
+    float32 copy of g (``g.to(float32).sum``, the earlier form) and summed
+    as read (``g.sum(dtype=float32)``, the backward's), ms per launch and
+    over the 18 blocks. Which kernels the step's form launches shows in the
+    step's profile (the torch kernels under K2's backward)."""
+    forms = {"copy_then_sum": lambda g: g.to(torch.float32).sum((0, 1, 2)),
+             "sum_as_read": lambda g: g.sum((0, 1, 2), dtype=torch.float32)}
+    gen = torch.Generator().manual_seed(9)
+    out = {"per_stage": [], "step_ms": dict.fromkeys(forms, 0.0)}
+    for H, C, blocks in STAGES:
+        g = torch.randn(N_FRAMES, H, H, C, generator=gen).to(dev, torch.bfloat16)
+        ms = {k: median_ms(torch, lambda f=f: f(g)) for k, f in forms.items()}
+        diff = max_err(torch, forms["copy_then_sum"](g), forms["sum_as_read"](g))
+        for k, v in ms.items():
+            out["step_ms"][k] += v * blocks
+        out["per_stage"].append({"shape": [N_FRAMES, H, H, C], "ms": ms,
+                                 "max_abs_diff": diff})
+        log(f"[train db] [{N_FRAMES}, {H}, {H}, {C}] x{blocks}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; max |difference| {diff:.3e}")
+    log(f"[train db] over the 18 blocks: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in out["step_ms"].items()))
+    return out
 
 
 # ---- 8. the scaled ViViT path ---------------------------------------------
@@ -1575,11 +1752,12 @@ def time_vivit_forward(torch, serve):
     log(f"[vivit forward] flash vs xla: max |Δprob| {diff:.3e}")
     out = in_turns(torch, "vivit forward", {
         name: (lambda fwd=fwd: fwd(frames)) for name, fwd in forwards.items()},
-        lambda fn: median_ms(torch, fn, warmup=2, iters=10), VIVIT_BATCH)
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10,
+                            queued=False), VIVIT_BATCH)
     out["flash_vs_xla_max_abs_dprob"] = diff
     out["profile"] = profile_device(
         torch, "vivit forward", lambda: forwards["flash"](frames), 3,
-        {"K1": "dequant_pad_kernel", "K4 fwd": "flash_fwd_wgmma_kernel"})
+        {"K1": "dequant_pad_rows", "K4 fwd": "flash_fwd_wgmma_kernel"})
     return out
 
 
@@ -1707,6 +1885,42 @@ def vivit_training(torch, dev):
             or worst_loose[1] > VIVIT_TEMPORAL_QK_TOL):
         failed.append("the step disagrees with its plain version")
 
+    # Both bf16 steps against the step in float32 (compute dtype float32,
+    # K4 on its plain float32 version; remat on, so that its activations
+    # fit beside the bf16 states: remat changes no number, see below): the
+    # same batch, weights and generators. The kernel step must be no
+    # further from float32 than twice the plain bf16 step on the temporal
+    # query/key gradients, or what separates it from the plain step is more
+    # than bf16 rounding.
+    m32, s32, step32 = fresh(cfg.override({"model.dtype": "float32",
+                                           "model.remat": True}))
+    m32.load_state_dict(init)
+    with swapped(*flash_plain_swaps()):
+        _, m_ = step32(s32, *batch,
+                       torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        torch.cuda.synchronize()
+    f32_loss, f32_grads = float(m_["loss"]), grads_of(m32)
+    del m32, s32, step32
+    vs32 = {"kernel": rel_grad_errs(torch, grads, f32_grads, GRAD_FLOOR),
+            "plain": rel_grad_errs(torch, plain_grads, f32_grads, GRAD_FLOOR)}
+    f32_qk = {n: (vs32["kernel"][n], vs32["plain"][n]) for n in loose}
+    f32_rest = {k: max(((n, e) for n, e in v.items() if n not in loose),
+                       key=lambda kv: kv[1]) for k, v in vs32.items()}
+    f32_worst_qk = {k: max(v[n] for n in loose) for k, v in vs32.items()}
+    log(f"[vivit train] float32 step: loss {f32_loss:.6f}; relative gradient "
+        f"error against it (kernel step, plain bf16 step):")
+    for n, (ek, ep) in sorted(f32_qk.items()):
+        log(f"[vivit train]   {n}: {ek:.3e}, {ep:.3e}")
+    log(f"[vivit train]   worst temporal query/key: kernel "
+        f"{f32_worst_qk['kernel']:.3e}, plain {f32_worst_qk['plain']:.3e}; "
+        f"worst other parameter: kernel {f32_rest['kernel']}, plain "
+        f"{f32_rest['plain']}")
+    if f32_worst_qk["kernel"] > 2 * f32_worst_qk["plain"]:
+        failed.append("the kernel step is further from float32 than twice "
+                      "the plain bf16 step on the temporal query/key "
+                      "gradients")
+    del f32_grads
+
     # The comparison's power: the plain step with di left out of the dQ
     # twin's ds, and with the dK/dV twin's dv off by 10%
     def dq_no_di(q, k, v, do, lse, di, sm_scale):
@@ -1789,6 +2003,10 @@ def vivit_training(torch, dev):
                         "worst_grad_rel_err": worst, "tol": VIVIT_TRAIN_TOL,
                         "worst_temporal_qk": worst_loose,
                         "tol_temporal_qk": VIVIT_TEMPORAL_QK_TOL,
+                        "float32_loss": f32_loss,
+                        "temporal_qk_vs_float32": f32_qk,
+                        "worst_temporal_qk_vs_float32": f32_worst_qk,
+                        "worst_other_vs_float32": f32_rest,
                         "worst_other": worst_rest,
                         "faults_least_rel_err": power,
                         "fixed_batch_losses": losses,
@@ -1996,18 +2214,28 @@ def time_kernels(torch, dev, inputs):
     from vision_collision_detection_tpu_torch.ops.dequant_pad import (
         dequant_normalize_pad, dequant_normalize_pad_plain)
     from vision_collision_detection_tpu_torch.ops.dwconv import (
-        dwconv7x7_plain, dwconv7x7_wgrad, dwconv7x7_wgrad_plain)
+        dwconv7x7_plain, dwconv7x7_wgrad_plain)
 
     rows = []
     u8, mean, std = inputs["K1"]
     n_bytes = u8.numel() + N_FRAMES * S * S * 3 * 2
     b, by = bound_ms(n_bytes, 0, BF16_FLOPS)
+    # the ViViT's K1 (256 frames of 189×336 into 336²), beside the row
+    u8v = torch.randint(0, 256, (256, *VIVIT_CONTENT, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    vb, _ = bound_ms(u8v.numel() + 256 * VIVIT_S * VIVIT_S * 3 * 2, 0,
+                     BF16_FLOPS)
     rows.append({
         "kernel": "K1", "shape": list(u8.shape), "per_forward": 1,
         "ms": median_ms(torch, lambda: dequant_normalize_pad(u8, S, mean, std)),
         "plain_ms": median_ms(
             torch, lambda: dequant_normalize_pad_plain(u8, S, mean, std)),
-        "library_ms": None, "bound_ms": b, "bound_by": by})
+        "library_ms": None, "bound_ms": b, "bound_by": by,
+        "vivit_shape": list(u8v.shape),
+        "vivit_ms": median_ms(torch, lambda: dequant_normalize_pad(
+            u8v, VIVIT_S, mean, std)),
+        "vivit_bound_ms": vb})
+    del u8v
     for H, C, blocks in STAGES:
         x, w, bias = inputs[("K2", C)]
         n = x.numel()
@@ -2021,8 +2249,6 @@ def time_kernels(torch, dev, inputs):
                 "per_forward": blocks, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": t["cudnn"], "bound_ms": t["bound"],
                 "bound_by": by})
-        x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
-        w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
         xs, y, p = inputs[("K3", C)]
         M = n // C
         b, by = bound_ms(3 * n * 2 + 8 * C * C * 2, 16 * M * C * C,
@@ -2055,20 +2281,18 @@ def time_kernels(torch, dev, inputs):
             "stock_chain_ms": stock_ms,
             "bound_ms": b, "bound_by": by})
 
-        # K2 wgrad: x and g read once, float32 dw written; 98 flops each
+        # K2 wgrad: the Hopper kernel and dwconv_wgrad.cu on the same
+        # inputs, each its own entry of the kernels line
         gx, gy = inputs[("K2 wgrad", C)]
-        b, by = bound_ms(2 * n * 2 + 49 * C * 4, 98 * n, F32_FLOPS)
-        gy_cl = gy.permute(0, 3, 1, 2)
-        rows.append({
-            "kernel": "K2 wgrad", "shape": list(x.shape), "per_forward": blocks,
-            "ms": median_ms(torch, lambda: dwconv7x7_wgrad(gx, gy)),
-            "plain_ms": median_ms(torch, lambda: dwconv7x7_wgrad_plain(gx, gy)),
-            # cuDNN's depthwise weight and bias gradient
-            "library_ms": median_ms(
-                torch, lambda: torch.ops.aten.convolution_backward(
-                    gy_cl, x_cl, w_cudnn, [C], [1, 1], [3, 3], [1, 1], False,
-                    [0, 0], C, [False, True, True])),
-            "bound_ms": b, "bound_by": by})
+        t, by = time_k2_wgrad(torch, gx, gy)
+        plain_ms = median_ms(torch, lambda: dwconv7x7_wgrad_plain(gx, gy))
+        for kernel, ms in (("K2 wgrad (hopper)", t["hopper"]),
+                           ("K2 wgrad", t["tile"])):
+            rows.append({
+                "kernel": kernel, "shape": list(x.shape),
+                "per_forward": blocks, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": t["cudnn"], "bound_ms": t["bound"],
+                "bound_by": by})
         # K3 train: x, y, out, t, m at 2 bytes per row-channel and h_pre at
         # 8, W1 and W2 once; the eval kernel's flops
         b, by = bound_ms(18 * n + 8 * C * C * 2, 16 * M * C * C, BF16_FLOPS)
@@ -2087,6 +2311,23 @@ def time_kernels(torch, dev, inputs):
             f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
             f"{r['library_ms']}; stock chain {r.get('stock_chain_ms')}; "
             f"mma.sync kernel {r.get('mma_sync_ms')})")
+    k1 = rows[0]
+    log(f"[time] K1 {k1['vivit_shape']} → {VIVIT_S}²: {k1['vivit_ms']:.4f} ms "
+        f"(bound {k1['vivit_bound_ms']:.4f} ms by bytes)")
+    for name in ("K2", "K2 wgrad"):
+        per = [r for r in rows if r["kernel"] == f"{name} (hopper)"]
+        tile = [r for r in rows if r["kernel"] == name]
+        log(f"[time] {name} per stage, ms per launch: Hopper kernel / "
+            f"{'dwconv.cu' if name == 'K2' else 'dwconv_wgrad.cu'} / cuDNN "
+            f"/ bound (operations)")
+        for h, t in zip(per, tile):
+            log(f"[time]   {h['shape']} x{h['per_forward']}: {h['ms']:.4f} / "
+                f"{t['ms']:.4f} / {h['library_ms']:.4f} / "
+                f"{h['bound_ms']:.4f}")
+        log(f"[time]   over the 18 launches: " + " / ".join(
+            f"{sum(r[k] * r['per_forward'] for r in rs):.3f}"
+            for rs, k in ((per, "ms"), (tile, "ms"), (per, "library_ms"),
+                          (per, "bound_ms"))))
     return rows
 
 
@@ -2106,7 +2347,8 @@ def time_forward(torch, serve):
     return in_turns(
         torch, "forward",
         {name: (lambda fwd=fwd: fwd(frames)) for name, fwd in forwards.items()},
-        lambda fn: median_ms(torch, fn, warmup=2, iters=10), frames.shape[0])
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10,
+                            queued=False), frames.shape[0])
 
 
 def kernel_line(compare_rows, launches, timing):
@@ -2132,6 +2374,9 @@ def kernel_line(compare_rows, launches, timing):
                         tpu + "dwconv_pallas.py:78"),
         "K2 wgrad": ("dwconv7x7_wgrad", csrc + "dwconv_wgrad.cu",
                      tpu + "dwconv_pallas.py:114"),
+        "K2 wgrad (hopper)": ("dwconv7x7_wgrad_hopper",
+                              csrc + "dwconv_wgrad_hopper.cu",
+                              tpu + "dwconv_pallas.py:114"),
         "K3": ("convnext_mlp", csrc + "convnext_mlp_wgmma.cu",
                tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",

@@ -75,6 +75,31 @@ def test_k2_backward_matches_jax_custom_vjp(shape, dtype):
             assert np.all(np.abs(_np(t) - r) <= bf16_ulp(r)), name
 
 
+@pytest.mark.parametrize("shape", [(3, 12, 10, 64), (4, 7, 7, 96)])
+def test_k2_db_sums_bf16_g_as_read(shape):
+    """K2's bias gradient on a bf16 g: Σg taken in float32 by the sum itself
+    (``dtype=``, no float32 copy of g), rounded to bf16, against the JAX
+    ``custom_vjp``'s db (Σ of g cast to float32, rounded to bf16)."""
+    x, w, b, g = _k2_inputs(shape, seed=shape[1])
+    # g of a few hundred terms per channel, each of order 1
+    _, vjp = jax.vjp(jax_dwconv7x7,
+                     *(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)))
+    ref = _f32(vjp(jnp.asarray(g, jnp.bfloat16))[2])
+    C = shape[-1]
+    tb = torch.from_numpy(b).to(torch.bfloat16).requires_grad_(True)
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    out = k2.dwconv7x7(torch.from_numpy(x).to(torch.bfloat16),
+                       torch.from_numpy(w.reshape(49, C)).to(torch.bfloat16),
+                       tb)
+    (db,) = torch.autograd.grad(out, tb, tg)
+    assert db.dtype == torch.bfloat16 and db.shape == (C,)
+    assert torch.equal(db, tg.sum((0, 1, 2), dtype=torch.float32).to(
+        torch.bfloat16))
+    # tolerance: float32 sums of N·H·W bf16 terms in another order, one bf16
+    # rounding: 1 ulp
+    assert np.all(np.abs(_np(db) - ref) <= bf16_ulp(ref))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k2_wgrad_plain_matches_pallas_wgrad(dtype):
     x, _, _, g = _k2_inputs((3, 8, 11, 16), seed=4)

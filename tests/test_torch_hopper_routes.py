@@ -1,12 +1,16 @@
-"""Which kernel a CUDA call of K2's forward, K3 or K4's forward takes, and
-how K3's weights reach it, checked on the CPU.
+"""Which kernel a CUDA call of K2's forward, K2's weight gradient, K3 or
+K4's forward takes, how K3's weights reach it, and what K1's wrapper hands
+its kernel, checked on the CPU.
 
 K3 and K4's forward each have two CUDA kernels: a Hopper one (wgmma, TMA)
 for the main paths' dtype and widths, and the mma.sync one for the rest;
 K2's forward has the CUDA-core stencil of ``dwconv_hopper.cu`` for bf16
-at widths that divide by 32 and ``dwconv.cu`` for the rest.
+at widths that divide by 32 and ``dwconv.cu`` for the rest, and K2's
+weight gradient the CUDA-core reduction of ``dwconv_wgrad_hopper.cu``
+under the same rule and ``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
-``convnext_mlp.route``, ``flash_attention.fwd_route``), and the Hopper K3
+``dwconv.wgrad_route``, ``convnext_mlp.route``,
+``flash_attention.fwd_route``), and the Hopper K3
 reads W1 and W2 in
 nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
 it the weight's storage with no copy. The launches are held here with the
@@ -28,6 +32,7 @@ from vision_collision_detection_tpu.ops.convnext_mlp_pallas import (
 from vision_collision_detection_tpu_torch.models.backbones import convnext
 from vision_collision_detection_tpu_torch.ops import _build
 from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+from vision_collision_detection_tpu_torch.ops import dequant_pad as k1
 from vision_collision_detection_tpu_torch.ops import dwconv as k2
 from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
@@ -50,6 +55,15 @@ def test_k2_route_rule(C, dtype):
     float32, and a width that does not divide by 32, take dwconv.cu."""
     want = "hopper" if dtype == torch.bfloat16 and C != 48 else "tile"
     assert k2.route(dtype, C) == want
+
+
+@pytest.mark.parametrize("C", [96, 128, 768, 40])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_wgrad_route_rule(C, dtype):
+    """bf16 at every width that divides by 32 takes the Hopper reduction;
+    float32, and a width that does not (40), take dwconv_wgrad.cu."""
+    want = "hopper" if dtype == torch.bfloat16 and C != 40 else "tile"
+    assert k2.wgrad_route(dtype, C) == want
 
 
 @pytest.mark.parametrize("head_dim", [16, 64])
@@ -198,6 +212,101 @@ def test_k2_function_forward_and_dx_take_the_routed_entry(recorder,
         assert args[4:8] == (2, 5, 6, C)
         if not hopper:
             assert args[8] == 1  # dtype code float32
+
+
+SMS = 132  # the H100's SMs, which size the wgrad kernels' partial sums
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 96),
+                                     (torch.bfloat16, 768),
+                                     (torch.bfloat16, 40),
+                                     (torch.float32, 96)])
+def test_k2_wgrad_launch_takes_the_routed_entry(recorder, monkeypatch, dtype,
+                                                C):
+    """A bf16 call at a width that divides by 32 launches
+    ``vcd_dwconv_wgrad_hopper`` with room for two blocks an SM shared among
+    the C / 32 slabs, and counts it; another launches ``vcd_dwconv_wgrad``
+    with its dtype code. Both write into a float32 [49, C] dw."""
+    monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(2, 5, 6, C, generator=g).to(dtype)
+    gy = torch.randn(2, 5, 6, C, generator=g).to(dtype)
+    before = (k2.dwconv7x7_wgrad.launches, k2.dwconv7x7_wgrad.hopper_launches)
+    dw = k2._launch_wgrad(x, gy)
+    assert dw.shape == (49, C) and dw.dtype == torch.float32
+    (name, args), = recorder.calls
+    hopper = dtype == torch.bfloat16 and C % 32 == 0
+    assert name == ("vcd_dwconv_wgrad_hopper" if hopper else
+                    "vcd_dwconv_wgrad")
+    assert (k2.dwconv7x7_wgrad.launches, k2.dwconv7x7_wgrad.hopper_launches) \
+        == (before[0] + 1, before[1] + hopper)
+    assert args[:2] == (x.data_ptr(), gy.data_ptr())
+    assert args[3] == dw.data_ptr()
+    assert args[4:8] == (2, 5, 6, C)
+    if hopper:
+        assert args[8] == -(-2 * SMS // (C // 32))
+    else:
+        assert args[9] == (0 if dtype == torch.bfloat16 else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_function_dw_reaches_the_routed_entry(recorder, monkeypatch,
+                                                 dtype):
+    """``_DwConv7x7.backward``'s dw goes to the weight-gradient launcher with
+    x as saved and the incoming gradient in x's dtype, and from there to the
+    routed entry (``vcd_dwconv_wgrad_hopper`` for bf16)."""
+    C = 64
+    monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(k2, "_forward", k2._launch_fwd)
+    seen = []
+
+    def spy(x, g):
+        seen.append((x, g))
+        return k2._launch_wgrad(x, g)
+
+    spy.launches = spy.hopper_launches = 0
+    # the CPU tensors go down the card's path: launcher, then the recorder
+    monkeypatch.setattr(k2, "dwconv7x7_wgrad", spy)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 5, 6, C, generator=gen).to(dtype)
+    w = torch.randn(49, C, generator=gen).to(dtype).requires_grad_(True)
+    b = torch.randn(C, generator=gen).to(dtype).requires_grad_(True)
+    y = k2.dwconv7x7(x, w, b)
+    (dw,) = torch.autograd.grad(y, w, torch.ones_like(y))
+    assert dw.shape == w.shape and dw.dtype == dtype
+    ((sx, sg),) = seen
+    assert sx.data_ptr() == x.data_ptr() and sg.dtype == x.dtype
+    names = [name for name, _ in recorder.calls
+             if name.startswith("vcd_dwconv_wgrad")]
+    hopper = dtype == torch.bfloat16
+    assert names == ["vcd_dwconv_wgrad_hopper" if hopper else
+                     "vcd_dwconv_wgrad"]
+    assert (spy.launches, spy.hopper_launches) == (1, int(hopper))
+    (_, args), = [c for c in recorder.calls if c[0] == names[0]]
+    assert args[:2] == (sx.data_ptr(), sg.data_ptr())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_k1_wrapper_passes_its_arguments_to_the_row_kernel(recorder,
+                                                           out_dtype):
+    """K1's wrapper hands ``vcd_dequant_pad`` the frames, a fresh [..., S,
+    S, 3] output, the frame count, content sides, target side, the three
+    scales a = 1/(255·std) and offsets b = −mean/std, and the dtype code;
+    the launch counts."""
+    mean, std = (0.45, 0.40, 0.35), (0.225, 0.25, 0.2)
+    # meta tensors carry the shape past the CPU check to the kernel path
+    u8 = torch.empty(2, 3, 120, 213, 3, dtype=torch.uint8, device="meta")
+    before = k1.dequant_normalize_pad.launches
+    out = k1.dequant_normalize_pad(u8, 224, mean, std, out_dtype)
+    assert out.shape == (2, 3, 224, 224, 3) and out.dtype == out_dtype
+    assert k1.dequant_normalize_pad.launches == before + 1
+    (name, args), = recorder.calls
+    assert name == "vcd_dequant_pad"
+    assert args[2:6] == (6, 120, 213, 224)
+    a = [1.0 / (255.0 * s) for s in std]
+    b = [-m / s for m, s in zip(mean, std)]
+    assert args[6:12] == pytest.approx(a + b, rel=1e-12)
+    assert args[12] == (0 if out_dtype == torch.bfloat16 else 1)
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),

@@ -46,6 +46,34 @@ def test_k1_plain_matches_pallas(content):
     assert np.all(np.abs(got - ref) <= bf16_ulp(ref))
 
 
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+def test_k1_plain_matches_pallas_with_side_bars(out_dtype):
+    """Content 120×213 into 224²: bars on all four sides, an odd content
+    width (rows of 639 bytes, off any 16-byte boundary), in both output
+    dtypes, against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(8)
+    u8 = rng.integers(0, 256, (2, 120, 213, 3), dtype=np.uint8)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    ref = np.asarray(fused_dequant_normalize_pad(
+        jnp.asarray(u8), 224, mean, std, out_dtype=getattr(jnp, out_dtype),
+        interpret=True)).astype(np.float32)
+    got = _np(k1.dequant_normalize_pad_plain(
+        torch.from_numpy(u8), 224, mean, std, getattr(torch, out_dtype)))
+    assert got.shape == ref.shape == (2, 224, 224, 3)
+    # the bars: rows 0..51 and 172.., columns 0..4 and 218..
+    assert np.array_equal(got[:, :52], ref[:, :52])
+    assert np.array_equal(got[:, 172:], ref[:, 172:])
+    assert np.array_equal(got[:, :, :5], ref[:, :, :5])
+    assert np.array_equal(got[:, :, 218:], ref[:, :, 218:])
+    if out_dtype == "bfloat16":
+        # tolerance: at most 1 bf16 ulp (both round x·a + b to bf16 once)
+        assert np.all(np.abs(got - ref) <= bf16_ulp(ref))
+    else:
+        # tolerance: the same float32 formula; XLA may fuse x·a + b into one
+        # rounding, 1 float32 ulp at |y| < 4 is 4.8e-7
+        np.testing.assert_allclose(got, ref, rtol=0, atol=5e-7)
+
+
 def test_k1_wrapper_on_cpu_takes_plain_version():
     u8 = torch.from_numpy(np.random.default_rng(1).integers(
         0, 256, (3, 18, 32, 3), dtype=np.uint8))

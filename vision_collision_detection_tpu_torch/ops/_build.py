@@ -42,6 +42,9 @@ _SIGNATURES = {
     "vcd_dwconv7x7_hopper_geometry": [_I, _I, _I, _I,
                                       ctypes.POINTER(ctypes.c_int)],
     "vcd_dwconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vcd_dwconv_wgrad_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vcd_dwconv_wgrad_hopper_geometry": [_I, _I, _I, _I, _I,
+                                         ctypes.POINTER(ctypes.c_int)],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_train": [_P] * 13 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_wgmma": [_P] * 13 + [_I, _I, _I, _P],
@@ -146,6 +149,13 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors (grids are sized from it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(t, name: str, align: int = 1) -> None:

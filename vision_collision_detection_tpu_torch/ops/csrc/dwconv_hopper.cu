@@ -22,7 +22,8 @@
 //   served by the same number of blocks.
 // - A work item is a band of RB output rows across the whole frame width
 //   (W <= 64; wider frames take 56- or 64-column tiles with a masked edge),
-//   or F whole frames where H <= 16 (four frames at 7x7). The band's size
+//   or F whole frames where H <= 16 and a frame fits in shared memory (four
+//   frames at 7x7). The band's size
 //   is chosen so that its output groups fill the block's thread slots (see
 //   `pick`), so no item is mostly halo or idle threads on the main path.
 // - Loads: the next item's band plus its 3-pixel halo is copied from global
@@ -272,7 +273,8 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
   g.TWH = g.cgroups * cc + 2 * PAD;
   g.nct = (W + g.TW - 1) / g.TW;
   double best = -1.0;
-  if (H <= 16) {
+  const int frame_rows = (H + R - 1) / R * R + 2 * PAD;
+  if (H <= 16 && (size_t)frame_rows * g.TWH * PX_BYTES <= SMEM_MAX) {
     // whole frames, as many as fill the slots and the shared memory
     g.RB = H;
     g.rgroups = (H + R - 1) / R;
@@ -291,6 +293,7 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
     // a band of RB rows: the largest band whose groups fill the slots and
     // whose bands fill the frame, within the shared memory
     g.F = 1;
+    g.RB = 8;
     for (int rb : {16, 14, 12, 10, 8}) {
       const int th = rb + 2 * PAD;
       if ((size_t)th * g.TWH * PX_BYTES > SMEM_MAX) continue;

@@ -5,7 +5,10 @@ Replaces the TPU kernel ``vision_collision_detection_tpu/ops/pallas_ops.py``
 ``ops/csrc/dequant_pad.cu`` and writes bf16 or float32, as the model's
 compute dtype asks. Its bound on the H100 is bytes (one read of the content,
 one write of the frame: at N=200, 126×224 → 224 in bf16 that is 17 MB read
-+ 60 MB written, ≈ 23 µs at 3.35 TB/s).
++ 60 MB written, ≈ 23 µs at 3.35 TB/s). It is a row kernel: a warp writes
+one output row at a time in 16-byte vectors, a bar row as the repeating
+3-channel pattern, a content row from its input bytes staged in shared
+memory by 16-byte loads.
 
 Content pixels become ``x · 1/(255·std) + (−mean/std)``, placed at
 ``((S−ch)//2, (S−cw)//2)``; the bars take ``−mean/std``, the normalised

@@ -17,16 +17,23 @@ there and into the ``torch.autograd.Function`` ``_DwConv7x7`` here.
   reads x and writes y once (≈ 1.7 GB over the 18 at B=8, ≈ 0.51 ms at
   3.35 TB/s), but its 98 float32 flops per output (≈ 42 GFLOP over the 18)
   take ≈ 0.63 ms on the CUDA cores at 67 TFLOP/s.
-- The weight-gradient kernel is ``ops/csrc/dwconv_wgrad.cu``: float32
-  ``dw[49, C]``, per-block partial sums added in a fixed order, so two runs
-  agree bit for bit. Its bound is operations too: 98 flops per element of
+- The weight gradient has two kernels, chosen by ``wgrad_route`` (the
+  same rule): for bf16 x and g with C a multiple of 32
+  ``ops/csrc/dwconv_wgrad_hopper.cu``, the dual of the forward's stencil (a
+  persistent grid of 32-channel slabs, each thread's 49 float32 sums of a
+  channel pair in registers, bf16 bands in a two-deep cp.async ring,
+  converted in registers as they are read); for float32 and other widths
+  ``ops/csrc/dwconv_wgrad.cu`` (8×8 tiles). Both write float32 ``dw[49,
+  C]`` from per-block partial sums added in a fixed order, so two runs
+  agree bit for bit. The bound is operations too: 98 flops per element of
   x (≈ 42 GFLOP over a training step's 18 launches at B=8, ≈ 0.63 ms)
   against ≈ 1.7 GB read (≈ 0.51 ms).
 
 The backward is the JAX ``_dwconv_bwd``: dx is the forward kernel run on
 the incoming gradient with the taps flipped in both axes and a zero bias,
 rounded to x's dtype; dw comes from the weight-gradient kernel and db is
-Σg in float32, both cast to w's dtype.
+Σg in float32 (summed from g as it is, with no float32 copy of g), both
+cast to w's dtype.
 
 Weights come as ``[49, C]`` (tap ``dy*7 + dx`` major), the TPU kernel's
 layout. Accumulation is float32 whatever the input dtype.
@@ -45,7 +52,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _WGRAD_BLOCKS_PER_SM = 4
 _WGRAD_TILE = (8, 8)
 _WGRAD_SLAB = 32
-# Channels per block of the Hopper forward kernel: C must divide by it.
+# Channels per block of the Hopper kernels: C must divide by it.
 HOPPER_SLAB = 32
 
 
@@ -146,9 +153,23 @@ def dwconv7x7_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                         for dy in range(K) for dx in range(K)])
 
 
+def wgrad_route(dtype: torch.dtype, C: int) -> str:
+    """Which weight-gradient kernel a CUDA call takes: ``"hopper"``
+    (``dwconv_wgrad_hopper.cu``) for bf16 x and g with C a multiple of
+    ``HOPPER_SLAB``, else ``"tile"`` (``dwconv_wgrad.cu``)."""
+    return ("hopper" if dtype == torch.bfloat16 and C % HOPPER_SLAB == 0
+            else "tile")
+
+
+def _wgrad_hopper_parts(device, C: int) -> int:
+    """Rows of partial sums the Hopper kernel may use: at most two blocks an
+    SM, shared among the C / 32 slabs (the kernel takes no more)."""
+    return max(1, -(-2 * _build.sm_count(device) // (C // HOPPER_SLAB)))
+
+
 def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The weight-gradient kernel on CUDA tensors (bf16 or float32, the
-    same dtype, C a multiple of 8, contiguous)."""
+    """The weight-gradient kernel of ``wgrad_route`` on CUDA tensors (bf16
+    or float32, the same dtype, C a multiple of 8, contiguous)."""
     if x.shape != g.shape or x.dim() != 4:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be "
                          "the same NHWC shape")
@@ -161,31 +182,59 @@ def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     # x and g are read 8 channels at a time
     _build.require_cuda(x, "x", align=16)
     _build.require_cuda(g, "g", align=16)
-    tiles = N * -(-H // _WGRAD_TILE[0]) * -(-W // _WGRAD_TILE[1])
-    slabs = -(-C // _WGRAD_SLAB)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    parts = max(1, min(tiles, 65535,
-                       -(-_WGRAD_BLOCKS_PER_SM * sms // slabs)))
-    partial = torch.empty(parts, K * K, C, dtype=torch.float32,
-                          device=x.device)
     dw = torch.empty(K * K, C, dtype=torch.float32, device=x.device)
-    err = _build.lib().vcd_dwconv_wgrad(
-        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        N, H, W, C, parts, _DTYPE_CODE[x.dtype], _build.stream_ptr(x.device))
-    _build.check(err, "vcd_dwconv_wgrad")
+    stream = _build.stream_ptr(x.device)
+    if wgrad_route(x.dtype, C) == "hopper":
+        parts = _wgrad_hopper_parts(x.device, C)
+        partial = torch.empty(parts, K * K, C, dtype=torch.float32,
+                              device=x.device)
+        err = _build.lib().vcd_dwconv_wgrad_hopper(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            N, H, W, C, parts, stream)
+        _build.check(err, "vcd_dwconv_wgrad_hopper")
+        dwconv7x7_wgrad.hopper_launches += 1
+    else:
+        tiles = N * -(-H // _WGRAD_TILE[0]) * -(-W // _WGRAD_TILE[1])
+        slabs = -(-C // _WGRAD_SLAB)
+        parts = max(1, min(tiles, 65535, -(-_WGRAD_BLOCKS_PER_SM
+                                           * _build.sm_count(x.device)
+                                           // slabs)))
+        partial = torch.empty(parts, K * K, C, dtype=torch.float32,
+                              device=x.device)
+        err = _build.lib().vcd_dwconv_wgrad(
+            x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            N, H, W, C, parts, _DTYPE_CODE[x.dtype], stream)
+        _build.check(err, "vcd_dwconv_wgrad")
     dwconv7x7_wgrad.launches += 1
     return dw
 
 
+def wgrad_hopper_geometry(N: int, H: int, W: int, C: int) -> dict:
+    """The launch ``dwconv_wgrad_hopper.cu`` makes for an [N, H, W, C]
+    input, read from the library without launching (needs the card)."""
+    import ctypes
+
+    geo = (ctypes.c_int * 10)()
+    _build.check(_build.lib().vcd_dwconv_wgrad_hopper_geometry(
+        N, H, W, C, _wgrad_hopper_parts(torch.device("cuda"), C), geo),
+        "vcd_dwconv_wgrad_hopper_geometry")
+    keys = ("columns_per_thread", "slots", "frames", "rows", "cols",
+            "strips", "items_per_slab", "grid", "smem_bytes", "bands")
+    return dict(zip(keys, list(geo)))
+
+
 def dwconv7x7_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K2's weight gradient, float32 [49, C]. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel."""
+    version; a CUDA tensor launches the kernel of ``wgrad_route``
+    (``hopper_launches`` counts those that took
+    ``dwconv_wgrad_hopper.cu``)."""
     if x.device.type == "cpu":
         return dwconv7x7_wgrad_plain(x, g)
     return _launch_wgrad(x, g)
 
 
 dwconv7x7_wgrad.launches = 0
+dwconv7x7_wgrad.hopper_launches = 0
 
 
 class _DwConv7x7(torch.autograd.Function):
@@ -211,7 +260,8 @@ class _DwConv7x7(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = dwconv7x7_wgrad(x.contiguous(), g.to(x.dtype)).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.to(torch.float32).sum((0, 1, 2)).to(w.dtype)
+            # summed in float32 as read: no float32 copy of g
+            db = g.sum((0, 1, 2), dtype=torch.float32).to(w.dtype)
         return dx, dw, db
 
 
