@@ -123,6 +123,37 @@ failure:
     step's; the loss must fall on a fixed batch; ``remat`` on and off
     must agree at B=2. Then the step with "flash" and "xla" in turns,
     peak memory and profile.
+12. Save phase 3's predictor with ``CheckpointStore`` as ``best`` and load
+    it on the card with ``CollisionPredictor.from_checkpoint(run_dir)``:
+    probabilities on phase 3's batch bit-equal to the original's; a
+    checkpoint with block 0's γ × 1.01 must not be bit-equal, and one whose
+    hyperparams name convnext_base must fail the strict load. Save and
+    load seconds, file size.
+13. Serve from a loader: a stand-in dataset of 32 seeded uint8 clips
+    [25, 126, 224, 3] (no decoder; clip 5 flagged ``error``) through
+    ``ClipLoader(batch_size=8)``, ``device_feed`` (pinned ring, side
+    stream) and ``_predict_batches``: launches K1 4, K2 72, K3 72; each
+    result bit-equal to ``_make_forward(True)`` fed the same clips, clip 5
+    ``success: False``; the same with every copy landing late behind a
+    device-side wait. A feed that hands batches over before their copy
+    and refills its ring early, and a loader that repeats the previous
+    batch's frames, must not agree. The loop against the forward alone
+    over 4 and 16 batches in turns (clips/s), the pinned copy of one
+    batch, the share of a copy the loop hides (from what a batch more
+    costs each), the pipeline's fill, the loop's profile.
+14. The sliding forward: ``_sliding_forward`` over a seeded pool of 300
+    letterboxed frames [300, 224, 224, 3] (30 s at 10 fps, a window each
+    second: 26 windows of 50 frames, padded to 320 frames and 32
+    windows, gathered on the card): launches K1 1, K2 18, K3 18; each
+    window within 1e-4 of ``_make_forward(False)`` on the same 32 windows
+    gathered on the host, and within 2e-2 of it fed 8 windows a call;
+    every kernel swapped for its plain version within 2e-2;
+    windows shifted by one frame must land outside 1e-4. Time, windows/s,
+    peak memory.
+15. Where ``pkg-config --exists libavformat`` answers, build the port's
+    media library, encode three clips and run ``predict``,
+    ``predict_sliding`` and ``evaluate`` on them; elsewhere print
+    ``{"decode": "not run: no FFmpeg on this machine"}``.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -261,6 +292,8 @@ def main() -> int:
         {"K1": "dequant_pad_rows", "K2": "dwconv7x7_hopper_kernel",
          "K2 dwconv.cu": "dwconv7x7_kernel",
          "K3": "convnext_mlp_wgmma_kernel"})
+    # phase 3's predictor and batch, for phases 12 to 14
+    flagship = {"pred": serve["pred"], "frames": serve["frames"]}
     del serve
     # 112² frames, as train/notebook.py suggests: stages of 28, 14, 7 and 4
     # rows, the last after a SAME pad of (0, 1)
@@ -294,6 +327,14 @@ def main() -> int:
     launches["vivit_serve"] = report["vivit_serving"]["launches"]
     launches["vivit_train"] = vtrain["summary"]["launches"]
     del vtrain
+    torch.cuda.empty_cache()
+
+    report["checkpoint"] = checkpoint_phase(torch, dev, flagship)
+    report["predict_loop"] = predict_loop(torch, dev, flagship["pred"])
+    launches["predict"] = report["predict_loop"]["launches"]
+    report["sliding"] = sliding_phase(torch, dev, flagship["pred"])
+    launches["sliding"] = report["sliding"]["launches"]
+    report["decode"] = decode_phase(torch, dev, flagship["pred"])
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"],
@@ -2351,11 +2392,415 @@ def time_forward(torch, serve):
                             queued=False), frames.shape[0])
 
 
+# ---- 12. checkpoint → predictor ----------------------------------------
+
+def checkpoint_phase(torch, dev, flagship):
+    """Phase 3's predictor saved by ``CheckpointStore`` as ``best`` and
+    loaded on the card by ``CollisionPredictor.from_checkpoint(run_dir)``:
+    probabilities on phase 3's batch bit-equal to the original's. A
+    checkpoint with block 0's γ × 1.01 must not be bit-equal; one whose
+    hyperparams name convnext_base must fail the strict load."""
+    import tempfile
+
+    from vision_collision_detection_tpu_torch.ckpt import CheckpointStore
+    from vision_collision_detection_tpu_torch.ckpt.checkpoint import (
+        ARRAYS_FILE)
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+
+    pred, frames = flagship["pred"], flagship["frames"]
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CheckpointStore(os.path.join(tmp, "run"))
+        hp = pred.cfg.to_dict()
+        sd = pred.model.state_dict()
+        t0 = time.perf_counter()
+        store.save("best", arrays={"model": sd}, meta={"hyperparams": hp})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(store.path("best"), ARRAYS_FILE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = CollisionPredictor.from_checkpoint(store.run_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = pred._make_forward(True)(frames)
+        got = loaded._make_forward(True)(frames)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, want)
+        log(f"[checkpoint] save {save_s:.3f} s, load onto the card "
+            f"{load_s:.3f} s, {size / 1e6:.1f} MB; from_checkpoint vs the "
+            f"saved predictor: max |Δprob| {err:.3e} (bit-equal required)")
+        if not torch.equal(got, want):
+            raise SystemExit("checkpoint: the loaded predictor is not "
+                             "bit-equal to the saved one")
+        del loaded
+
+        gamma = next(k for k in sd if k.endswith("gamma"))
+        bad = dict(sd, **{gamma: sd[gamma] * 1.01})
+        store.save("epoch_0", arrays={"model": bad}, meta={"hyperparams": hp})
+        fault = CollisionPredictor.from_checkpoint(store.path("epoch_0"))
+        fault_err = max_err(torch, fault._make_forward(True)(frames), want)
+        log(f"[checkpoint] fault {gamma} × 1.01: max |Δprob| "
+            f"{fault_err:.3e} ({'seen' if fault_err > 0 else 'NOT seen'})")
+        if fault_err == 0:
+            raise SystemExit("checkpoint: a scaled γ was not seen")
+        del fault
+        base = pred.cfg.override({"model.backbone": "convnext_base"})
+        store.save("last", arrays={"model": sd},
+                   meta={"hyperparams": base.to_dict()})
+        try:
+            CollisionPredictor.from_checkpoint(store.path("last"))
+        except RuntimeError as e:
+            refused = str(e).splitlines()[0][:120]
+        else:
+            raise SystemExit("checkpoint: convnext_tiny weights loaded under "
+                             "a convnext_base contract")
+        log(f"[checkpoint] fault convnext_base contract: refused ({refused})")
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "load_s": load_s, "bytes": size,
+            "max_abs_err": err, "gamma_fault_max_abs_err": fault_err,
+            "wrong_contract": refused}
+
+
+# ---- 13. loader → device feed → predict's batch loop ---------------------
+
+N_CLIPS = 32
+BROKEN_CLIP = 5
+# A device-side wait queued before every copy of the feed in the slow-link
+# runs (about 5 ms on an H100): the copies land late, so a feed that does
+# not wait for them is caught on every batch, not only where it races.
+SLOW_LINK_CYCLES = 10_000_000
+
+
+class StandInClips:
+    """A dataset of seeded uint8 content clips that needs no decoder: its
+    ``get_batch`` returns the collated dict of ``ClipDataset.get_batch``,
+    with one clip flagged ``error``. ``length`` > the clips serves them
+    over again."""
+
+    supports_batch = True
+
+    def __init__(self, clips, broken, length=None):
+        self.clips, self.broken = clips, broken
+        self.length = length or len(clips)
+
+    def __len__(self):
+        return self.length
+
+    def get_batch(self, idxs, epoch=0, num_threads=0):
+        import numpy as np
+
+        idxs = [int(i) % len(self.clips) for i in idxs]
+        b, t = len(idxs), self.clips.shape[1]
+        return {"frames": self.clips[idxs],
+                "sensor": np.zeros((b, t, 4), np.float32),
+                "target": np.zeros(b, np.int64),
+                "id": [f"clip{i:02d}" for i in idxs],
+                "error": np.asarray([i == self.broken for i in idxs]),
+                "pad": np.zeros(b, bool)}
+
+
+def predict_loop(torch, dev, pred):
+    """``ClipLoader(batch_size=8)`` over a stand-in dataset of 32 clips
+    [25, 126, 224, 3] → ``device_feed`` → ``_predict_batches``: each result
+    bit-equal to ``_make_forward(True)`` fed the same clips directly, clip 5
+    ``success: False``; again with every copy landing late (the feed must
+    still wait for it); a feed that hands batches over before their copy
+    and refills its ring early, and a loader that repeats the previous
+    batch's frames, must not agree. Then the loop against the forward
+    alone, in turns; the copy of one batch; the profile of the loop."""
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.data import loader as loader_mod
+    from vision_collision_detection_tpu_torch.data.loader import ClipLoader
+
+    g = torch.Generator().manual_seed(13)
+    T = pred.cfg.data.num_frames // pred._fold_stride()
+    clips = torch.stack([
+        torch.randint(12 * (i % 8), 256 - 16 * (i % 8), (T, *CONTENT, 3),
+                      generator=g, dtype=torch.uint8)
+        for i in range(N_CLIPS)]).numpy()
+    ds = StandInClips(clips, BROKEN_CLIP)
+    path_by_id = {f"clip{i:02d}": f"clip{i:02d}.mp4" for i in range(N_CLIPS)}
+    forward = pred._make_forward(True)
+    batches = [torch.from_numpy(clips[k:k + 8]).to(dev)
+               for k in range(0, N_CLIPS, 8)]
+    direct = torch.cat([forward(b) for b in batches]).cpu().numpy()
+    names = pred.class_names
+
+    def run(loader=None):
+        return pred._predict_batches(loader or ClipLoader(ds, 8), 2,
+                                     path_by_id)
+
+    def diff(results):
+        """Largest |Δprob| of a clip against the direct forward (inf if a
+        clip is missing or repeated, or its path or success flag is
+        wrong)."""
+        by_id = {r["id"]: r for r in results}
+        if len(results) != N_CLIPS or set(by_id) != set(path_by_id):
+            return math.inf
+        worst = 0.0
+        for i, vid in enumerate(path_by_id):
+            r = by_id[vid]
+            if r["video_path"] != path_by_id[vid] or \
+                    r["success"] != (i != BROKEN_CLIP):
+                return math.inf
+            if r["success"]:
+                p = np.asarray([r["probabilities"][n] for n in names])
+                worst = max(worst, float(np.abs(p - direct[i]).max()))
+        return worst
+
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    results = run()
+    torch.cuda.synchronize()
+    launches = expect_launches("predict", counters, K1=4, K2=72, K3=72)
+    err = diff(results)
+    if [r["id"] for r in results] != list(path_by_id):
+        err = math.inf  # out of the loader's order
+    log(f"[predict] 32 clips through loader → device_feed → "
+        f"_predict_batches: max |Δprob| vs the forward fed directly {err:.3e}"
+        f" (bit-equal required); clip {BROKEN_CLIP}: "
+        f"{results[BROKEN_CLIP].get('error')}")
+    if err != 0:
+        raise SystemExit("predict: the batch loop disagrees with the forward")
+
+    def slow_copy(buf, device):
+        torch.cuda._sleep(SLOW_LINK_CYCLES)
+        return buf.to(device, non_blocking=True)
+
+    # Each in an order of its own, so that a batch read before its copy
+    # finds no copy of its own frames in memory the allocator reuses
+    def shuffled(seed):
+        return ClipLoader(ds, 8, shuffle=True, seed=seed)
+
+    with swapped((loader_mod, "_copy_to", slow_copy)):
+        slow = diff(run(shuffled(7)))
+    faults = {}
+    with swapped((loader_mod, "_copy_to", slow_copy),
+                 (loader_mod, "_wait_for_copy", lambda event: None),
+                 (loader_mod, "_hand_over", lambda out, *a: out)):
+        faults["feed_before_copy"] = diff(run(shuffled(8)))
+
+    class Repeating(ClipLoader):
+        def __iter__(self):
+            prev = None
+            for batch in super().__iter__():
+                if prev is not None:
+                    batch = dict(batch, frames=prev["frames"])
+                prev = batch
+                yield batch
+
+    faults["repeated_batch"] = diff(run(Repeating(ds, 8)))
+    log(f"[predict] every copy landing late: max |Δprob| {slow:.3e}; "
+        + ", ".join(f"fault {k}: {v:.3e}" for k, v in faults.items()))
+    if slow != 0:
+        raise SystemExit("predict: the feed does not wait for a late copy")
+    if not all(v > 0 for v in faults.values()):
+        raise SystemExit(f"predict: a fault was not seen: {faults}")
+
+    def forward_alone(n=4):
+        for _ in range(n // 4):
+            for b in batches:
+                forward(b)
+
+    long_ds = StandInClips(clips, BROKEN_CLIP, length=4 * N_CLIPS)
+    # (function, batches): the loop and the forward alone over the 32 clips,
+    # and over them four times (16 batches), in turns (A B C D, D C B A)
+    variants = {
+        "loop": (run, 4), "forward_alone": (forward_alone, 4),
+        "loop_16": (lambda: run(ClipLoader(long_ds, 8)), 16),
+        "forward_alone_16": (lambda: forward_alone(16), 16)}
+    rounds = {k: [] for k in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for k in order:
+            rounds[k].append(median_step_ms(torch, variants[k][0], 1, 3))
+    turns = {}
+    for k, (_, nb) in variants.items():
+        ms = sum(rounds[k]) / 2
+        turns[k] = {"ms": ms, "batches": nb, "rounds_ms": rounds[k],
+                    "clips_per_s": 8 * nb / ms * 1e3}
+        log(f"[predict loop] {k}: {ms:.3f} ms for {nb} batches of 8, "
+            f"{8 * nb / ms * 1e3:.2f} clips/s (rounds {rounds[k][0]:.3f}, "
+            f"{rounds[k][1]:.3f})")
+    pinned = torch.from_numpy(clips[:8]).pin_memory()
+    copy_ms = median_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    pageable = torch.from_numpy(clips[:8])
+    pageable_ms = median_ms(torch, lambda: pageable.to(dev))
+    # a batch more in the loop costs what it costs the forward alone where
+    # its copy and the host's work are hidden; the rest is the pipeline's
+    # fill, the first batch's fetch and staging before the card has work
+    per_batch = (turns["loop_16"]["ms"] - turns["loop"]["ms"]) / 12
+    per_batch_fwd = (turns["forward_alone_16"]["ms"]
+                     - turns["forward_alone"]["ms"]) / 12
+    fill = turns["loop"]["ms"] - 4 * per_batch
+    hidden = 1.0 - min(1.0, max(0.0, (per_batch - per_batch_fwd) / copy_ms))
+    log(f"[predict loop] one batch {pinned.numel() / 1e6:.1f} MB: pinned "
+        f"copy {copy_ms:.3f} ms, pageable {pageable_ms:.3f} ms; a batch "
+        f"more costs the loop {per_batch:.3f} ms and the forward alone "
+        f"{per_batch_fwd:.3f}, so the loop hides {hidden:.3f} of each copy;"
+        f" the pipeline's fill {fill:.3f} ms")
+    groups = {"K1": "dequant_pad_rows", "K2": "dwconv7x7_hopper_kernel",
+              "K3": "convnext_mlp_wgmma_kernel", "copy": "Memcpy"}
+    profile = profile_device(torch, "predict loop", run, 2, groups)
+    profile_16 = profile_device(torch, "predict loop 16",
+                                variants["loop_16"][0], 1, groups)
+    return {"launches": launches, "max_abs_err": err,
+            "late_copies_max_abs_err": slow, "faults_max_abs_err": faults,
+            "turns": turns, "batch_bytes": pinned.numel(),
+            "copy_ms": copy_ms, "pageable_copy_ms": pageable_ms,
+            "per_batch_ms": per_batch, "per_batch_forward_ms": per_batch_fwd,
+            "fill_ms": fill, "copy_hidden_share": hidden,
+            "profile": profile, "profile_16": profile_16}
+
+
+# ---- 14. the sliding forward ---------------------------------------------
+
+SLIDE_FRAMES, SLIDE_FPS, SLIDE_STRIDE_SEC = 300, 10.0, 1.0
+SLIDE_TOL = 1e-4
+
+
+def sliding_phase(torch, dev, pred):
+    """``_sliding_forward`` over a seeded pool of 300 letterboxed frames
+    [300, 224, 224, 3] (30 s at 10 fps, a window every second: 26 windows
+    of 50 frames, padded to 320 and 32): launches K1 1, K2 18, K3 18; each
+    window within SLIDE_TOL of ``_make_forward(False)`` on the same 32
+    windows gathered on the host, and within 2e-2 of it fed 8 windows a
+    call; every kernel swapped for its plain version within 2e-2; windows
+    shifted by a frame must land outside SLIDE_TOL. Time, windows/s and
+    peak memory."""
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        sliding_windows)
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+    from vision_collision_detection_tpu_torch.ops import (
+        convnext_mlp, dequant_pad, dwconv, preprocess)
+
+    dc = pred.cfg.data
+    g = torch.Generator().manual_seed(14)
+    pool = torch.zeros((SLIDE_FRAMES, S, S, 3), dtype=torch.uint8)
+    top = (S - CONTENT[0]) // 2
+    pool[:, top:top + CONTENT[0]] = torch.randint(
+        0, 256, (SLIDE_FRAMES, *CONTENT, 3), generator=g, dtype=torch.uint8)
+    pool = pool.numpy()
+    starts, _, win_idx = sliding_windows(
+        SLIDE_FRAMES, SLIDE_FPS, dc.duration, dc.num_frames,
+        SLIDE_STRIDE_SEC, 64)
+    W = len(starts)
+
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    probs = pred._sliding_forward(pool, win_idx)
+    torch.cuda.synchronize()
+    launches = expect_launches("sliding", counters, K1=1, K2=18, K3=18)
+    fwd = pred._make_forward(False)
+    # the same 32 windows, padded as _sliding_forward pads them (windows of
+    # frame 0), gathered on the host and fed in one call
+    padded = np.zeros((-(-W // 8) * 8, win_idx.shape[1]), np.int64)
+    padded[:W] = win_idx
+    ref = fwd(pool[padded])[:W]
+    err = max_err(torch, probs, ref)
+    # 8 windows a call: bf16 flips where an op's sum order follows the batch
+    by8 = torch.cat([fwd(pool[win_idx[k:k + 8]]) for k in range(0, W, 8)])
+    by8_err = max_err(torch, probs, by8)
+    with swapped((convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
+                 (convnext, "convnext_mlp", convnext_mlp.convnext_mlp_plain),
+                 (preprocess, "dequant_normalize_pad",
+                  dequant_pad.dequant_normalize_pad_plain)):
+        plain_err = max_err(torch, pred._sliding_forward(pool, win_idx), ref)
+    shifted_err = max_err(torch, pred._sliding_forward(pool, win_idx + 1),
+                          ref)
+    log(f"[sliding] {W} windows of {win_idx.shape[1]} frames from a pool of "
+        f"{SLIDE_FRAMES}: max |Δprob| vs the same windows gathered on the "
+        f"host {err:.3e} (tol {SLIDE_TOL:.0e}), fed 8 a call {by8_err:.3e} "
+        f"(tol 2e-2); plain versions {plain_err:.3e} (tol 2e-2); windows "
+        f"shifted by a frame {shifted_err:.3e} (must exceed "
+        f"{SLIDE_TOL:.0e})")
+    if tuple(probs.shape) != (W, 3) or not bool(torch.isfinite(probs).all()):
+        raise SystemExit(f"sliding: bad probabilities {probs.shape}")
+    if not (err <= SLIDE_TOL and by8_err <= 2e-2 and plain_err <= 2e-2
+            and shifted_err > SLIDE_TOL):
+        raise SystemExit("sliding: the windows disagree, or a shift of one "
+                         "frame was not seen")
+
+    ms = median_step_ms(torch, lambda: pred._sliding_forward(pool, win_idx),
+                        1, 5)
+    pool_dev = torch.from_numpy(pool).to(dev)
+    on_card_ms = median_step_ms(
+        torch, lambda: pred._sliding_forward(pool_dev, win_idx), 1, 5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pred._sliding_forward(pool, win_idx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[sliding] {ms:.3f} ms for {W} windows ({W / ms * 1e3:.2f} "
+        f"windows/s), {on_card_ms:.3f} ms with the pool already on the card;"
+        f" peak device memory {peak / 1e9:.2f} GB")
+    del pool_dev
+    torch.cuda.empty_cache()
+    return {"launches": launches, "windows": W, "max_abs_err": err,
+            "by8_max_abs_err": by8_err, "plain_max_abs_err": plain_err,
+            "shifted_max_abs_err": shifted_err, "ms": ms,
+            "windows_per_s": W / ms * 1e3, "pool_on_card_ms": on_card_ms,
+            "peak_mem_bytes": peak}
+
+
+# ---- 15. decode on the card ----------------------------------------------
+
+def decode_phase(torch, dev, pred):
+    """Where the machine has FFmpeg (``pkg-config --exists libavformat``):
+    build the port's media library, encode three clips and run
+    ``predict``, ``predict_sliding`` and ``evaluate`` on them. Elsewhere
+    one line says that it was not run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    found = shutil.which("pkg-config") and subprocess.run(
+        ["pkg-config", "--exists", "libavformat"]).returncode == 0
+    if not found:
+        line = {"decode": "not run: no FFmpeg on this machine"}
+        print(json.dumps(line), flush=True)
+        return line
+    from vision_collision_detection_tpu_torch.media import build, decoder
+
+    t0 = time.perf_counter()
+    build.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(3):
+            path = os.path.join(tmp, f"clip{i}.mp4")
+            frames = rng.integers(20 * i, 200 + 20 * i, (100, 180, 320, 3),
+                                  dtype=np.uint8)
+            decoder.encode_video(path, frames, fps=10.0)
+            paths.append(path)
+        t0 = time.perf_counter()
+        results = pred.predict(paths)
+        predict_s = time.perf_counter() - t0
+        windows = pred.predict_sliding(paths[0], stride_sec=1.0)
+        metrics = pred.evaluate({"video_path": paths,
+                                 "video_type": list(pred.class_names)})
+    ok = (all(r["success"] for r in results) and len(windows) == 6
+          and metrics["num_failed"] == 0
+          and all(abs(sum(r["probabilities"].values()) - 1) < 1e-5
+                  for r in results + windows))
+    log(f"[decode] library built in {build_s:.1f} s; predict of 3 clips "
+        f"{predict_s:.3f} s; {len(windows)} windows; accuracy "
+        f"{metrics['accuracy']:.3f}")
+    if not ok:
+        raise SystemExit(f"decode: {results} {windows} {metrics}")
+    return {"build_s": build_s, "predict_s": predict_s,
+            "windows": len(windows), "metrics": metrics}
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
-    the scaled ViViT, each counted from 0), with the split in
-    ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
+    the scaled ViViT, predict's batch loop and the sliding forward, each
+    counted from 0), with the split in ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass
     through the spatial blocks). Both K4 backward kernels carry the
