@@ -154,6 +154,28 @@ failure:
     media library, encode three clips and run ``predict``,
     ``predict_sliding`` and ``evaluate`` on them; elsewhere print
     ``{"decode": "not run: no FFmpeg on this machine"}``.
+16. The ``Trainer`` at full width (the flagship ``ExperimentConfig()``
+    with ``validation_freq`` 2 and a checkpoint each epoch) over stand-in
+    datasets of seeded content clips [50, 126, 224, 3] in all three
+    classes (16 training clips, one flagged ``error``; 8 validation, 8
+    test): 2 epochs with the mini-validation cascade inside each, a new
+    ``Trainer`` resuming for epoch 3, then ``test()``. Launch counts per
+    step (K2 36, K2 wgrad 18, K3 train 18) and per evaluation batch (K1 1,
+    K2 18, K3 eval 18), all on the Hopper kernels; the artifacts parsed
+    with the ``csv`` and ``json`` modules; epoch 0's losses against
+    ``make_train_step`` driven directly on the same batches with the same
+    generator seeds; the resumed run against an uninterrupted 3-epoch run
+    (losses, parameters, epoch 3's update), where a resume that drops the
+    AdamW moments or restarts ``step`` at 0 must land outside;
+    ``from_checkpoint`` on the run directory bit-equal to ``test()``'s
+    probabilities. The loop against ``make_train_step`` on batches already
+    on the card over 16 steps in turns, its idle share, the 33.9 MB copy,
+    a checkpoint save, one evaluation batch, peak memory. One step with
+    ``model.use_sensor`` on a seeded sensor stream [8, 50, 4] against the
+    plain step. Then, under torch's default cuDNN flags (for this phase
+    only), the GRU head pinned and unpinned against a float64 copy, the
+    caller's flags before and after, and the serving forward against the
+    same forward under this script's TF32 switch (bit-equal).
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -335,6 +357,8 @@ def main() -> int:
     report["sliding"] = sliding_phase(torch, dev, flagship["pred"])
     launches["sliding"] = report["sliding"]["launches"]
     report["decode"] = decode_phase(torch, dev, flagship["pred"])
+    report["trainer"] = trainer_phase(torch, dev, flagship)
+    launches["trainer"] = report["trainer"]["launches"]
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"],
@@ -2466,25 +2490,45 @@ def checkpoint_phase(torch, dev, flagship):
 N_CLIPS = 32
 BROKEN_CLIP = 5
 # A device-side wait queued before every copy of the feed in the slow-link
-# runs (about 5 ms on an H100): the copies land late, so a feed that does
-# not wait for them is caught on every batch, not only where it races.
-SLOW_LINK_CYCLES = 10_000_000
+# runs (about 50 ms on an H100: longer than a forward, and than the host
+# takes to queue a batch's first kernel): the copies land late, so a feed
+# that does not wait for them is caught on every batch, not only where it
+# races. A 5 ms wait missed the faulty feed in most runs on an H100's
+# host: it had queued the first batch's forward only after that batch's
+# copy had landed.
+SLOW_LINK_CYCLES = 100_000_000
 
 
 class StandInClips:
     """A dataset of seeded uint8 content clips that needs no decoder: its
     ``get_batch`` returns the collated dict of ``ClipDataset.get_batch``,
     with one clip flagged ``error``. ``length`` > the clips serves them
-    over again."""
+    over again. ``labels`` (default all 0) are the clips' classes, which
+    ``labels()`` and ``class_weights()`` report as ``ClipDataset``'s do;
+    ``sensor`` [clips, T, 4] their IMU streams (default zeros)."""
 
     supports_batch = True
 
-    def __init__(self, clips, broken, length=None):
+    def __init__(self, clips, broken, length=None, labels=None, sensor=None):
+        import numpy as np
+
         self.clips, self.broken = clips, broken
         self.length = length or len(clips)
+        self._labels = (np.zeros(len(clips), np.int64) if labels is None
+                        else np.asarray(labels, np.int64))
+        self.sensor = sensor
 
     def __len__(self):
         return self.length
+
+    def labels(self):
+        return self._labels[[i % len(self.clips) for i in range(self.length)]]
+
+    def class_weights(self):
+        from vision_collision_detection_tpu_torch.data.metadata import (
+            compute_class_weights)
+
+        return compute_class_weights(self.labels(), 3)
 
     def get_batch(self, idxs, epoch=0, num_threads=0):
         import numpy as np
@@ -2492,8 +2536,9 @@ class StandInClips:
         idxs = [int(i) % len(self.clips) for i in idxs]
         b, t = len(idxs), self.clips.shape[1]
         return {"frames": self.clips[idxs],
-                "sensor": np.zeros((b, t, 4), np.float32),
-                "target": np.zeros(b, np.int64),
+                "sensor": (np.zeros((b, t, 4), np.float32)
+                           if self.sensor is None else self.sensor[idxs]),
+                "target": self._labels[idxs],
                 "id": [f"clip{i:02d}" for i in idxs],
                 "error": np.asarray([i == self.broken for i in idxs]),
                 "pad": np.zeros(b, bool)}
@@ -2796,11 +2841,587 @@ def decode_phase(torch, dev, pred):
             "windows": len(windows), "metrics": metrics}
 
 
+# ---- 16. the Trainer ------------------------------------------------------
+
+TRAINER_CLIPS = (16, 8, 8)     # train (2 steps an epoch), val, test
+TRAINER_BROKEN = 3             # the training clip flagged ``error``
+TRAINER_TIME_STEPS = 16        # the loop and the steps alone, timed
+# The flagship GRU head against a float64 copy on the CPU, largest
+# absolute error of its output: float32 math lands near 1e-6, TF32 near
+# 1e-3.
+FP32_GRU_TOL = 1e-4
+
+
+def trainer_data(torch, n, seed, T, sensor=False):
+    """``n`` seeded content clips [T, 126, 224, 3], each of its own level
+    and contrast, with labels in all three classes (and, with ``sensor``,
+    seeded non-zero IMU streams [n, T, 4])."""
+    import numpy as np
+
+    g = torch.Generator().manual_seed(seed)
+    clips = torch.stack([
+        torch.randint(12 * (i % 8), 256 - 16 * (i % 8), (T, *CONTENT, 3),
+                      generator=g, dtype=torch.uint8)
+        for i in range(n)]).numpy()
+    labels = (torch.randperm(n, generator=g) % 3).numpy()
+    imu = (torch.randn(n, T, 4, generator=g).numpy().astype(np.float32) + 1.0
+           if sensor else None)
+    return clips, labels, imu
+
+
+def count_calls(obj, name):
+    """Wrap ``obj.name`` so that each call is counted (``counter[0]``) and
+    its result kept (``kept``)."""
+    fn, counter, kept = getattr(obj, name), [0], []
+
+    def counted(*args, **kwargs):
+        counter[0] += 1
+        out = fn(*args, **kwargs)
+        kept.append(out)
+        return out
+
+    setattr(obj, name, counted)
+    return counter, kept
+
+
+def trainer_launches(tag, counters, steps, evals):
+    """The counts a run of ``steps`` training steps and ``evals``
+    evaluation batches must show, every K2 and K3 launch on the Hopper
+    kernels."""
+    return expect_launches(tag, counters, K1=evals, K2=36 * steps + 18 * evals,
+                           K2_wgrad=18 * steps, K3=18 * evals,
+                           K3_train=18 * steps)
+
+
+def read_csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def rel_param_errs(torch, got, ref):
+    """Each parameter's ‖got − ref‖ / ‖ref‖ (0 where both are 0)."""
+    out = {}
+    for n, r in ref.items():
+        d, norm = float((got[n].float() - r.float()).norm()), float(
+            r.float().norm())
+        out[n] = d / norm if norm > 0 else (0.0 if d == 0 else math.inf)
+    return out
+
+
+def trainer_phase(torch, dev, flagship):
+    """The port's ``Trainer`` on the card at full width (the flagship
+    ``ExperimentConfig()``, B=8, 50 frames of 126×224 content, bf16) over a
+    stand-in dataset: 2 epochs with the cascade inside each, a resume for a
+    third, ``test()``; launch counts, artifacts, the loop against
+    ``make_train_step`` driven directly, the resume against an
+    uninterrupted run (and two faulty resumes), ``from_checkpoint`` against
+    ``test()``, the sensor branch, timing; then the GRU's float32 pin under
+    torch's default cuDNN flags."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.train import (
+        Trainer, create_train_state, make_train_step)
+    from vision_collision_detection_tpu_torch.train import (
+        trainer as trainer_mod)
+
+    cfg = ExperimentConfig().override({"train.validation_freq": 2,
+                                       "train.checkpoint_every_epochs": 1})
+    n_train, n_val, n_test = TRAINER_CLIPS
+    T = cfg.data.num_frames
+    clips, labels, _ = trainer_data(torch, n_train + n_val + n_test, 16, T)
+    parts = np.split(np.arange(len(clips)), [n_train, n_train + n_val])
+    train_ds, val_ds, test_ds = (
+        StandInClips(clips[p], TRAINER_BROKEN if k == 0 else None,
+                     labels=labels[p])
+        for k, p in enumerate(parts))
+    report = {"config": {"clips": TRAINER_CLIPS, "broken": TRAINER_BROKEN,
+                         "validation_freq": 2, "checkpoint_every_epochs": 1}}
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        # ---- the run: 2 epochs, a resumed third, test ----
+        counters = zero_counters()
+        tr = Trainer(cfg, train_ds, val_ds, test_ds, run_dir=run_dir)
+        init = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        evals, _ = count_calls(tr, "eval_step")
+        _, step_out = count_calls(tr, "train_step")
+        t0 = time.perf_counter()
+        tr.train(epochs=2)
+        torch.cuda.synchronize()
+        two_epochs_s = time.perf_counter() - t0
+        # (the steps counted as calls: ``train`` ends by reloading ``best``,
+        # whose step count may be an earlier one)
+        launches = [trainer_launches("trainer 2 epochs", counters,
+                                     len(step_out), evals[0])]
+        start = tr.store.load("last", map_location=dev)[0]["model"]
+        for fault in ("moments_dropped", "step_restarted"):
+            shutil.copytree(tr.store.path("last"),
+                            os.path.join(tmp, fault, "last"))
+        resume_cfg = cfg.override({"train.resume": True})
+        counters = zero_counters()
+        tr2 = Trainer(resume_cfg, train_ds, val_ds, test_ds, run_dir=run_dir)
+        if (tr2.start_epoch, tr2.state.step) != (2, 4):
+            raise SystemExit(f"trainer: resumed at epoch {tr2.start_epoch}, "
+                             f"step {tr2.state.step}; expected 2 and 4")
+        evals2, _ = count_calls(tr2, "eval_step")
+        steps2, _ = count_calls(tr2, "train_step")
+        tr2.train(epochs=3)
+        torch.cuda.synchronize()
+        launches.append(trainer_launches("trainer resumed epoch", counters,
+                                         steps2[0], evals2[0]))
+        counters = zero_counters()
+        test_res = tr2.test()
+        torch.cuda.synchronize()
+        launches.append(trainer_launches("trainer test", counters, 0, 1))
+        total = {k: sum(d[k] for d in launches) for k in launches[0]}
+        report["launches"] = total
+        report["two_epochs_s"] = two_epochs_s
+
+        # ---- artifacts, parsed without pandas ----
+        hist = read_csv_rows(os.path.join(run_dir, "training_history.csv"))
+        vals = []
+        for e in range(3):
+            with open(os.path.join(run_dir, f"validation_epoch{e}.json")) as f:
+                vals.append(json.load(f))
+        with open(os.path.join(run_dir, "test_results.json")) as f:
+            test_json = json.load(f)
+        preds = read_csv_rows(os.path.join(run_dir, "test_predictions.csv"))
+        roles = sorted(n for n in os.listdir(run_dir)
+                       if tr2.store.exists(n))
+        ok = ([int(r["epoch"]) for r in hist] == [0, 1, 2]
+              and all(math.isfinite(float(r["train_loss"])) for r in hist)
+              and all(v["num_samples"] == n_val for v in vals)
+              and test_json["num_samples"] == n_test and len(preds) == n_test
+              and list(preds[0]) == ["id", "target", "predicted",
+                                     "prob_normal", "prob_near_collision",
+                                     "prob_collision", "correct"]
+              and roles == ["best", "epoch_0", "epoch_1", "epoch_2", "last"])
+        log(f"[trainer] 2 epochs in {two_epochs_s:.2f} s, then epoch 3 "
+            f"resumed and test(): history {[(r['epoch'], r['train_loss'], r['val_loss']) for r in hist]}; "
+            f"roles {roles}; test accuracy {test_json['accuracy']:.3f}")
+        if not ok:
+            raise SystemExit(f"trainer: artifacts wrong: {hist} {roles} "
+                             f"{test_json} {preds[:1]}")
+        report["history"] = hist
+
+        # ---- the loop against make_train_step driven directly ----
+        model, state = create_train_state(
+            cfg, torch.Generator().manual_seed(cfg.train.seed),
+            tr.steps_per_epoch, device=dev)
+        same_init = all(torch.equal(v, init[k])
+                        for k, v in model.state_dict().items())
+        step = make_train_step(model, cfg, train_ds.class_weights())
+        tr.train_loader.set_epoch(0)
+        direct = []
+        for i, b in enumerate(tr.train_loader):
+            gen = torch.Generator(device=dev).manual_seed(
+                trainer_mod.step_seed(cfg.train.seed, 0, i))
+            mask = (~(b["error"] | b["pad"])).astype(np.float32)
+            _, m = step(state, torch.from_numpy(b["frames"]).to(dev),
+                        torch.from_numpy(b["target"]).to(dev),
+                        torch.from_numpy(mask).to(dev), gen)
+            direct.append(float(m["loss"]))
+        looped = [float(m["loss"]) for _, m in step_out[:len(direct)]]
+        loop_err = max(abs(a - b) / abs(b) for a, b in zip(looped, direct))
+        log(f"[trainer] epoch 0's steps, loop {looped} against "
+            f"make_train_step driven directly {direct}: relative "
+            f"{loop_err:.2e} ({'bit-equal' if looped == direct else 'within ' + str(TRAIN_TOL) if loop_err <= TRAIN_TOL else 'OUTSIDE'}); "
+            f"the same initial weights: {same_init}")
+        if not same_init or loop_err > TRAIN_TOL:
+            raise SystemExit("trainer: the loop disagrees with the step")
+        report["loop_vs_step"] = {"loop": looped, "direct": direct,
+                                  "rel_err": loop_err,
+                                  "bit_equal": looped == direct}
+        del model, state, step
+
+        # ---- resume against an uninterrupted run; faulty resumes ----
+        whole = Trainer(cfg, train_ds, val_ds, run_dir=os.path.join(
+            tmp, "whole"))
+        # its epoch checkpoints kept in device memory, not on the disk
+        kept = {}
+        whole.store.save_epoch = lambda epoch, arrays, meta: kept.update(
+            {epoch: {k: v.clone() for k, v in arrays["model"].items()}})
+        whole.train(epochs=3)
+        ref_last, ref_start = kept[2], kept[1]
+        shutil.rmtree(whole.run_dir)
+        ref_update = {k: ref_last[k].float() - ref_start[k].float()
+                      for k in ref_last}
+
+        def update_errs(run):
+            got = last_model(run, dev)
+            upd = {k: got[k].float() - start[k].float() for k in got}
+            errs = rel_param_errs(torch, upd, ref_update)
+            return max(errs.values()), got
+
+        resumed_update, resumed_last = update_errs(run_dir)
+        param_err = max(rel_param_errs(torch, resumed_last, ref_last).values())
+        loss_err = max(
+            abs(float(a[k]) - float(b[k])) / abs(float(b[k]))
+            for a, b in zip(hist, whole.history.records)
+            for k in ("train_loss", "val_loss"))
+        restore = Trainer._restore_arrays
+
+        def moments_dropped(self, arrays):
+            opt = arrays["optimizer"]
+            restore(self, dict(arrays, optimizer={
+                "state": {}, "param_groups": opt["param_groups"]}))
+
+        def step_restarted(self, arrays):
+            restore(self, dict(arrays, step=0))
+
+        faults = {}
+        for name, fn in (("moments_dropped", moments_dropped),
+                         ("step_restarted", step_restarted)):
+            with swapped((Trainer, "_restore_arrays", fn)):
+                ftr = Trainer(resume_cfg, train_ds, val_ds,
+                              run_dir=os.path.join(tmp, name))
+            ftr.train(epochs=3)
+            faults[name] = update_errs(ftr.run_dir)[0]
+            shutil.rmtree(ftr.run_dir)
+            del ftr
+        log(f"[trainer] resumed epoch 3 against an uninterrupted run: "
+            f"losses relative {loss_err:.2e}, parameters relative to their "
+            f"norm {param_err:.2e}, epoch 3's update relative to the "
+            f"uninterrupted one's {resumed_update:.2e} (tol {TRAIN_TOL:.0e}); "
+            f"faulty resumes, the update: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in faults.items()))
+        if max(loss_err, param_err, resumed_update) > TRAIN_TOL:
+            raise SystemExit("trainer: the resumed run disagrees with the "
+                             "uninterrupted one")
+        if not all(v > TRAIN_TOL for v in faults.values()):
+            raise SystemExit(f"trainer: a faulty resume was not seen: {faults}")
+        report["resume"] = {"loss_rel_err": loss_err,
+                            "param_rel_err": param_err,
+                            "update_rel_err": resumed_update,
+                            "faults_update_rel_err": faults}
+        del whole, ref_last, ref_start, ref_update, resumed_last
+
+        # ---- serving from the trainer's checkpoint ----
+        pred = CollisionPredictor.from_checkpoint(run_dir)
+        batch = next(iter(tr2.test_loader))
+        probs = pred._make_forward(False)(batch["frames"]).cpu().numpy()
+        serve_err = float(np.abs(probs - test_res["_probs"]).max())
+        log(f"[trainer] from_checkpoint(run dir) loads "
+            f"{tr2.store.latest_role()!r}: max |Δprob| against test()'s "
+            f"{serve_err:.3e} (bit-equal required)")
+        if not np.array_equal(probs, test_res["_probs"]):
+            raise SystemExit("trainer: from_checkpoint disagrees with test()")
+        report["from_checkpoint_max_abs_err"] = serve_err
+        del pred, tr, tr2
+        torch.cuda.empty_cache()
+
+        report["timing"] = time_trainer_loop(torch, dev, cfg, clips[:n_train],
+                                             labels[:n_train], val_ds, tmp)
+    report["sensor"] = trainer_sensor_step(torch, dev, cfg, val_ds)
+    report["gru_pin"] = gru_pin_phase(torch, dev, flagship)
+    return report
+
+
+def last_model(run_dir, dev):
+    """The model of a run directory's ``last`` checkpoint."""
+    from vision_collision_detection_tpu_torch.ckpt import CheckpointStore
+
+    return CheckpointStore(run_dir).load("last", map_location=dev)[0]["model"]
+
+
+def time_trainer_loop(torch, dev, cfg, clips, labels, val_ds, tmp):
+    """The Trainer's loop over TRAINER_TIME_STEPS steps (the stand-in
+    serving its 16 clips again, no validation inside) against the same
+    steps of ``make_train_step`` fed batches already on the card, in turns
+    on the host clock (median of 3 each); the loop's idle share under
+    torch.profiler, the pinned copy of one batch, one checkpoint save, one
+    evaluation batch and the loop's peak memory."""
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.ckpt.checkpoint import (
+        ARRAYS_FILE)
+    from vision_collision_detection_tpu_torch.train import Trainer
+    from vision_collision_detection_tpu_torch.train import (
+        trainer as trainer_mod)
+
+    B = cfg.data.batch_size
+    long_ds = StandInClips(clips, TRAINER_BROKEN,
+                           length=B * TRAINER_TIME_STEPS, labels=labels)
+    tt = Trainer(cfg.override({"train.validation_freq": 0}), long_ds, val_ds,
+                 run_dir=os.path.join(tmp, "timing"))
+    tt.train_loader.set_epoch(0)
+    batches = []
+    for b in tt.train_loader:
+        mask = (~(b["error"] | b["pad"])).astype(np.float32)
+        batches.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            b["frames"], b["target"], mask)))
+    gen = torch.Generator(device=dev)
+    seed = tt.cfg.train.seed
+
+    def loop():
+        tt._train_epoch(0)
+
+    def steps():
+        for i, (f, t, m) in enumerate(batches):
+            gen.manual_seed(trainer_mod.step_seed(seed, 0, i))
+            tt.train_step(tt.state, f, t, m, gen)
+
+    variants = {"loop": loop, "steps": steps}
+    rounds = {k: [] for k in variants}
+    loop()  # warm-up: the first epoch builds the feed's pinned buffers
+    steps()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for order in (["loop", "steps"], ["steps", "loop"], ["loop", "steps"]):
+        for k in order:
+            rounds[k].append(median_step_ms(torch, variants[k], 0, 1))
+    peak = torch.cuda.max_memory_allocated()  # over the rounds
+    turns = {k: {"ms": statistics.median(v),
+                 "ms_per_step": statistics.median(v) / TRAINER_TIME_STEPS,
+                 "rounds_ms": v} for k, v in rounds.items()}
+    over = turns["loop"]["ms"] / turns["steps"]["ms"] - 1.0
+    profile = profile_device(
+        torch, "trainer loop", loop, 1,
+        {"K2": "dwconv7x7_hopper_kernel",
+         "K2 wgrad": "dwconv_wgrad_hopper", "K3 train": "convnext_mlp_wgmma",
+         "copy": "Memcpy"})
+    pinned = torch.from_numpy(clips[:B]).pin_memory()
+    copy_ms = median_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    save_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt._save("last", 0)
+        save_s.append(time.perf_counter() - t0)
+    size = os.path.getsize(os.path.join(tt.store.path("last"), ARRAYS_FILE))
+    eval_ms = median_step_ms(
+        torch, lambda: tt.evaluate(tt.val_loader), 1, 3)
+    log(f"[trainer time] {TRAINER_TIME_STEPS} steps: the loop "
+        f"{turns['loop']['ms_per_step']:.2f} ms a step, make_train_step on "
+        f"batches already on the card {turns['steps']['ms_per_step']:.2f} "
+        f"(loop over steps {over:+.3f}; rounds {rounds}); peak device "
+        f"memory {peak / 1e9:.2f} GB; one batch of {pinned.numel() / 1e6:.1f}"
+        f" MB copied pinned in {copy_ms:.3f} ms; a checkpoint save of "
+        f"{size / 1e6:.1f} MB (model and AdamW moments) "
+        f"{statistics.median(save_s):.3f} s (each {save_s}); evaluate() of "
+        f"one batch of 8 {eval_ms:.2f} ms")
+    return {"steps": TRAINER_TIME_STEPS, "turns": turns,
+            "loop_over_steps": over, "peak_mem_bytes": peak,
+            "idle_share": profile["idle_share"] if profile else None,
+            "profile": profile, "batch_bytes": pinned.numel(),
+            "copy_ms": copy_ms, "save_s": statistics.median(save_s),
+            "save_rounds_s": save_s, "checkpoint_bytes": size,
+            "evaluate_one_batch_ms": eval_ms}
+
+
+def trainer_sensor_step(torch, dev, cfg, val_ds):
+    """One Trainer step of the flagship with ``model.use_sensor`` on, on a
+    seeded non-zero sensor stream [8, 50, 4]: launch counts, finite and
+    non-zero gradients for ``sensor_fc1``/``sensor_fc2``, and the same
+    step on plain versions within TRAIN_TOL."""
+    import copy as copy_mod
+    import tempfile
+
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+    from vision_collision_detection_tpu_torch.train import Trainer
+
+    clips, labels, imu = trainer_data(torch, cfg.data.batch_size, 17,
+                                      cfg.data.num_frames, sensor=True)
+    ds = StandInClips(clips, None, labels=labels, sensor=imu)
+    with tempfile.TemporaryDirectory() as tmp:
+        ts = Trainer(cfg.override({"model.use_sensor": True,
+                                   "train.validation_freq": 0}), ds, val_ds,
+                     run_dir=tmp)
+        init = {k: v.clone() for k, v in ts.model.state_dict().items()}
+        opt0 = copy_mod.deepcopy(ts.state.optimizer.state_dict())
+
+        def one_step():
+            ts.model.load_state_dict(init)
+            ts.state.optimizer.load_state_dict(opt0)
+            ts.state.step = 0
+            loss = ts._train_epoch(0)["loss"]
+            return loss, {n: p.grad.detach().float().clone()
+                          for n, p in ts.model.named_parameters()}
+
+        counters = zero_counters()
+        loss, grads = one_step()
+        launches = trainer_launches("trainer sensor step", counters, 1, 0)
+        plain = ((k2, "_launch_fwd", k2.dwconv7x7_plain),
+                 (k2, "_launch_wgrad", k2.dwconv7x7_wgrad_plain),
+                 (k3, "_launch_train", k3.convnext_mlp_train_plain))
+        with swapped(*plain):
+            plain_loss, plain_grads = one_step()
+    sensor = {n: float(g.abs().max()) for n, g in grads.items()
+              if n.startswith("sensor_fc")}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    loss_err = abs(loss - plain_loss) / abs(plain_loss)
+    errs = rel_grad_errs(torch, grads, plain_grads)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[trainer sensor] one step with use_sensor: loss {loss:.6f} (plain "
+        f"{plain_loss:.6f}, relative {loss_err:.2e}); largest |grad| of the "
+        f"sensor layers {sensor}; worst gradient errors against plain "
+        f"{[(n, f'{e:.2e}') for n, e in worst]} (tol {TRAIN_TOL:.0e})")
+    if len(sensor) != 4 or not finite or min(sensor.values()) == 0:
+        raise SystemExit("trainer sensor: a sensor gradient is missing, "
+                         "non-finite or zero")
+    if loss_err > TRAIN_TOL or worst[0][1] > TRAIN_TOL:
+        raise SystemExit("trainer sensor: the step disagrees with its plain "
+                         "version")
+    return {"launches": launches, "loss": loss, "plain_loss": plain_loss,
+            "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+            "sensor_grad_max_abs": sensor}
+
+
+def _cudnn_flags(torch):
+    """cuDNN's TF32 flags as torch reports them: the legacy switch (or
+    "mixed" where its getter raises) and, where torch has them, the conv
+    and RNN precisions."""
+    c = torch.backends.cudnn
+    try:
+        legacy = c.allow_tf32
+    except RuntimeError:
+        legacy = "mixed"
+    per_op = ((c.conv.fp32_precision, c.rnn.fp32_precision)
+              if hasattr(c, "rnn") else None)
+    return legacy, per_op
+
+
+def gru_pin_phase(torch, dev, flagship):
+    """Under torch's default cuDNN flags (TF32 on; set for this phase only
+    and put back after it): the flagship GRU head (phase 3's weights) on
+    seeded features [8, 25, 768], pinned and unpinned, against a float64
+    copy on the CPU, output and weight gradients; the caller's flags
+    before and after; then phase 3's B=8 serving forward under the
+    defaults against the same forward under this script's switch, which
+    must be bit-equal (else the first module whose output differs is
+    named)."""
+    import torch.nn.functional as F
+
+    cudnn = torch.backends.cudnn
+    pred, frames = flagship["pred"], flagship["frames"]
+    head = pred.model.temporal
+    H = head.hidden
+    g = torch.Generator().manual_seed(18)
+    feats = torch.randn(8, 25, 768, generator=g)
+    ref = copy.deepcopy(head).cpu().double()
+
+    def unpinned(module):
+        """The head's forward without the pin (and without its float32
+        cast, so that the float64 copy stays float64)."""
+        def fn(x):
+            out, _ = module.gru(x)
+            last = torch.cat([out[:, -1, :H], out[:, 0, H:]], dim=-1)
+            return F.relu(module.proj(last))
+        return fn
+
+    def run(fn, module, x):
+        """Output and GRU weight gradients of ``fn`` on ``x``; the module
+        in train mode meanwhile (cuDNN's RNN backward needs it; the GRU
+        has no dropout, so its output is the same)."""
+        x = x.clone().requires_grad_(True)
+        module.train()
+        try:
+            y = fn(x)
+            y.square().sum().backward()
+        finally:
+            module.eval()
+        grads = {n: p.grad.detach().double().cpu().clone()
+                 for n, p in module.gru.named_parameters()}
+        for p in module.parameters():
+            p.grad = None
+        return y.detach().double().cpu(), grads
+
+    want, want_g = run(unpinned(ref), ref, feats.double())
+    cudnn.allow_tf32 = True
+    try:
+        before = _cudnn_flags(torch)
+        with torch.enable_grad():
+            x = feats.to(dev).requires_grad_(True)
+            head.train()
+            out, _ = head.gru(x)
+            head.eval()
+            node = type(out.grad_fn).__name__  # the node the pin hooks
+            del out
+            got_p, got_pg = run(head, head, feats.to(dev))
+            after = _cudnn_flags(torch)
+            got_u, got_ug = run(unpinned(head), head, feats.to(dev))
+        default_probs = pred._make_forward(True)(frames)
+    finally:
+        cudnn.allow_tf32 = False
+    switch_probs = pred._make_forward(True)(frames)
+
+    def grad_err(gs):
+        # the weights: bias_hh's r and z parts are zeroed by the head's
+        # hook, which the float64 copy does not carry
+        return max(float((gs[n] - w).abs().max() / w.abs().max())
+                   for n, w in want_g.items() if n.startswith("weight"))
+
+    errs = {"pinned": float((got_p - want).abs().max()),
+            "unpinned": float((got_u - want).abs().max()),
+            "pinned_grad_rel": grad_err(got_pg),
+            "unpinned_grad_rel": grad_err(got_ug)}
+    bit_equal = torch.equal(default_probs, switch_probs)
+    differs = None if bit_equal else first_difference(
+        torch, pred, frames)
+    log(f"[gru pin] torch {torch.__version__}, cuDNN flags under the "
+        f"defaults {before}, after the pinned head {after}; the recurrence's "
+        f"backward node {node}; the flagship GRU head against float64: "
+        f"pinned {errs['pinned']:.3e}, unpinned nn.GRU {errs['unpinned']:.3e}"
+        f" (tol {FP32_GRU_TOL:.0e}); weight gradients relative to their "
+        f"largest: pinned {errs['pinned_grad_rel']:.3e}, unpinned "
+        f"{errs['unpinned_grad_rel']:.3e}; the B=8 serving forward under "
+        f"the defaults against this script's switch: "
+        f"{'bit-equal' if bit_equal else 'differs, first at ' + str(differs)}")
+    if before != after:
+        raise SystemExit(f"gru pin: the caller's flags {before} came back as "
+                         f"{after}")
+    if "CudnnRnn" not in node:
+        raise SystemExit(f"gru pin: the GRU's output comes from {node}, not "
+                         "from cuDNN's RNN node, so its backward is not pinned")
+    if errs["pinned"] > FP32_GRU_TOL or errs["pinned_grad_rel"] > FP32_GRU_TOL:
+        raise SystemExit(f"gru pin: the pinned head is not float32: {errs}")
+    return {"flags_before": before, "flags_after": after,
+            "backward_node": node, "errors": errs, "tol": FP32_GRU_TOL,
+            "serving_bit_equal": bit_equal, "first_difference": differs}
+
+
+def first_difference(torch, pred, frames):
+    """The first module (in call order) of the serving forward whose output
+    differs between torch's default cuDNN flags and TF32 off."""
+    outs = {}
+
+    def hook(name, store):
+        def fn(module, args, out):
+            t = out[0] if isinstance(out, tuple) else out
+            store.append((name, t.detach().clone()))
+        return fn
+
+    for allow in (True, False):
+        store = outs[allow] = []
+        handles = [m.register_forward_hook(hook(n, store))
+                   for n, m in pred.model.named_modules() if n]
+        torch.backends.cudnn.allow_tf32 = allow
+        try:
+            pred._make_forward(True)(frames)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            for h in handles:
+                h.remove()
+    for (name, a), (_, b) in zip(outs[True], outs[False]):
+        if not torch.equal(a, b):
+            return name
+    return "the classifier MLP or the softmax"
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
-    the scaled ViViT, predict's batch loop and the sliding forward, each
-    counted from 0), with the split in ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
+    the scaled ViViT, predict's batch loop, the sliding forward and the
+    Trainer's run, each counted from 0), with the split in
+    ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass
     through the spatial blocks). Both K4 backward kernels carry the

@@ -86,6 +86,40 @@ def test_round_trip_resumes_model_optimizer_and_counters(tmp_path):
                zip(model.parameters(), resumed.parameters()))
 
 
+def test_numpy_leaves_round_trip(tmp_path):
+    """The JAX trainer saves a numpy step: the store turns numpy arrays into
+    tensors and numpy scalars into numbers, so what it saves loads."""
+    store = CheckpointStore(str(tmp_path / "run"))
+    store.save("last", arrays={
+        "step": np.asarray(3), "x": np.float32(1.5),
+        "nested": {"a": np.arange(4), "strided": np.arange(6)[::-2]},
+        "model": {"w": torch.ones(2)}}, meta={})
+    assert store.exists("last") and store.latest_role() == "last"
+    arrays, _ = store.load("last")
+    assert isinstance(arrays["step"], torch.Tensor)
+    assert arrays["step"].shape == () and int(arrays["step"]) == 3
+    assert arrays["x"] == 1.5 and type(arrays["x"]) is float
+    assert torch.equal(arrays["nested"]["a"], torch.arange(4))
+    assert torch.equal(arrays["nested"]["strided"], torch.tensor([5, 3, 1]))
+    assert torch.equal(arrays["model"]["w"], torch.ones(2))
+
+
+class _Opaque:
+    pass
+
+
+@pytest.mark.parametrize("leaf", [
+    _Opaque(), np.array([{"a": 1}], dtype=object), {"deep": [1, _Opaque()]}],
+    ids=["object", "object_array", "nested_object"])
+def test_unloadable_leaf_is_refused_before_writing(tmp_path, leaf):
+    store = CheckpointStore(str(tmp_path / "run"))
+    with pytest.raises(TypeError, match="weights_only"):
+        store.save("best", arrays={"model": _small(), "extra": leaf},
+                   meta={"epoch": 0})
+    assert not store.exists("best") and store.latest_role() is None
+    assert os.listdir(store.run_dir) == []
+
+
 def _layout(store):
     return sorted(os.listdir(store.run_dir))
 

@@ -3,6 +3,7 @@
 import ast
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -76,12 +77,21 @@ def _chip_smoke_modules():
     return sorted(names)
 
 
+TRAINING_MODULES = [f"vision_collision_detection_tpu_torch.{m}" for m in (
+    "train.trainer", "train.notebook", "obs.history", "obs.dashboard",
+    "obs.logging_utils", "obs.plots")]
+
+
 def test_chip_smoke_modules_import_without_pandas_or_matplotlib():
     """The card's machine has neither pandas nor matplotlib: what
-    chip_smoke.py imports, and the whole port, loads with both blocked."""
+    chip_smoke.py imports, the training engine and its ``obs`` modules, and
+    the whole port, load with both blocked."""
     modules = _chip_smoke_modules()
     assert {"vision_collision_detection_tpu_torch.ckpt.checkpoint",
-            "vision_collision_detection_tpu_torch.data.loader"} <= set(modules)
+            "vision_collision_detection_tpu_torch.data.loader",
+            "vision_collision_detection_tpu_torch.train.trainer"} <= set(
+        modules)
+    modules = sorted(set(modules) | set(TRAINING_MODULES))
     code = (
         "import sys, importlib, pkgutil\n"
         "for m in ('pandas', 'matplotlib', 'jax', 'flax', "
@@ -105,6 +115,56 @@ def test_chip_smoke_modules_import_without_pandas_or_matplotlib():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_trainer_runs_without_pandas_or_matplotlib(tmp_path):
+    """A ``Trainer`` run on the CPU with pandas, matplotlib and JAX blocked,
+    as on the card's machine: chip_smoke.py's stand-in dataset, one
+    epoch with the cascade, ``test()``; the CSV and JSON artifacts are written, and each
+    plot fails with the logged warning the JAX trainer gives."""
+    code = (
+        "import sys\n"
+        "for m in ('pandas', 'matplotlib', 'jax', 'flax', "
+        "'vision_collision_detection_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)  # beside the other test workers\n"
+        "import chip_smoke\n"
+        "from vision_collision_detection_tpu_torch.config import "
+        "ExperimentConfig\n"
+        "from vision_collision_detection_tpu_torch.train import Trainer\n"
+        "g = np.random.default_rng(0)\n"
+        "def ds(n, broken=None):\n"
+        "    clips = g.integers(0, 256, (n, 4, 18, 32, 3), dtype=np.uint8)\n"
+        "    return chip_smoke.StandInClips(clips, broken, "
+        "labels=np.arange(n) % 3)\n"
+        "cfg = ExperimentConfig().override({'data.frame_size': 32, "
+        "'data.fps': 2, 'data.duration': 2, 'data.batch_size': 2, "
+        "'model.dtype': 'float32', 'train.epochs': 1, "
+        "'train.validation_freq': 1, 'train.checkpoint_every_epochs': 0, "
+        "'train.log_every_steps': 1})\n"
+        f"tr = Trainer(cfg, ds(4, broken=1), ds(2), ds(2), "
+        f"run_dir={str(tmp_path / 'run')!r}, device='cpu')\n"
+        "tr.train()\n"
+        "res = tr.test()\n"
+        "assert res['num_samples'] == 2, res\n"
+        "assert 'pandas' not in sys.modules or sys.modules['pandas'] is None\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+    run = tmp_path / "run"
+    for name in ("training_history.csv", "validation_epoch0.json",
+                 "test_results.json", "test_predictions.csv"):
+        assert (run / name).exists(), name
+    log = (run / "training.log").read_text()
+    assert "training-curve plot failed" in log
+    assert "confusion-matrix plot failed" in log
+    assert not (run / "training_curves.png").exists()
+    shutil.rmtree(run)  # two checkpoints of about 360 MB each
 
 
 def test_no_port_file_names_the_jax_media_sources():

@@ -1,6 +1,10 @@
 """The port's bi-GRU head against the flax ``TemporalRNN`` (``_HoistedGRU``)
 on bridged weights."""
 
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,8 @@ from vision_collision_detection_tpu_torch.models import temporal
 from vision_collision_detection_tpu_torch.models.convert import (
     from_flax_params,
 )
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("bidirectional", [True, False])
@@ -53,3 +59,82 @@ def test_bridge_rejects_incomplete_gru_cell():
             for g in ("ir", "iz", "in", "hr", "hz")}
     with pytest.raises(KeyError):
         from_flax_params({"temporal": {"fw_cell": cell}})
+
+
+def _flags():
+    c = torch.backends.cudnn
+    try:
+        legacy = c.allow_tf32
+    except RuntimeError:  # conv and RNN set apart through per-op flags
+        legacy = "mixed"
+    return legacy, c.conv.fp32_precision, c.rnn.fp32_precision
+
+
+def _pinned_forward_backward():
+    """One forward and backward of the head; the flags a forward pre-hook
+    on its ``nn.GRU`` sees, the flags inside the backward of the
+    recurrence's node, and the caller's flags after each."""
+    tm = temporal.TemporalRNN(6, hidden=4)
+    seen = {}
+    outs = []
+    tm.gru.register_forward_pre_hook(
+        lambda m, args: seen.__setitem__("forward", _flags()))
+    tm.gru.register_forward_hook(lambda m, args, out: outs.append(out[0]))
+    x = torch.randn(2, 5, 6, requires_grad=True)
+    y = tm(x)
+    seen["after_forward"] = _flags()
+    node = outs[0].grad_fn
+    # registered after the pin's own hooks, so they run inside its span
+    node.register_prehook(
+        lambda g: seen.__setitem__("backward", _flags()))
+    node.register_hook(
+        lambda gi, go: seen.__setitem__("after_node", _flags()))
+    y.sum().backward()
+    seen["after_backward"] = _flags()
+    return seen
+
+
+@pytest.mark.parametrize("caller_tf32", [True, False])
+def test_gru_runs_with_tf32_off_and_restores_the_flag(caller_tf32):
+    c = torch.backends.cudnn
+    c.allow_tf32 = caller_tf32
+    try:
+        before = _flags()
+        seen = _pinned_forward_backward()
+    finally:
+        c.allow_tf32 = True
+    assert before[0] is caller_tf32
+    assert seen["forward"][0] is False and seen["backward"][0] is False
+    for when in ("after_forward", "after_node", "after_backward"):
+        assert seen[when] == before, when
+
+
+def test_gru_pin_restores_per_operator_flags():
+    """A caller who set cuDNN's RNN precision apart through the per-operator
+    flag (the legacy getter then raises) gets that flag back as it was.
+    (In a process of its own: the flags are global.)"""
+    code = "\n".join([
+        "import sys, torch",
+        f"sys.path.insert(0, {str(ROOT)!r})",
+        "from vision_collision_detection_tpu_torch.models import temporal",
+        _source_of(_flags),
+        _source_of(_pinned_forward_backward),
+        "torch.backends.cudnn.rnn.fp32_precision = 'ieee'",
+        "before = _flags()",
+        "seen = _pinned_forward_backward()",
+        "assert before == ('mixed', 'tf32', 'ieee'), before",
+        "assert seen['forward'][0] is False, seen",
+        "assert seen['backward'][0] is False, seen",
+        "assert seen['after_forward'] == before, seen",
+        "assert seen['after_backward'] == before, seen",
+        "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _source_of(fn):
+    import inspect
+
+    return inspect.getsource(fn)

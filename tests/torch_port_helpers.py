@@ -1,9 +1,12 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
-package: seeded flax parameter trees with every leaf randomised."""
+package: seeded flax parameter trees with every leaf randomised, and a
+fixture that limits torch's threads."""
 
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 
 def randomize_params(tree, rng: np.random.Generator):
@@ -34,3 +37,15 @@ def bf16_ulp(x: np.ndarray) -> np.ndarray:
     """One bf16 unit in the last place at each |x| (8 significant bits)."""
     mag = np.maximum(np.abs(np.asarray(x, np.float64)), 2.0 ** -126)
     return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """The test workers share the host's cores: two intra-op threads each
+    keep torch's thread pools from oversubscribing them (the port's tests
+    at convnext_tiny run on small tensors, where more threads buy little).
+    Imported by a test module, it holds for that module's tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

@@ -9,7 +9,9 @@ checkpoint is a directory ``<run>/<role>/`` holding two files:
 - ``arrays.pt``: a ``torch.save`` of the arrays, a dict of tensors, numbers,
   strings, lists and dicts. By convention ``model`` is the model's
   ``state_dict``; a trainer adds ``optimizer`` (the AdamW moments of
-  ``train/optim.py``), ``step``, ``epoch``, the best metrics and the history.
+  ``train/optim.py``) and ``step``. ``save`` turns a numpy array into a
+  tensor and a numpy scalar into a Python number, and refuses any other
+  leaf before it writes anything: every role it reports can be loaded.
 
 Roles are ``best``, ``last`` and ``epoch_N``. A save writes ``<role>.tmp``
 and renames it into place, so a reader never sees half a checkpoint. The
@@ -19,6 +21,7 @@ as code.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -46,9 +49,12 @@ class CheckpointStore:
         return os.path.isfile(os.path.join(self.path(role), ARRAYS_FILE))
 
     def save(self, role: str, *, arrays: dict, meta: dict) -> str:
-        """``arrays``: tensors and plain values (see the module docstring);
-        ``meta``: JSON-serialisable, numpy scalars and arrays, tuples and
-        sets allowed. Returns the checkpoint's directory."""
+        """``arrays``: tensors, numpy arrays and scalars, and plain values
+        (see the module docstring); any other leaf raises ``TypeError``
+        before anything is written. ``meta``: JSON-serialisable, numpy
+        scalars and arrays, tuples and sets allowed. Returns the
+        checkpoint's directory."""
+        arrays = _loadable(arrays, "arrays")
         target = self.path(role)
         tmp = target + ".tmp"
         if os.path.isdir(tmp):
@@ -108,6 +114,38 @@ def load_checkpoint(path: str, map_location=None) -> tuple:
         with open(meta_path) as f:
             meta = json.load(f)
     return arrays, meta
+
+
+_PLAIN = (bool, int, float, complex, str, bytes, type(None))
+
+
+def _loadable(obj: Any, where: str) -> Any:
+    """``obj`` with numpy arrays as tensors and numpy scalars as Python
+    numbers, so that ``torch.load(..., weights_only=True)`` reads it back;
+    a leaf it would refuse raises ``TypeError`` naming its path."""
+    if isinstance(obj, np.generic):  # before the plain types: np.float64
+        return obj.item()               # is a float
+    if isinstance(obj, (torch.Tensor, torch.Size, torch.dtype)) or \
+            type(obj) in _PLAIN:
+        return obj
+    if isinstance(obj, np.ndarray):
+        if obj.dtype == object:
+            raise TypeError(f"{where}: a numpy array of Python objects "
+                            "cannot be loaded with weights_only=True")
+        return torch.from_numpy(np.array(obj, order="C"))  # 0-d stays 0-d
+    if type(obj) in (dict, collections.OrderedDict):
+        out = type(obj)((_loadable(k, f"{where} key"),
+                         _loadable(v, f"{where}[{k!r}]"))
+                        for k, v in obj.items())
+        if hasattr(obj, "_metadata"):  # a state_dict's module versions
+            out._metadata = obj._metadata
+        return out
+    if type(obj) in (list, tuple):
+        return type(obj)(_loadable(v, f"{where}[{i}]")
+                         for i, v in enumerate(obj))
+    raise TypeError(f"{where}: a {type(obj).__name__} cannot be loaded with "
+                    "weights_only=True; save tensors, numpy values, numbers, "
+                    "strings, lists and dicts")
 
 
 def _json_default(o: Any):

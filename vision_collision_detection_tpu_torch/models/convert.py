@@ -11,7 +11,8 @@ flax                                   torch
 =====================================  =====================================
 conv kernel [kh, kw, in, out]          weight [out, in, kh, kw]
 depthwise kernel [7, 7, 1, C]          [49, C] (K2 path) or [C, 1, 7, 7]
-Dense kernel [in, out]                 Linear weight [out, in]
+Dense kernel [in, out] (``fc1``,        Linear weight [out, in]
+``sensor_fc1``, ``sensor_fc2``, ...)
 LayerNorm scale / bias                 weight / bias
 GRU ir/iz/in kernels and biases        weight_ih_l0{,_reverse} / bias_ih (r, z, n)
 GRU hr/hz/hn kernels                   weight_hh_l0{,_reverse}

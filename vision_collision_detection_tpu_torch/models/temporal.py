@@ -27,6 +27,10 @@ class TemporalRNN(nn.Module):
     ``b_hn``; the ``hr``/``hz`` products have no bias (``b_hr = b_hz = 0``).
     Those two have no flax counterpart, so training keeps them at zero: a
     hook drops their part of ``bias_hh``'s gradient.
+
+    The recurrence runs in float32 math: cuDNN's TF32 is off around the GRU
+    forward and around its backward node (``_Float32Pin``), whatever the
+    caller set, and the caller's flags are restored after each.
     """
 
     def __init__(self, dim: int, hidden: int = 256, cell_type: str = "gru",
@@ -44,12 +48,52 @@ class TemporalRNN(nn.Module):
                 p.register_hook(_hn_bias_only)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out, _ = self.gru(x.to(torch.float32))
+        with _Float32Pin():
+            out, _ = self.gru(x.to(torch.float32))
+        if out.grad_fn is not None:  # on the card, cuDNN's RNN node
+            _Float32Pin().around(out.grad_fn)
         H = self.hidden
         last = out[:, -1, :H]
         if self.bidirectional:
             last = torch.cat([last, out[:, 0, H:]], dim=-1)
         return F.relu(self.proj(last))
+
+
+class _Float32Pin:
+    """cuDNN's TF32 off while it is entered, through the legacy
+    ``torch.backends.cudnn.allow_tf32`` switch (the one ``chip_smoke.py``
+    sets), and the caller's flags restored on exit. Where the caller set
+    cuDNN's conv and RNN precisions apart through torch's per-operator
+    ``fp32_precision`` flags, the legacy getter raises; those two flags are
+    what is restored then."""
+
+    def __enter__(self):
+        cudnn = torch.backends.cudnn
+        try:
+            self._saved = cudnn.allow_tf32
+        except RuntimeError:
+            self._saved = (cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision)
+        cudnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        cudnn = torch.backends.cudnn
+        if isinstance(self._saved, tuple):
+            cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision = self._saved
+        else:
+            cudnn.allow_tf32 = self._saved
+
+    def around(self, node) -> None:
+        """Pin the flags while the autograd ``node`` runs: the backward reads
+        them when it runs, not when the forward did."""
+        def pre(grad_outputs):
+            self.__enter__()
+
+        def post(grad_inputs, grad_outputs):
+            self.__exit__()
+
+        node.register_prehook(pre)
+        node.register_hook(post)
 
 
 def _hn_bias_only(grad: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,12 @@ through the backbone as one batch, the temporal head, then the classifier
 MLP feat → 512 → 256 → num_classes. ``fc1``/``fc2`` run in the compute dtype,
 ``fc_out`` in float32, as the flax model does.
 
+With ``use_sensor`` the IMU stream [B, T_sensor, 4] is fused in as the
+flax model does it: ``sensor_fc1`` → ReLU → ``sensor_fc2`` → ReLU in the
+compute dtype, a mean over time (accumulated in float32 and rounded to the
+compute dtype, as ``jnp.mean`` of a bf16 array is), then float32,
+concatenated after the temporal head's output.
+
 In training (``self.training``, flax's ``train``) the two classifier
 dropouts (flax ``drop1``, ``drop2``) and the backbone's drop-path draw their
 masks from the ``generator`` passed to ``forward``, never from the global
@@ -36,6 +42,8 @@ from vision_collision_detection_tpu_torch.models.temporal import (
 )
 from vision_collision_detection_tpu_torch.utils.device import resolve_device
 
+SENSOR_CHANNELS = 4  # accel x, y, z and the total, as media/sensors.py reads
+
 
 def canonicalize_video_layout(x: torch.Tensor) -> torch.Tensor:
     """Accept [B,T,H,W,C] (native) or [B,C,T,H,W] (reference torch layout):
@@ -54,15 +62,12 @@ class VideoClassifierModel(nn.Module):
                  hidden_dim: int = 512, temporal_hidden_dim: int = 256,
                  attention_heads: int = 4, max_seq_length: int = 30,
                  bidirectional: bool = True, dropout: float = 0.5,
-                 use_sensor: bool = False, frame_subsample: int = 2,
-                 subsample_threshold: int = 10,
+                 use_sensor: bool = False, sensor_hidden_dim: int = 64,
+                 frame_subsample: int = 2, subsample_threshold: int = 10,
                  gelu_approximate: bool = False, dtype=torch.bfloat16,
                  dwconv_kernel=None, fused_mlp=None):
         super().__init__()
-        if use_sensor:
-            raise NotImplementedError(
-                "sensor fusion is not ported yet; it comes with a later PR "
-                "(ROADMAP.md, queue 1, item 5)")
+        self.use_sensor = use_sensor
         self.frame_subsample = frame_subsample
         self.subsample_threshold = subsample_threshold
         self.dropout = dropout
@@ -77,6 +82,10 @@ class VideoClassifierModel(nn.Module):
             num_heads=attention_heads, max_seq_length=max_seq_length,
             bidirectional=bidirectional, dropout=dropout)
         head_out = temporal_out_dim(temporal_mode, D, temporal_hidden_dim)
+        if use_sensor:
+            self.sensor_fc1 = nn.Linear(SENSOR_CHANNELS, sensor_hidden_dim)
+            self.sensor_fc2 = nn.Linear(sensor_hidden_dim, sensor_hidden_dim)
+            head_out += sensor_hidden_dim
         self.fc1 = nn.Linear(head_out, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, hidden_dim // 2)
         self.fc_out = nn.Linear(hidden_dim // 2, num_classes)
@@ -95,9 +104,13 @@ class VideoClassifierModel(nn.Module):
         return torch.where(mask.bool(), h / keep, torch.zeros_like(h))
 
     def forward(self, frames: torch.Tensor,
+                sensor: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator``: the source of the dropout and drop-path masks in
-        training, on the frames' device."""
+        """``sensor``: the IMU stream [B, T_sensor, 4], required with
+        ``use_sensor`` and ignored without. ``generator``: the source of the
+        dropout and drop-path masks in training, on the frames' device."""
+        if self.use_sensor and sensor is None:
+            raise ValueError("use_sensor=True but no sensor input given")
         x = canonicalize_video_layout(frames)
         B, T = x.shape[0], x.shape[1]
         if T > self.subsample_threshold and self.frame_subsample > 1:
@@ -107,6 +120,10 @@ class VideoClassifierModel(nn.Module):
         feats = self.backbone(flat, generator)  # [B·T, D] float32
         pooled = self.temporal(feats.reshape(B, T, -1))  # [B, D_out] float32
         dt = self.dtype
+        if self.use_sensor:
+            s = F.relu(linear(sensor, self.sensor_fc1, dt))
+            s = F.relu(linear(s, self.sensor_fc2, dt))
+            pooled = torch.cat([pooled, s.mean(dim=1).to(torch.float32)], -1)
         h = F.relu(linear(pooled, self.fc1, dt))
         h = self._dropout(h, generator)
         h = F.relu(linear(h, self.fc2, dt))
@@ -142,6 +159,7 @@ def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
         attention_heads=cfg.attention_heads,
         max_seq_length=cfg.max_seq_length, bidirectional=cfg.bidirectional,
         dropout=cfg.dropout, use_sensor=cfg.use_sensor,
+        sensor_hidden_dim=cfg.sensor_hidden_dim,
         frame_subsample=cfg.frame_subsample,
         subsample_threshold=cfg.subsample_threshold,
         gelu_approximate=cfg.gelu_approximate,

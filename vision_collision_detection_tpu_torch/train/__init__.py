@@ -12,8 +12,18 @@ from vision_collision_detection_tpu_torch.train.steps import (
     make_train_step,
     weighted_loss,
 )
+from vision_collision_detection_tpu_torch.train.notebook import (
+    run_notebook_equivalent,
+)
+from vision_collision_detection_tpu_torch.train.trainer import (
+    SingleDeviceStrategy,
+    Trainer,
+)
 
 __all__ = [
+    "run_notebook_equivalent",
+    "SingleDeviceStrategy",
+    "Trainer",
     "build_optimizer",
     "clip_by_global_norm_",
     "cosine_annealing_schedule",

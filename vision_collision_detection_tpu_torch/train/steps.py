@@ -112,17 +112,23 @@ def _class_weights(class_weights, num_classes, device):
     return torch.as_tensor(class_weights, dtype=torch.float32, device=device)
 
 
+def _on(x, device):
+    """``x`` (an array or tensor) on ``device``; None stays None."""
+    return None if x is None else torch.as_tensor(x).to(device)
+
+
 def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
                     class_weights=None, preprocess: bool = True) -> Callable:
-    """→ step(state, frames, targets, sample_mask, generator) →
-    (state, {"loss", "accuracy", "grad_norm"}), the metrics 0-d tensors on
-    the model's device.
+    """→ step(state, frames, targets, sample_mask, generator, sensor=None)
+    → (state, {"loss", "accuracy", "grad_norm"}), the metrics 0-d tensors
+    on the model's device.
 
     ``frames``: uint8 [B, T, H, W, 3] when ``preprocess``, else model-ready
     frames. ``generator``: on the model's device; it draws the flips, the
     augmentation, then the dropout masks. The step updates the model's
     parameters and ``state`` in place; ``grad_norm`` is the gradients'
-    global norm before clipping."""
+    global norm before clipping. ``sensor`` [B, T_sensor, 4] reaches the
+    model where ``cfg.model.use_sensor`` is set and is ignored elsewhere."""
     device = next(model.parameters()).device
     aug_cfg = cfg.augment
     S = cfg.data.frame_size
@@ -131,9 +137,10 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     smoothing = cfg.optim.label_smoothing
     dtype = getattr(torch, cfg.model.dtype)
     params = [p for p in model.parameters() if p.requires_grad]
+    use_sensor = cfg.model.use_sensor
 
     def step(state: TrainState, frames, targets, sample_mask,
-             generator: torch.Generator):
+             generator: torch.Generator, sensor=None):
         model.train()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         targets = torch.as_tensor(targets).to(device, torch.int64)
@@ -142,8 +149,9 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
             x = train_preprocess(generator, frames, aug_cfg, S, dtype)
         else:
             x = frames
+        extra = {"sensor": _on(sensor, device)} if use_sensor else {}
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(x, generator=generator)
+        logits = model(x, generator=generator, **extra)
         loss, _ = weighted_loss(logits, targets, cw, sample_mask,
                                 loss_type=loss_type,
                                 label_smoothing=smoothing)
@@ -172,24 +180,27 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
 
 def make_eval_step(model: torch.nn.Module, cfg: ExperimentConfig,
                    class_weights=None, preprocess: bool = True) -> Callable:
-    """→ step(frames, targets, sample_mask) → {"loss", "per_sample_loss",
-    "probs", "preds"} on the model's device, in eval mode without
-    gradients."""
+    """→ step(frames, targets, sample_mask, sensor=None) → {"loss",
+    "per_sample_loss", "probs", "preds"} on the model's device, in eval mode
+    without gradients; ``sensor`` as in ``make_train_step``."""
     device = next(model.parameters()).device
     aug_cfg = cfg.augment
     S = cfg.data.frame_size
     cw = _class_weights(class_weights, cfg.model.num_classes, device)
     loss_type = cfg.optim.loss_type
     dtype = getattr(torch, cfg.model.dtype)
+    use_sensor = cfg.model.use_sensor
 
     @torch.inference_mode()
-    def step(frames, targets, sample_mask) -> Dict[str, torch.Tensor]:
+    def step(frames, targets, sample_mask,
+             sensor=None) -> Dict[str, torch.Tensor]:
         model.eval()
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         targets = torch.as_tensor(targets).to(device, torch.int64)
         sample_mask = torch.as_tensor(sample_mask).to(device, torch.float32)
         x = eval_preprocess(frames, aug_cfg, S, dtype) if preprocess else frames
-        logits = model(x)
+        extra = {"sensor": _on(sensor, device)} if use_sensor else {}
+        logits = model(x, **extra)
         loss, per_sample = weighted_loss(logits, targets, cw, sample_mask,
                                          loss_type=loss_type)
         return {"loss": loss, "per_sample_loss": per_sample,
