@@ -177,6 +177,37 @@ failure:
     caller's flags before and after, and the serving forward against the
     same forward under this script's TF32 switch (bit-equal).
 
+17. Serve a reference checkpoint: the reference's default architecture
+    (ConvNeXt-tiny, 2-layer bidirectional GRU of 512, the BatchNorm
+    classifier) in plain torch with the reference's module names, seeded
+    weights and random BatchNorm statistics, saved as a reference-format
+    ``.pth`` and loaded with ``CollisionPredictor.from_torch_checkpoint``
+    in float32 on the card; ``_make_forward(folded_stride=True)`` on seeded
+    uint8 clips [8, 25, 126, 224, 3] of distinct content: launches K1 1,
+    K2 18 on ``dwconv.cu``, K3 18 on ``convnext_mlp.cu``; against the same
+    forward on plain versions (2e-2), the reference module in float64
+    (5e-2: K3's bf16 rounding), the stock float32 blocks against float64
+    (1e-4) and bit-equal under torch's default cuDNN flags; faults (the
+    classifier BatchNorm's running variance set to 1, the GRU's r and z
+    gates swapped) must land outside; K2 and K3 on float32 at the stage
+    shapes against their plain versions and timed (cuDNN, the stock
+    float32 chain); the forward against stock blocks and the bf16 model
+    (its launches on the Hopper kernels).
+18. The seven BatchNorm backbones with the flagship head in bf16, served
+    (K1 once, nothing else launched), timed, peak memory; one training step
+    of resnet50 + the conv head on a uint8 batch [8, 50, 126, 224, 3]:
+    finite loss and gradients, two BatchNorms' updates holding the batch's
+    biased statistics read back from the captured inputs, where torch's
+    unbiased update must land outside; ms per step and peak memory; the
+    committed mobilenet_v3_small fixture loaded with its ``batch_stats``,
+    3 steps on a fixed batch with a falling loss.
+19. ConvNeXt-tiny (bf16) with the attention, conv, pooling, rnn and lstm
+    heads: each serving forward against plain versions (1e-1, where a
+    dropped K2 bias must land outside; launches K1 1, K2 18, K3 18 on the
+    Hopper kernels) and timed, each training step
+    against the plain step (TRAIN_TOL; K2 36, K2 wgrad 18, K3 train 18) and
+    timed.
+
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -359,10 +390,27 @@ def main() -> int:
     report["decode"] = decode_phase(torch, dev, flagship["pred"])
     report["trainer"] = trainer_phase(torch, dev, flagship)
     launches["trainer"] = report["trainer"]["launches"]
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    ref = reference_phase(torch, dev, flagship["frames"])
+    report["reference"] = ref
+    launches["reference"] = ref["launches"]
+    launches["reference_bf16"] = ref["launches_bf16"]
+    bn = bn_backbones_phase(torch, dev, flagship["frames"])
+    report["bn_backbones"] = bn
+    launches["bn_serve"] = bn["launches"]
+    launches["bn_train"] = bn["train"]["launches"]
+    heads = heads_phase(torch, dev, flagship["frames"])
+    report["heads"] = heads
+    launches["heads"] = heads["launches"]
+    report["phases_17_19_s"] = time.time() - t0
+    log(f"[phases 17-19] {report['phases_17_19_s']:.1f} s")
 
     kernels = kernel_line(
-        compare["rows"] + report["compare_train"]["rows"] + flash["rows"],
-        launches, report["timing"])
+        compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
+        + ref["compare_rows"], launches, report["timing"]
+        + ref["kernel_timing"])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -1158,6 +1206,33 @@ def compare_flash_kernels(torch, dev):
 
 # ---- 3. serving forward ------------------------------------------------
 
+def redraw_weights(torch, model, g):
+    """Every bias and norm redrawn from ``g``, as the CPU tests do, so that
+    a kernel that dropped one would show: biases N(0, 0.1²), LayerNorm and
+    BatchNorm scales 1 + N(0, 0.1²), BatchNorm running means N(0, 0.1²)
+    and variances in [0.5, 1.5]; ConvNeXt layer-scale γ of order 1 (the
+    init 1e-6 makes each block an identity); ``fc_out`` scaled by
+    LOGIT_SCALE so the probabilities are far from uniform."""
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+    from vision_collision_detection_tpu_torch.models.norm import BatchNorm
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias") and p.dim() == 1:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in model.modules():
+            if isinstance(m, (torch.nn.LayerNorm, BatchNorm)):
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.1)
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(
+                    torch.randn(m.num_features, generator=g) * 0.1)
+                m.running_var.copy_(
+                    torch.rand(m.num_features, generator=g) + 0.5)
+            if isinstance(m, convnext.ConvNeXtBlock):
+                m.gamma.copy_(torch.rand(m.dim, generator=g) + 0.5)
+        model.fc_out.weight.mul_(LOGIT_SCALE)
+
+
 def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
                     power=True):
     """The flagship's serving forward at ``size``² frames of ``content``
@@ -1175,21 +1250,7 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
         cfg = cfg.override({"data.frame_size": size})
     pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
     g = torch.Generator().manual_seed(2)
-    with torch.no_grad():
-        # Every bias and LayerNorm redrawn, as the CPU tests do, so that a
-        # kernel that dropped one would show: biases N(0, 0.1²), LayerNorm
-        # scales 1 + N(0, 0.1²).
-        for name, p in pred.model.named_parameters():
-            if name.endswith("bias") and p.dim() == 1:
-                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
-        for m in pred.model.modules():
-            if isinstance(m, torch.nn.LayerNorm):
-                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.1)
-            if isinstance(m, convnext.ConvNeXtBlock):
-                # γ of order 1: the init 1e-6 makes each block an identity
-                m.gamma.copy_(torch.rand(m.dim, generator=g) + 0.5)
-        # spread the logits so the probabilities are far from uniform
-        pred.model.fc_out.weight.mul_(LOGIT_SCALE)
+    redraw_weights(torch, pred.model, g)
     T = cfg.data.num_frames // pred._fold_stride()
     # noise of another level and contrast in each clip, so the clips differ
     frames = torch.stack([
@@ -1299,29 +1360,34 @@ def zero_counters():
 HOPPER_COUNTS = ("wgmma_launches", "hopper_launches")
 
 
-def expect_launches(tag, counters, **expected):
+def expect_launches(tag, counters, hopper=True, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
     and where a wrapper has two kernels (K2, K2 wgrad, K3, K3 train, K4
-    fwd), every launch on the main paths must have taken the Hopper one.
-    Returns the launches by kernels-line entry: K2's split into ``K2``
-    (``dwconv.cu``) and ``K2 (hopper)``, K2 wgrad's into ``K2 wgrad``
-    (``dwconv_wgrad.cu``) and ``K2 wgrad (hopper)``."""
+    fwd), every launch must have taken the Hopper one, or with ``hopper``
+    False (a float32 path) none of them. Returns the launches by
+    kernels-line entry: K2's split into ``K2`` (``dwconv.cu``) and ``K2
+    (hopper)``, K2 wgrad's into ``K2 wgrad`` (``dwconv_wgrad.cu``) and ``K2
+    wgrad (hopper)``, K3's into ``K3`` (``convnext_mlp_wgmma.cu``) and ``K3
+    (f32)`` (``convnext_mlp.cu``)."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
-    hopper = {k: getattr(fn, name) for k, fn in counters.items()
-              for name in HOPPER_COUNTS if hasattr(fn, name)}
+    on_hopper = {k: getattr(fn, name) for k, fn in counters.items()
+                 for name in HOPPER_COUNTS if hasattr(fn, name)}
     log(f"[{tag}] launches {launches}; of them on the Hopper kernels "
-        f"{hopper}")
+        f"{on_hopper}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
-    if any(v != launches[k] for k, v in hopper.items()):
-        raise SystemExit(f"{tag}: a launch took the kernel for the other "
-                         f"dtypes and widths: {hopper} of {launches}")
+    if any(v != (launches[k] if hopper else 0)
+           for k, v in on_hopper.items()):
+        raise SystemExit(f"{tag}: a launch took the wrong one of its "
+                         f"wrapper's two kernels: {on_hopper} of {launches}")
     by_entry = dict(launches)
-    for k in ("K2", "K2 wgrad"):
-        by_entry[f"{k} (hopper)"] = hopper[k]
-        by_entry[k] = launches[k] - hopper[k]
+    for k, other in (("K2", "K2"), ("K2 wgrad", "K2 wgrad"),
+                     ("K3", "K3 (f32)")):
+        hopper_entry = f"{k} (hopper)" if k != "K3" else "K3"
+        by_entry[hopper_entry] = on_hopper[k]
+        by_entry[other] = launches[k] - on_hopper[k]
     return by_entry
 
 
@@ -2308,7 +2374,8 @@ def time_kernels(torch, dev, inputs):
         plain_ms = median_ms(torch, lambda: dwconv7x7_plain(x, w, bias))
         # the Hopper kernel (the main path's) and dwconv.cu on the same
         # inputs, each its own entry of the kernels line
-        for kernel, ms in (("K2 (hopper)", t["hopper"]), ("K2", t["tile"])):
+        for kernel, ms in (("K2 (hopper)", t["hopper"]),
+                           ("K2 bf16", t["tile"])):
             rows.append({
                 "kernel": kernel, "shape": list(x.shape),
                 "per_forward": blocks, "ms": ms, "plain_ms": plain_ms,
@@ -2381,7 +2448,8 @@ def time_kernels(torch, dev, inputs):
         f"(bound {k1['vivit_bound_ms']:.4f} ms by bytes)")
     for name in ("K2", "K2 wgrad"):
         per = [r for r in rows if r["kernel"] == f"{name} (hopper)"]
-        tile = [r for r in rows if r["kernel"] == name]
+        tile = [r for r in rows if r["kernel"] == (
+            "K2 bf16" if name == "K2" else name)]
         log(f"[time] {name} per stage, ms per launch: Hopper kernel / "
             f"{'dwconv.cu' if name == 'K2' else 'dwconv_wgrad.cu'} / cuDNN "
             f"/ bound (operations)")
@@ -3388,6 +3456,745 @@ def gru_pin_phase(torch, dev, flagship):
             "serving_bit_equal": bit_equal, "first_difference": differs}
 
 
+# ---- 17. serving a reference checkpoint ------------------------------------
+
+# The float32 reference path's probabilities. Against plain versions:
+# phase 3's 2e-2, for the same reason (K3's bf16 roundings of t and h flip
+# by 1 ulp where the two sum in another order, and 18 blocks carry the
+# flips on: 5.4e-3 on an H100). Against the reference module in float64:
+# K3 rounds t and h to bf16 (its rule), through 18 blocks (1.7e-2 on this
+# batch on the CPU, where the kernels' plain versions run); the faults
+# must land outside that limit. The stock blocks, float32 throughout,
+# against float64: REF_F64_TOL.
+REF_TOL = 2e-2
+REF_K3_TOL = 5e-2
+REF_F64_TOL = 1e-4
+REF_LOGIT_STD = 1.5            # the clips' logits' spread, per class
+
+
+def reference_layout_model(torch):
+    """The reference's default architecture (``EnhancedFrameCNN``:
+    torchvision's ConvNeXt-tiny without its classifier, a 2-layer
+    bidirectional GRU of 512 with its LayerNorm and projection, the
+    BatchNorm classifier for 3 classes) in plain torch, with the
+    reference's module names, so its ``state_dict`` has the reference's
+    keys. Input: normalised frames [B, T, H, W, 3]."""
+    nn = torch.nn
+
+    class LayerNorm2d(nn.LayerNorm):
+        def forward(self, x):
+            x = x.permute(0, 2, 3, 1)
+            x = torch.nn.functional.layer_norm(
+                x, self.normalized_shape, self.weight, self.bias, self.eps)
+            return x.permute(0, 3, 1, 2)
+
+    class Permute(nn.Module):
+        def __init__(self, dims):
+            super().__init__()
+            self.dims = dims
+
+        def forward(self, x):
+            return x.permute(self.dims)
+
+    class CNBlock(nn.Module):
+        def __init__(self, dim):
+            super().__init__()
+            self.block = nn.Sequential(
+                nn.Conv2d(dim, dim, 7, padding=3, groups=dim),
+                Permute([0, 2, 3, 1]), nn.LayerNorm(dim, eps=1e-6),
+                nn.Linear(dim, 4 * dim), nn.GELU(), nn.Linear(4 * dim, dim),
+                Permute([0, 3, 1, 2]))
+            self.layer_scale = nn.Parameter(torch.ones(dim, 1, 1) * 1e-6)
+
+        def forward(self, x):
+            return x + self.layer_scale * self.block(x)
+
+    class ConvNeXtTiny(nn.Module):
+        def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768)):
+            super().__init__()
+            feats = [nn.Sequential(nn.Conv2d(3, dims[0], 4, stride=4),
+                                   LayerNorm2d(dims[0], eps=1e-6))]
+            for stage in range(4):
+                if stage > 0:
+                    feats.append(nn.Sequential(
+                        LayerNorm2d(dims[stage - 1], eps=1e-6),
+                        nn.Conv2d(dims[stage - 1], dims[stage], 2, stride=2)))
+                feats.append(nn.Sequential(
+                    *[CNBlock(dims[stage]) for _ in range(depths[stage])]))
+            self.features = nn.Sequential(*feats)
+
+        def forward(self, x):
+            return self.features(x).mean(dim=(2, 3))
+
+    class TemporalRNN(nn.Module):
+        def __init__(self, dim=768, hidden=512, layers=2):
+            super().__init__()
+            self.hidden = hidden
+            self.rnn = nn.GRU(dim, hidden, num_layers=layers,
+                              batch_first=True, bidirectional=True)
+            self.projection = nn.Linear(2 * hidden, dim)
+            self.norm = nn.LayerNorm(dim)
+
+        def forward(self, x):
+            _, h = self.rnn(self.norm(x))
+            last = h[-2:].transpose(0, 1).reshape(-1, 2 * self.hidden)
+            return self.projection(last)
+
+    class EnhancedFrameCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.backbone = ConvNeXtTiny()
+            self.temporal_aggregation = TemporalRNN()
+            self.classifier = nn.Sequential(
+                nn.Linear(768, 512), nn.BatchNorm1d(512), nn.ReLU(),
+                nn.Dropout(0.5), nn.Linear(512, 256), nn.BatchNorm1d(256),
+                nn.ReLU(), nn.Dropout(0.5), nn.Linear(256, 3))
+
+        def forward(self, x):
+            x = x.permute(0, 1, 4, 2, 3)  # [B, T, 3, H, W]
+            if x.shape[1] > 10:
+                x = x[:, ::2]
+            B, T = x.shape[:2]
+            feats = self.backbone(x.reshape(B * T, *x.shape[2:]))
+            return self.classifier(
+                self.temporal_aggregation(feats.reshape(B, T, -1)))
+
+    return EnhancedFrameCNN()
+
+
+def distinct_clips(torch, dev, B, T, content):
+    """Seeded uint8 clips [B, T, *content, 3] that differ in what they show:
+    each a smooth random image (a 4×7 grid of colours, bilinear) under
+    noise of ±32 that changes from frame to frame. Clips of noise alone,
+    phase 3's, reach the reference model's pooled features nearly alike:
+    its LayerNorms take out their levels."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(16)
+    coarse = torch.rand(B, 3, 4, 7, generator=g) * 255
+    smooth = F.interpolate(coarse, size=content, mode="bilinear",
+                           align_corners=False)
+    noise = torch.rand(B, T, 3, *content, generator=g) * 64 - 32
+    clips = (smooth[:, None] + noise).clamp(0, 255).to(torch.uint8)
+    return clips.permute(0, 1, 3, 4, 2).contiguous().to(dev)
+
+
+def spread_logits(torch, model, fc, x):
+    """Rescale the last layer ``fc`` of ``model`` so that its logits on
+    ``x`` spread across clips with a standard deviation of REF_LOGIT_STD
+    about a mean of 0 (logits a·(z − mean z)): seeded weights leave the
+    clips' logits close beside a shift they share, so the probabilities
+    sit near one class for every clip, and a comparison of them has little
+    power. → a."""
+    with torch.no_grad():
+        z = model(x).float()
+        a = REF_LOGIT_STD / float(z.std(dim=0).mean())
+        fc.bias.copy_(a * (fc.bias - z.mean(dim=0)))
+        fc.weight.mul_(a)
+    return a
+
+
+def seed_reference_weights(torch, ref, g):
+    """Weights of the laws the port's ``init_weights`` draws (flax's:
+    kernels N(0, 1/fan_in), here untruncated), biases N(0, 0.1²), norm
+    scales 1 + N(0, 0.1²), ConvNeXt layer scales U(0.5, 1.5) (order 1: no
+    block an identity), BatchNorm running means N(0, 0.5²) and variances
+    U(0.3, 3): torch's own initialisers leave the reference model's output
+    almost the same for every clip."""
+    nn = torch.nn
+
+    def draw(t, std, mean=0.0):
+        t.copy_(torch.randn(t.shape, generator=g) * std + mean)
+
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                draw(m.weight, m.weight[0].numel() ** -0.5)
+                draw(m.bias, 0.1)
+            elif isinstance(m, nn.GRU):
+                for name, p in m.named_parameters():
+                    draw(p, p.shape[1] ** -0.5 if name.startswith("weight")
+                         else 0.1)
+            elif isinstance(m, (nn.LayerNorm, nn.BatchNorm1d)):
+                draw(m.weight, 0.1, 1.0)
+                draw(m.bias, 0.1)
+                if isinstance(m, nn.BatchNorm1d):
+                    draw(m.running_mean, 0.5)
+                    m.running_var.copy_(
+                        torch.rand(m.num_features, generator=g) * 2.7 + 0.3)
+        for name, p in ref.named_parameters():
+            if name.endswith("layer_scale"):
+                p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+
+
+def reference_phase(torch, dev, frames):
+    """A reference-format checkpoint of the reference's default
+    architecture (``seed_reference_weights``, ``fc_out`` rescaled so the
+    clips' logits spread about 0),
+    written on the host and
+    served with ``from_torch_checkpoint`` in float32 on the card through
+    ``_make_forward(folded_stride=True)`` on seeded uint8 clips of the
+    shape of phase 3's batch (50-frame clips decoded at stride 2:
+    [8, 25, 126, 224, 3]; ``reference_clips``): launches K1
+    1, K2 18 on ``dwconv.cu``, K3 18 on ``convnext_mlp.cu``; against the
+    same forward on plain versions, and against the reference module in
+    float64 on K1's output; the stock blocks against float64 under torch's
+    default cuDNN flags and under the switch; two faults (the classifier
+    BatchNorm's running variance set to 1, the GRU's r and z gates
+    swapped); K2 and K3 on float32 at the stage shapes; times against
+    stock blocks and the bfloat16 model."""
+    import tempfile
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+    from vision_collision_detection_tpu_torch.ops import (
+        convnext_mlp, dequant_pad, dwconv, preprocess)
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        eval_preprocess)
+
+    frames = distinct_clips(torch, dev, frames.shape[0], frames.shape[1],
+                             tuple(frames.shape[2:4]))
+    ref = reference_layout_model(torch).eval()
+    seed_reference_weights(torch, ref, torch.Generator().manual_seed(17))
+    cfg = ExperimentConfig()
+    # K1's float32 output, each of the 25 frames twice: the reference
+    # module keeps every 2nd of 50
+    x = eval_preprocess(frames, cfg.augment, cfg.data.frame_size,
+                        torch.float32).repeat_interleave(2, dim=1)
+    ref.to(dev)
+    a = spread_logits(torch, ref, ref.classifier[8], x)
+    ref.cpu()
+    log(f"[reference] fc_out rescaled by {a:.3f}")
+    hp = {"base_model": "convnext_tiny", "temporal_mode": "gru",
+          "num_classes": 3}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def save(name, sd):
+            path = os.path.join(tmp, name)
+            torch.save({"model_state_dict": sd, "hyperparams": hp}, path)
+            return path
+
+        sd = ref.state_dict()
+        path = save("reference.pth", sd)
+        t0 = time.perf_counter()
+        pred = CollisionPredictor.from_torch_checkpoint(path)
+        out["load_s"] = time.perf_counter() - t0
+        forward = pred._make_forward(folded_stride=True)
+        counters = zero_counters()
+        probs = forward(frames)
+        torch.cuda.synchronize()
+        launches = expect_launches("reference", counters, hopper=False,
+                                   K1=1, K2=18, K3=18)
+        if tuple(probs.shape) != (frames.shape[0], 3) or not bool(
+                torch.isfinite(probs).all()):
+            raise SystemExit(f"reference: bad probabilities {probs}")
+        spread = float((probs.max(0).values - probs.min(0).values).max())
+        log(f"[reference] probs {probs.tolist()}; spread {spread:.4f}; "
+            f"loaded in {out['load_s']:.2f} s")
+        if spread < SPREAD_MIN:
+            raise SystemExit("reference: probabilities too alike")
+
+        with swapped((convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
+                     (convnext, "convnext_mlp",
+                      convnext_mlp.convnext_mlp_plain),
+                     (preprocess, "dequant_normalize_pad",
+                      dequant_pad.dequant_normalize_pad_plain)):
+            plain = pred._make_forward(True)(frames)
+        errs = {"kernels_vs_plain": max_err(torch, probs, plain)}
+
+        # the reference module in float64 on K1's output
+        ref64 = copy.deepcopy(ref).to(dev).double().eval()
+        with torch.no_grad():
+            probs64 = torch.softmax(ref64(x.double()), dim=-1).float()
+        del ref64, x
+        errs["kernels_vs_float64"] = max_err(torch, probs, probs64)
+        stock = CollisionPredictor.from_torch_checkpoint(
+            path, dwconv_kernel=False, fused_mlp=False)
+        stock_fwd = stock._make_forward(True)
+        stock_switch = stock_fwd(frames)
+        cudnn = torch.backends.cudnn
+        cudnn.allow_tf32 = True  # torch's default, for these two calls
+        try:
+            stock_default = stock_fwd(frames)
+            kernels_default = forward(frames)
+        finally:
+            cudnn.allow_tf32 = False
+        errs["stock_vs_float64"] = max_err(torch, stock_switch, probs64)
+        errs["stock_defaults_vs_float64"] = max_err(torch, stock_default,
+                                                    probs64)
+        bit_equal = {"stock": torch.equal(stock_default, stock_switch),
+                     "kernels": torch.equal(kernels_default, probs)}
+
+        # faults, each in a checkpoint of its own
+        H = 512
+        faulty = {}
+        bad_bn = dict(sd)
+        bad_bn["classifier.1.running_var"] = torch.ones_like(
+            sd["classifier.1.running_var"])
+        faulty["classifier_bn_var_1"] = bad_bn
+        swap_rz = dict(sd)
+        for k, v in sd.items():
+            if k.startswith("temporal_aggregation.rnn."):
+                v = v.clone()
+                v[:H], v[H:2 * H] = sd[k][H:2 * H], sd[k][:H]
+                swap_rz[k] = v
+        faulty["gru_r_z_swapped"] = swap_rz
+        seen = {}
+        for name, bad in faulty.items():
+            fp = CollisionPredictor.from_torch_checkpoint(save(name, bad))
+            seen[name] = max_err(torch, fp._make_forward(True)(frames),
+                                 probs64)
+            del fp
+
+        pred16 = CollisionPredictor.from_torch_checkpoint(path,
+                                                          dtype="bfloat16")
+        fwd16 = pred16._make_forward(True)
+        counters = zero_counters()
+        probs16 = fwd16(frames)
+        torch.cuda.synchronize()
+        launches16 = expect_launches("reference bf16", counters, K1=1,
+                                     K2=18, K3=18)
+        errs["bf16_vs_float64"] = max_err(torch, probs16, probs64)
+
+    log(f"[reference] max |Δprob|: {errs} (tol: against plain "
+        f"{REF_TOL:.0e}, the kernels against float64 {REF_K3_TOL:.0e}, the "
+        f"stock float32 forward against float64 {REF_F64_TOL:.0e}); under "
+        f"torch's default cuDNN flags bit-equal to the switch: {bit_equal}")
+    for name, v in seen.items():
+        log(f"[reference] with fault {name}: max |Δprob| from float64 "
+            f"{v:.3e} (must exceed {REF_K3_TOL:.0e})")
+    if not (errs["kernels_vs_plain"] <= REF_TOL
+            and errs["kernels_vs_float64"] <= REF_K3_TOL):
+        raise SystemExit(f"reference: the forward disagrees: {errs}")
+    if not (errs["stock_vs_float64"] <= REF_F64_TOL
+            and errs["stock_defaults_vs_float64"] <= REF_F64_TOL
+            and all(bit_equal.values())):
+        raise SystemExit(f"reference: float32 is not float32 math under "
+                         f"the default flags: {errs}, {bit_equal}")
+    if not all(v > REF_K3_TOL for v in seen.values()):
+        raise SystemExit(f"reference: a fault lands inside: {seen}")
+    if not bool(torch.isfinite(probs16).all()):
+        raise SystemExit("reference: non-finite bf16 probabilities")
+
+    compare_rows, timing = f32_kernels(torch, dev)
+    out["timing"] = in_turns(
+        torch, "reference forward",
+        {"kernels": lambda: forward(frames), "stock": lambda: stock_fwd(frames),
+         "bf16": lambda: fwd16(frames)},
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10, queued=False),
+        frames.shape[0])
+    out.update({"launches": launches, "launches_bf16": launches16,
+                "errors": errs, "tol": REF_TOL, "k3_f64_tol": REF_K3_TOL,
+                "f64_tol": REF_F64_TOL,
+                "defaults_bit_equal": bit_equal, "faults": seen,
+                "spread": spread, "compare_rows": compare_rows,
+                "kernel_timing": timing})
+    return out
+
+
+def f32_kernels(torch, dev):
+    """K2 (``dwconv.cu``) and K3 (``convnext_mlp.cu``) on float32
+    activations at the four stage shapes of the reference ConvNeXt's
+    serving forward: each against its plain version (K2 to one float32
+    rounding of its 49-tap sum, K3 by its rule: 2 bf16 ulps at the largest
+    output and a mean under 2^-12 of the mean |output|), then timed beside
+    its plain version, cuDNN's depthwise conv (K2) and the stock float32
+    LN→Linear→GELU→Linear chain (K3)."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
+        convnext_mlp, convnext_mlp_plain)
+    from vision_collision_detection_tpu_torch.ops.dwconv import (
+        dwconv7x7, dwconv7x7_plain)
+
+    g = torch.Generator().manual_seed(19)
+    rows, failed = [], []
+    record = recorder(rows, failed)
+    timing = []
+    for H, C, blocks in STAGES:
+        shape = (N_FRAMES, H, H, C)
+        x = torch.randn(shape, generator=g).to(dev)
+        w = (torch.randn(49, C, generator=g) / 7).to(dev)
+        b = (torch.randn(C, generator=g) * 0.1).to(dev)
+        got, ref = dwconv7x7(x, w, b), dwconv7x7_plain(x, w, b)
+        torch.cuda.synchronize()
+        record("K2 float32", list(shape), max_err(torch, got, ref),
+               float(ref.abs().max()) * 2 ** -16, entry="K2")
+        n = x.numel()
+        kb, kby = bound_ms(2 * n * 4 + 50 * C * 4, 98 * n, F32_FLOPS)
+        w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
+        x_cl = x.permute(0, 3, 1, 2)
+        timing.append({
+            "kernel": "K2", "shape": list(shape), "per_forward": blocks,
+            "ms": median_ms(torch, lambda: dwconv7x7(x, w, b)),
+            "plain_ms": median_ms(torch, lambda: dwconv7x7_plain(x, w, b)),
+            "library_ms": median_ms(torch, lambda: F.conv2d(
+                x_cl, w_cudnn, b, padding=3, groups=C)),
+            "bound_ms": kb, "bound_by": kby})
+        xs = torch.randn(shape, generator=g).to(dev)
+        p = k3_params(torch, C, g, dev)
+        got = convnext_mlp(xs, x, approximate=False, **p)
+        ref = convnext_mlp_plain(xs, x, approximate=False, **p)
+        torch.cuda.synchronize()
+        record("K3 float32", list(shape), max_err(torch, got, ref),
+               float(ref.abs().max()) * 2 ** -6, mean_err(torch, got, ref),
+               float(ref.abs().mean()) * 2 ** -12, entry="K3 (f32)")
+        M = n // C
+        # x, y read and out written in float32, W1 and W2 in bf16 once; the
+        # products take bf16 operands (K3's rule), at the bf16 peak
+        kb, kby = bound_ms(3 * n * 4 + 8 * C * C * 2, 16 * M * C * C,
+                           BF16_FLOPS)
+        w1t, w2t = p["w1"].t().contiguous(), p["w2"].t().contiguous()
+
+        def stock():
+            t = F.layer_norm(x, (C,), p["ln_w"], p["ln_b"], 1e-6)
+            h = F.gelu(F.linear(t, w1t, p["b1"]))
+            return xs + F.linear(h, w2t, p["b2"]) * p["gamma"]
+
+        timing.append({
+            "kernel": "K3 (f32)", "shape": list(shape),
+            "per_forward": blocks,
+            "ms": median_ms(torch, lambda: convnext_mlp(
+                xs, x, approximate=False, **p)),
+            "plain_ms": median_ms(torch, lambda: convnext_mlp_plain(
+                xs, x, approximate=False, **p)),
+            "library_ms": None, "stock_chain_ms": median_ms(torch, stock),
+            "bound_ms": kb, "bound_by": kby})
+        del x, xs, got, ref, x_cl
+    for r in timing:
+        log(f"[time f32] {r['kernel']} {r['shape']} x{r['per_forward']}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
+            f"{r['library_ms']}; stock chain {r.get('stock_chain_ms')})")
+    if failed:
+        raise SystemExit(f"float32 kernels disagree: {failed}")
+    return rows, timing
+
+
+# ---- 18. the BatchNorm backbones -------------------------------------------
+
+BN_BACKBONES = ("resnet18", "resnet50", "mobilenet_v2", "mobilenet_v3_small",
+                "efficientnet_v2_s", "efficientnet_v2_m", "efficientnet_v2_l")
+BN_STATS_TOL = 1e-5   # the batch's statistics read back from the update
+FIXTURE = os.path.join("tests", "fixtures", "pretrained",
+                       "mobilenet_v3_small_seeded_fp16.npz")
+
+
+def bn_backbones_phase(torch, dev, frames):
+    """Each BatchNorm backbone with the flagship head in bf16, served on
+    phase 3's batch through ``_make_forward(True)`` (K1 once, no other
+    kernel): probabilities, ms per batch (median of 10), peak memory. One
+    training step of resnet50 + the conv head on a uint8 batch
+    [8, 50, 126, 224, 3]: finite loss and gradients, and two BatchNorms'
+    running statistics after the step against flax's update recomputed
+    from their captured inputs, where torch's unbiased update must land
+    outside; ms per step and peak memory. The committed mobilenet_v3_small
+    fixture loaded with its ``batch_stats`` and fine-tuned 3 steps."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+
+    out = {"serve": {}}
+    launches = {}
+    for i, name in enumerate(BN_BACKBONES):
+        cfg = ExperimentConfig().override({"model.backbone": name})
+        pred = CollisionPredictor(cfg, None)
+        redraw_weights(torch, pred.model, torch.Generator().manual_seed(30 + i))
+        fwd = pred._make_forward(True)
+        counters = zero_counters()
+        probs = fwd(frames)
+        torch.cuda.synchronize()
+        by_entry = expect_launches(f"serve {name}", counters, K1=1)
+        launches = {k: launches.get(k, 0) + v for k, v in by_entry.items()}
+        row_err = float((probs.sum(-1) - 1).abs().max())
+        if not bool(torch.isfinite(probs).all()) or row_err > 1e-5:
+            raise SystemExit(f"{name}: bad probabilities {probs}")
+        ms = median_ms(torch, lambda: fwd(frames), warmup=2, iters=10,
+                       queued=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd(frames)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["serve"][name] = {"ms": ms, "clips_per_s": 8 / ms * 1e3,
+                              "peak_mem_bytes": peak,
+                              "probs": probs.tolist()}
+        log(f"[bn serve] {name}: {ms:.3f} ms per batch of 8, "
+            f"{8 / ms * 1e3:.2f} clips/s, peak {peak / 1e9:.2f} GB; probs "
+            f"{[round(v, 4) for v in probs[0].tolist()]}...")
+        del pred, fwd
+        torch.cuda.empty_cache()
+    out["train"] = bn_training_step(torch, dev)
+    out["fixture"] = bn_fixture(torch, dev)
+    out["launches"] = launches
+    return out
+
+
+def bn_training_step(torch, dev):
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    cfg = ExperimentConfig().override({"model.backbone": "resnet50",
+                                       "model.temporal_mode": "conv"})
+    B, T = cfg.data.batch_size, cfg.data.num_frames
+    model, state = create_train_state(cfg, torch.Generator().manual_seed(31),
+                                      steps_per_epoch=STEPS_PER_EPOCH)
+    step = make_train_step(model, cfg)
+    g = torch.Generator().manual_seed(32)
+    frames = torch.randint(0, 256, (B, T, *CONTENT, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    targets = (torch.arange(B) % 3).to(dev)
+    mask = torch.ones(B, device=dev)
+    layers = {"temporal.bn1": model.temporal.bn1,
+              "backbone.layer4_2.bn3": model.backbone.layer4_2.bn3}
+    seen, before = {}, {}
+    hooks = []
+    def capture(name):
+        def hook(module, args):  # returns None: the input stays as it is
+            seen[name] = args[0].detach().float().clone()
+        return hook
+
+    for name, bn in layers.items():
+        before[name] = (bn.running_mean.clone(), bn.running_var.clone())
+        hooks.append(bn.register_forward_pre_hook(capture(name)))
+    counters = zero_counters()
+    _, metrics = step(state, frames, targets, mask,
+                      torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    launches = expect_launches("bn train", counters)
+    loss = float(metrics["loss"])
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
+    # the conv head's biases feed a BatchNorm: their true gradient is 0
+    zero = [n for n, v in grads.items() if float(v.abs().max()) == 0.0
+            and not n.startswith("temporal.conv")]
+    if not math.isfinite(loss) or bad or zero:
+        raise SystemExit(f"bn train: loss {loss}, non-finite {bad}, "
+                         f"zero {zero}")
+    stats = {}
+    for name, bn in layers.items():
+        x = seen[name].double()
+        n = x.numel() // x.shape[-1]
+        dims = tuple(range(x.dim() - 1))
+        mean, var = x.mean(dims), x.var(dims, unbiased=False)
+        m = bn.momentum
+        rm0, rv0 = (t.double() for t in before[name])
+        # the batch's statistics the update took in, read back from it
+        took_mean = (bn.running_mean.double() - m * rm0) / (1 - m)
+        took_var = (bn.running_var.double() - m * rv0) / (1 - m)
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        stats[name] = {"samples": n,
+                       "mean_rel_err": rel(took_mean, mean),
+                       "var_rel_err": rel(took_var, var),
+                       "unbiased_var_rel_err": rel(took_var,
+                                                   var * n / (n - 1))}
+    log(f"[bn train] resnet50 + conv: loss {loss:.5f}; the update's batch "
+        f"statistics against the captured inputs' (tol {BN_STATS_TOL:.0e}; "
+        f"torch's unbiased variance must land outside): {stats}")
+    if not all(s["mean_rel_err"] <= BN_STATS_TOL
+               and s["var_rel_err"] <= BN_STATS_TOL for s in stats.values()):
+        raise SystemExit("bn train: the running statistics are not flax's")
+    if not stats["temporal.bn1"]["unbiased_var_rel_err"] > BN_STATS_TOL:
+        raise SystemExit("bn train: the unbiased update lands inside")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ms = median_step_ms(torch, lambda: step(state, frames, targets, mask, gen),
+                        warmup=2, iters=TRAIN_TIME_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, frames, targets, mask, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[bn train] {ms:.2f} ms per step of 8 clips, peak {peak / 1e9:.2f} GB")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "loss": loss, "stats": stats,
+            "tol": BN_STATS_TOL, "ms": ms, "peak_mem_bytes": peak}
+
+
+def bn_fixture(torch, dev):
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    path = os.path.join(ROOT, FIXTURE)
+    cfg = ExperimentConfig().override({
+        "model.backbone": "mobilenet_v3_small",
+        "model.temporal_mode": "pooling", "model.pretrained_path": path,
+        "model.dropout": 0.0, "optim.learning_rate": 1e-3,
+        "augment.enabled": False, "augment.horizontal_flip_prob": 0.0})
+    model, state = create_train_state(cfg, torch.Generator().manual_seed(33),
+                                      steps_per_epoch=STEPS_PER_EPOCH)
+    with np.load(path) as z:
+        want = torch.from_numpy(z["batch_stats/stem_bn/var"].astype(
+            np.float32))
+    if not torch.equal(model.backbone.stem_bn.running_var.cpu(), want):
+        raise SystemExit("fixture: batch_stats did not load")
+    step = make_train_step(model, cfg)
+    g = torch.Generator().manual_seed(34)
+    frames = torch.randint(0, 256, (8, 50, *CONTENT, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    targets = (torch.arange(8) % 3).to(dev)
+    mask = torch.ones(8, device=dev)
+    losses = [float(step(state, frames, targets, mask, torch.Generator(
+        device=dev).manual_seed(TRAIN_SEED))[1]["loss"]) for _ in range(3)]
+    log(f"[bn fixture] mobilenet_v3_small from {FIXTURE}: losses {losses}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise SystemExit(f"fixture: the loss did not fall: {losses}")
+    return {"losses": losses}
+
+
+# ---- 19. the other heads on the flagship ------------------------------------
+
+HEAD_MODES = ("attention", "conv", "pooling", "rnn", "lstm")
+# The heads' serving forward against plain versions: the blocks' bf16
+# flips, which reach phase 3's GRU head as up to 9.1e-3, reach the other
+# heads, their logits spread by ``spread_logits``, as 1.4e-2 (pooling) to
+# 4.3e-2 (rnn) on an H100; a dropped K2 bias lands at 0.25 to 0.73 and must
+# land outside.
+HEADS_TOL = 1e-1
+
+
+def heads_phase(torch, dev, frames):
+    """ConvNeXt-tiny (bf16, B=8) with each other temporal head: the serving
+    forward on seeded clips of the shape of phase 3's batch
+    (``distinct_clips``) with ``fc_out`` rescaled so the clips' logits
+    spread (``spread_logits``), against the same forward on plain versions
+    (HEADS_TOL, where a dropped K2 bias must land outside; launches K1 1,
+    K2 18, K3 18 on the Hopper kernels;
+    ms per batch, median of 10), and one training step on a uint8 batch
+    [8, 50, 126, 224, 3] against the plain step (TRAIN_TOL on the loss and
+    on each gradient relative to its norm, gradients under GRAD_FLOOR of the
+    global norm held to that floor: the conv head's biases feed a
+    BatchNorm and the attention head's key bias shifts every logit alike,
+    so their true gradients are 0; launches K2 36, K2 wgrad 18, K3 train
+    18)."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+    from vision_collision_detection_tpu_torch.ops import (
+        dequant_pad, dwconv, preprocess)
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        eval_preprocess)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    out = {}
+    launches = {}
+
+    def add(by_entry):
+        for k, v in by_entry.items():
+            launches[k] = launches.get(k, 0) + v
+
+    frames = distinct_clips(torch, dev, frames.shape[0], frames.shape[1],
+                            tuple(frames.shape[2:4]))
+    g = torch.Generator().manual_seed(40)
+    train_frames = torch.randint(0, 256, (8, 50, *CONTENT, 3), generator=g,
+                                 dtype=torch.uint8).to(dev)
+    targets = (torch.arange(8) % 3).to(dev)
+    mask = torch.ones(8, device=dev)
+    plain_train = ((k2, "_launch_fwd", k2.dwconv7x7_plain),
+                   (k2, "_launch_wgrad", k2.dwconv7x7_wgrad_plain),
+                   (k3, "_launch_train", k3.convnext_mlp_train_plain))
+    for i, mode in enumerate(HEAD_MODES):
+        cfg = ExperimentConfig().override({"model.temporal_mode": mode})
+        pred = CollisionPredictor(cfg, None)
+        redraw_weights(torch, pred.model, torch.Generator().manual_seed(41 + i))
+        x = eval_preprocess(frames, cfg.augment, cfg.data.frame_size,
+                            torch.bfloat16)
+        pred.model.frame_subsample = 1  # x is folded already
+        a = spread_logits(torch, pred.model, pred.model.fc_out, x)
+        pred.model.frame_subsample = cfg.model.frame_subsample
+        del x
+        fwd = pred._make_forward(True)
+        counters = zero_counters()
+        probs = fwd(frames)
+        torch.cuda.synchronize()
+        add(expect_launches(f"head {mode}", counters, K1=1, K2=18, K3=18))
+        def plain_forward(dw=dwconv.dwconv7x7_plain):
+            with swapped((convnext, "dwconv7x7", dw),
+                         (convnext, "convnext_mlp", k3.convnext_mlp_plain),
+                         (preprocess, "dequant_normalize_pad",
+                          dequant_pad.dequant_normalize_pad_plain)):
+                return pred._make_forward(True)(frames)
+
+        serve_err = max_err(torch, probs, plain_forward())
+        # the check's power: K2's bias dropped in the plain version
+        fault_err = max_err(torch, probs, plain_forward(
+            lambda x, w, b: dwconv.dwconv7x7_plain(x, w, b * 0)))
+        spread = float((probs.max(0).values - probs.min(0).values).max())
+        ms = median_ms(torch, lambda: fwd(frames), warmup=2, iters=10,
+                       queued=False)
+        del pred, fwd
+
+        model, state = create_train_state(
+            cfg, torch.Generator().manual_seed(50 + i), STEPS_PER_EPOCH)
+        step = make_train_step(model, cfg)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_init = copy.deepcopy(state.optimizer.state_dict())
+
+        def run():
+            model.load_state_dict(init)
+            state.optimizer.load_state_dict(opt_init)
+            state.step = 0
+            _, m = step(state, train_frames, targets, mask, torch.Generator(
+                device=dev).manual_seed(TRAIN_SEED))
+            torch.cuda.synchronize()
+            return float(m["loss"]), {n: p.grad.detach().float().clone()
+                                      for n, p in model.named_parameters()}
+
+        counters = zero_counters()
+        loss, grads = run()
+        add(expect_launches(f"head {mode} train", counters, K2=36,
+                            K2_wgrad=18, K3_train=18))
+        with swapped(*plain_train):
+            plain_loss, plain_grads = run()
+        loss_err = abs(loss - plain_loss) / abs(plain_loss)
+        errs = rel_grad_errs(torch, grads, plain_grads, floor=GRAD_FLOOR)
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        step_ms = median_step_ms(torch, lambda: step(
+            state, train_frames, targets, mask, gen), warmup=1, iters=3)
+        out[mode] = {"fc_out_scale": a, "serve_err": serve_err,
+                     "serve_tol": HEADS_TOL, "fault_dwconv_bias_dropped":
+                     fault_err,
+                     "spread": spread, "serve_ms": ms,
+                     "loss": loss, "loss_rel_err": loss_err,
+                     "worst_grad_rel_err": worst, "step_ms": step_ms}
+        log(f"[head {mode}] serving kernels vs plain max |Δprob| "
+            f"{serve_err:.3e} (tol {HEADS_TOL:.0e}; K2's bias dropped "
+            f"{fault_err:.3e}; spread {spread:.3f}, fc_out rescaled by "
+            f"{a:.3f}), {ms:.3f} ms "
+            f"per batch; step loss {loss:.5f} vs plain {plain_loss:.5f} "
+            f"(rel {loss_err:.2e}), worst gradient {worst[0]} "
+            f"{worst[1]:.2e} (tol {TRAIN_TOL:.0e}), {step_ms:.2f} ms per "
+            f"step (host clock, median of 3)")
+        if serve_err > HEADS_TOL or spread < SPREAD_MIN:
+            raise SystemExit(f"head {mode}: serving forward disagrees")
+        if not fault_err > HEADS_TOL:
+            raise SystemExit(f"head {mode}: the tolerance does not see a "
+                             f"dropped bias ({fault_err})")
+        if bad or loss_err > TRAIN_TOL or worst[1] > TRAIN_TOL:
+            raise SystemExit(f"head {mode}: training step disagrees {bad}")
+        del model, state, init, opt_init
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def first_difference(torch, pred, frames):
     """The first module (in call order) of the serving forward whose output
     differs between torch's default cuDNN flags and TF32 off."""
@@ -3419,12 +4226,17 @@ def first_difference(torch, pred, frames):
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
-    the scaled ViViT, predict's batch loop, the sliding forward and the
-    Trainer's run, each counted from 0), with the split in
+    the scaled ViViT, predict's batch loop, the sliding forward, the
+    Trainer's run, the reference checkpoint's forwards in float32 and
+    bf16, the BatchNorm backbones' forwards and step, the other heads'
+    forwards and steps, each counted from 0), with the split in
     ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass
-    through the spatial blocks). Both K4 backward kernels carry the
+    through the spatial blocks). ``K2`` (``dwconv.cu``) and ``K3 (f32)``
+    (``convnext_mlp.cu``) are timed on float32 activations, their main
+    path's; ``dwconv.cu`` also on the Hopper kernel's bf16 inputs
+    (``bf16_inputs_ms``). Both K4 backward kernels carry the
     library's whole backward as library_ms: it is one call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
     two Pallas kernels (the line ``replaces`` names), not a kernel."""
@@ -3445,6 +4257,8 @@ def kernel_line(compare_rows, launches, timing):
                               tpu + "dwconv_pallas.py:114"),
         "K3": ("convnext_mlp", csrc + "convnext_mlp_wgmma.cu",
                tpu + "convnext_mlp_pallas.py:160"),
+        "K3 (f32)": ("convnext_mlp_f32", csrc + "convnext_mlp.cu",
+                     tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
         "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention_fwd_wgmma.cu",
@@ -3483,6 +4297,15 @@ def kernel_line(compare_rows, launches, timing):
         # timed on the same inputs
         if total("mma_sync_ms") is not None:
             entry["mma_sync_ms"] = total("mma_sync_ms")
+        # K3 on float32: the stock float32 chain on the same inputs
+        if total("stock_chain_ms") is not None and k == "K3 (f32)":
+            entry["stock_chain_ms"] = total("stock_chain_ms")
+        # dwconv.cu, timed on float32 (its main path's), also on the bf16
+        # inputs of its Hopper sibling
+        bf16 = [r for r in timing if r["kernel"] == f"{k} bf16"]
+        if bf16:
+            entry["bf16_inputs_ms"] = sum(r["ms"] * r["per_forward"]
+                                          for r in bf16)
         out.append(entry)
     for r in out:
         if not all(math.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):

@@ -34,9 +34,45 @@ def test_no_forbidden_import_in_port_sources():
             PORT / "ops" / "flash_attention.py",
             PORT / "media" / "decoder.py", PORT / "data" / "loader.py",
             PORT / "ckpt" / "checkpoint.py"} <= set(files)
+    assert {PORT / "models" / name for name in NEW_MODELS} <= set(files)
     bad = [f"{p.relative_to(ROOT)}:{line} imports {name}"
            for p in files for line, name in _imported_roots(p)
            if name in FORBIDDEN]
+    assert not bad, bad
+
+
+# the BatchNorm backbones, the other heads and the reference import
+NEW_MODELS = ("norm.py", "backbones/resnet.py", "backbones/mobilenet.py",
+              "backbones/efficientnet.py", "reference_heads.py",
+              "reference_model.py", "import_torch.py")
+
+
+def test_manifests_are_the_ports_own_copy():
+    """The torchvision manifests the importer checks against are the
+    port's copy, with the JAX package's keys and shapes; no port file
+    names the JAX package's manifest directory."""
+    import json
+
+    from vision_collision_detection_tpu_torch.models import import_torch
+
+    own = Path(import_torch.MANIFEST_DIR)
+    assert own == PORT / "models" / "manifests"
+    jax_dir = ROOT / "vision_collision_detection_tpu" / "models" / "manifests"
+    names = sorted(p.name for p in jax_dir.glob("*.json"))
+    assert len(names) == 10 and sorted(
+        p.name for p in own.glob("*.json")) == names
+    for name in names:
+        ours, theirs = (json.loads((d / name).read_text())["keys"]
+                        for d in (own, jax_dir))
+        assert ours == theirs, name
+    pattern = re.compile(r"vision_collision_detection_tpu[/.]models[/.]"
+                         r"manifests|vision_collision_detection_tpu\.models"
+                         r"\.convert")
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".json")] + [
+        ROOT / "chip_smoke.py"]
+    bad = [f"{p.relative_to(ROOT)}:{i}" for p in files
+           for i, line in enumerate(p.read_text().splitlines(), 1)
+           if pattern.search(line)]
     assert not bad, bad
 
 
@@ -89,7 +125,9 @@ def test_chip_smoke_modules_import_without_pandas_or_matplotlib():
     modules = _chip_smoke_modules()
     assert {"vision_collision_detection_tpu_torch.ckpt.checkpoint",
             "vision_collision_detection_tpu_torch.data.loader",
-            "vision_collision_detection_tpu_torch.train.trainer"} <= set(
+            "vision_collision_detection_tpu_torch.train.trainer",
+            "vision_collision_detection_tpu_torch.infer.predictor",
+            "vision_collision_detection_tpu_torch.models.norm"} <= set(
         modules)
     modules = sorted(set(modules) | set(TRAINING_MODULES))
     code = (

@@ -45,9 +45,12 @@ def test_gru_head_matches_flax_fp32(bidirectional):
 
 
 def test_other_modes_wait_for_later_pr():
+    """The other heads are ported now: every mode builds, each with its
+    output width (``tests/test_torch_heads.py`` holds them against flax)."""
     for mode in ("attention", "conv", "pooling", "rnn", "lstm"):
-        with pytest.raises(NotImplementedError, match="later PR"):
-            temporal.build_temporal_head(mode, 8)
+        head = temporal.build_temporal_head(mode, 8, hidden=6, num_heads=2)
+        out = head(torch.randn(2, 5, 8))
+        assert out.shape == (2, temporal.temporal_out_dim(mode, 8, 6)), mode
     with pytest.raises(ValueError):
         temporal.build_temporal_head("nope", 8)
     assert temporal.temporal_out_dim("gru", 768, 256) == 256

@@ -5,7 +5,9 @@ Counterpart of ``vision_collision_detection_tpu/infer/predictor.py``
 
 - ``from_checkpoint`` rebuilds the architecture from the checkpoint's
   ``hyperparams`` contract (a run directory resolves best → last → newest
-  epoch);
+  epoch); ``from_torch_checkpoint`` serves a reference training checkpoint
+  (``.pth``, or the JAX package's ``.npz`` pair) with the reference's
+  architecture (``models/reference_model.py``);
 - ``predict`` takes a path, a list of paths or a directory: probe and
   content box → ``ClipDataset`` (C++ decode of the letterbox content rows)
   → ``ClipLoader`` → ``device_feed`` → the serving forward → result dicts;
@@ -23,6 +25,7 @@ temporal blocks → head → softmax.
 from __future__ import annotations
 
 import copy
+import json
 import os
 from typing import Dict, List, Mapping, Optional, Sequence, Union
 
@@ -88,18 +91,25 @@ def sliding_windows(num_frames: int, fps: float, duration: float, T: int,
 class CollisionPredictor:
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Optional[Mapping[str, torch.Tensor]],
-                 device=None, dwconv_kernel=None, fused_mlp=None):
+                 device=None, dwconv_kernel=None, fused_mlp=None,
+                 model_override: Optional[torch.nn.Module] = None):
         """``state_dict``: the model's weights (``models.convert`` bridges a
         flax tree into one), or None to keep the seeded initial weights.
         ``device`` defaults to the card. ``dwconv_kernel``/``fused_mlp``
-        override the ConvNeXt blocks' switches (None: the module default)."""
+        override the ConvNeXt blocks' switches (None: the module default).
+        ``model_override``: a ready model to serve instead of
+        ``build_model(cfg.model)`` (``from_torch_checkpoint`` passes the
+        reference's architecture), moved to ``device`` in eval mode."""
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg.model, device=self.device,
-                                 dwconv_kernel=dwconv_kernel,
-                                 fused_mlp=fused_mlp,
-                                 frame_size=cfg.data.frame_size)
+        if model_override is not None:
+            self.model = model_override.to(self.device).eval()
+        else:
+            self.model = build_model(cfg.model, device=self.device,
+                                     dwconv_kernel=dwconv_kernel,
+                                     fused_mlp=fused_mlp,
+                                     frame_size=cfg.data.frame_size)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.class_names = tuple(cfg.data.class_names)
@@ -208,6 +218,60 @@ class CollisionPredictor:
             raise ValueError(f"{ckpt_dir} has no hyperparams contract")
         cfg = ExperimentConfig.from_dict(meta["hyperparams"])
         return cls(cfg, arrays["model"], device=device)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, dtype: str = "float32",
+                              class_names=None, device=None,
+                              dwconv_kernel=None, fused_mlp=None
+                              ) -> "CollisionPredictor":
+        """Serve a reference training checkpoint as the reference's own
+        inference does: rebuild the architecture from its ``hyperparams``
+        contract (``models.reference_model``) and load its
+        ``model_state_dict``. ``path`` is a torch ``.pth`` (read with
+        ``weights_only=False``: the reference's checkpoints hold more than
+        tensors, so load only files you trust) or the ``.npz`` +
+        ``.npz.hyperparams.json`` pair that the JAX package's
+        ``cli.convert_weights --full`` writes. ``dtype`` is the model's
+        compute dtype, ``device`` defaults to the card, and
+        ``dwconv_kernel``/``fused_mlp`` are the ConvNeXt blocks' switches."""
+        from vision_collision_detection_tpu_torch.models.convert import (
+            load_flax_params,
+            load_npz,
+        )
+        from vision_collision_detection_tpu_torch.models.import_torch import (
+            convert_reference_checkpoint,
+        )
+        from vision_collision_detection_tpu_torch.models.reference_model import (
+            build_reference_model,
+        )
+
+        if str(path).endswith(".npz"):
+            variables = load_npz(path)
+            with open(str(path) + ".hyperparams.json") as f:
+                hp = json.load(f)
+        else:
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
+            hp, variables = convert_reference_checkpoint(ckpt)
+        model = build_reference_model(hp, dtype=dtype, device="cpu",
+                                      dwconv_kernel=dwconv_kernel,
+                                      fused_mlp=fused_mlp)
+        load_flax_params(model, variables)
+        overrides = {
+            "model.backbone": model.backbone_name,
+            "model.num_classes": model.num_classes,
+            "data.num_classes": model.num_classes,
+            "model.dtype": dtype,
+            # the config's name for the reference's 'convolution'
+            "model.temporal_mode": ("conv" if model.temporal_mode ==
+                                    "convolution" else model.temporal_mode),
+        }
+        if class_names:
+            overrides["data.class_names"] = tuple(class_names)
+        elif model.num_classes != 3:
+            overrides["data.class_names"] = tuple(
+                f"class_{i}" for i in range(model.num_classes))
+        cfg = ExperimentConfig().override(overrides)
+        return cls(cfg, None, device=device, model_override=model)
 
     @staticmethod
     def _resolve(path: str) -> str:

@@ -37,6 +37,7 @@ from vision_collision_detection_tpu_torch.models.backbones import (
 )
 from vision_collision_detection_tpu_torch.ops.convnext_mlp import convnext_mlp
 from vision_collision_detection_tpu_torch.ops.dwconv import dwconv7x7
+from vision_collision_detection_tpu_torch.utils.precision import cudnn_float32
 
 LN_EPS = 1e-6
 DWCONV_KERNEL_DEFAULT = True
@@ -63,7 +64,9 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype,
     """flax ``nn.Conv(dtype=dtype)`` on NHWC ``x``. ``same``: pad with zeros
     in ``dtype`` as flax's default ``SAME`` does (the stem and downsample
     convolutions, whose ``conv.padding`` is 0); otherwise ``conv.padding``
-    (the stock depthwise conv's explicit 3)."""
+    (the stock depthwise conv's explicit 3, the BatchNorm backbones'
+    explicit pads). A float32 convolution runs without TF32
+    (``utils/precision.py``), as flax's does."""
     x = x.to(dtype)
     if same:
         top, bottom = same_pads(x.shape[1], conv.kernel_size[0],
@@ -72,9 +75,11 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype,
                                 conv.stride[1])
         if top or bottom or left or right:
             x = F.pad(x, (0, 0, left, right, top, bottom))
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(dtype),
-                 conv.bias.to(dtype), stride=conv.stride,
-                 padding=conv.padding, groups=conv.groups)
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    args = (x.permute(0, 3, 1, 2), conv.weight.to(dtype), bias, conv.stride,
+            conv.padding, 1, conv.groups)
+    y = (cudnn_float32(F.conv2d, *args) if dtype == torch.float32
+         else F.conv2d(*args))
     return y.permute(0, 2, 3, 1).contiguous()
 
 

@@ -3,39 +3,59 @@
 ``load_npz`` reads the flattened ``.npz`` tree that the JAX package's
 ``models/convert.py`` ``save_npz`` writes (keys are ``/``-joined paths), so
 the port needs neither JAX nor orbax to read it. ``from_flax_params`` maps a
-flax parameter tree of ``VideoClassifierModel`` or ``ViViT`` onto this
-package's ``state_dict``:
+flax variables tree (``params`` and, for the BatchNorm models,
+``batch_stats``) of ``VideoClassifierModel``, ``ViViT`` or
+``ReferenceVideoClassifier`` onto this package's ``state_dict``; the port's
+modules keep the JAX modules' names, so the map goes name to name:
 
 =====================================  =====================================
 flax                                   torch
 =====================================  =====================================
 conv kernel [kh, kw, in, out]          weight [out, in, kh, kw]
 depthwise kernel [7, 7, 1, C]          [49, C] (K2 path) or [C, 1, 7, 7]
+conv over T kernel [k, in, out]        Conv1d weight [out, in, k]
 Dense kernel [in, out] (``fc1``,        Linear weight [out, in]
-``sensor_fc1``, ``sensor_fc2``, ...)
-LayerNorm scale / bias                 weight / bias
-GRU ir/iz/in kernels and biases        weight_ih_l0{,_reverse} / bias_ih (r, z, n)
-GRU hr/hz/hn kernels                   weight_hh_l0{,_reverse}
+``sensor_fc1``, ``query``, ...)
+LayerNorm / BatchNorm scale, bias      weight / bias
+BatchNorm batch_stats mean, var        running_mean / running_var
+GRU ir/iz/in kernels and biases        weight_ih / bias_ih (r, z, n)
+GRU hr/hz/hn kernels                   weight_hh
 GRU hn bias                            bias_hh = [0, 0, b_hn]
+LSTM ii/if/ig/io kernels               weight_ih (i, f, g, o); bias_ih = 0
+LSTM hi/hf/hg/ho kernels and biases    weight_hh / bias_hh
+SimpleCell i kernel and bias           weight_ih / bias_ih
+SimpleCell h kernel                    weight_hh; bias_hh = 0
 attention query/key/value kernel       Linear weight [H·D, dim], bias [H·D]
 [dim, H, D], bias [H, D]
 attention out kernel [H, D, dim]       Linear weight [dim, H·D]
-spatial_pos / temporal_pos             the same name, unchanged
+spatial_pos / temporal_pos /           the same name, unchanged
+pos_embedding
 =====================================  =====================================
 
-The forward GRU direction comes from ``fw_cell``, the reverse from
-``bw_cell``. A leaf the mapping does not know raises; ``load_flax_params``
-loads with ``strict=True``, so a missing or extra key raises too.
+A recurrent head's cells ``fw_cell``/``bw_cell`` become one torch module
+named after the cell (``gru``, ``lstm``, ``rnn``), the forward direction
+``_l0`` and the reverse ``_l0_reverse``; a reference head's stacked cells
+``l{n}_fw_cell``/``l{n}_bw_cell`` become one multi-layer module ``rnn``
+(``_l{n}``, ``_l{n}_reverse``), as the reference names it. A leaf the
+mapping does not know raises; ``load_flax_params`` loads with
+``strict=True``, so a missing or extra key raises too.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
-_GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
+# the flax cell's gates → (torch module name, gates in torch's order)
+_CELLS = {
+    frozenset(("ir", "iz", "in", "hr", "hz", "hn")): "gru",
+    frozenset(("ii", "if", "ig", "io", "hi", "hf", "hg", "ho")): "lstm",
+    frozenset(("i", "h")): "rnn",
+}
+_CELL_NAME = re.compile(r"^(?:l(\d+)_)?(fw|bw)_cell$")
 
 
 def load_npz(path: str) -> Dict:
@@ -59,46 +79,76 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def _gru_direction(cell: Mapping, suffix: str) -> Dict[str, torch.Tensor]:
-    if set(cell) != set(_GRU_GATES):
-        raise KeyError(f"GRU cell has gates {sorted(cell)}, expected "
-                       f"{sorted(_GRU_GATES)}")
-    expected = {"ir": {"kernel", "bias"}, "iz": {"kernel", "bias"},
-                "in": {"kernel", "bias"}, "hr": {"kernel"},
-                "hz": {"kernel"}, "hn": {"kernel", "bias"}}
-    for gate, keys in expected.items():
-        if set(cell[gate]) != keys:
-            raise KeyError(f"GRU gate {gate!r} has {sorted(cell[gate])}, "
-                           f"expected {sorted(keys)}")
-    w_ih = torch.cat([_t(cell[g]["kernel"]).t() for g in ("ir", "iz", "in")])
-    b_ih = torch.cat([_t(cell[g]["bias"]) for g in ("ir", "iz", "in")])
-    w_hh = torch.cat([_t(cell[g]["kernel"]).t() for g in ("hr", "hz", "hn")])
-    b_hn = _t(cell["hn"]["bias"])
-    b_hh = torch.cat([torch.zeros_like(b_hn), torch.zeros_like(b_hn), b_hn])
-    return {f"weight_ih_l0{suffix}": w_ih, f"bias_ih_l0{suffix}": b_ih,
-            f"weight_hh_l0{suffix}": w_hh, f"bias_hh_l0{suffix}": b_hh}
+def _leaves(gate: Mapping, keys, where: str):
+    if set(gate) != set(keys):
+        raise KeyError(f"{where} has {sorted(gate)}, expected {sorted(keys)}")
+
+
+def _cell(cell: Mapping, path: str):
+    """One direction of one layer: flax cell → (torch module name,
+    {weight_ih, weight_hh, bias_ih, bias_hh})."""
+    kind = _CELLS.get(frozenset(cell))
+    if kind is None:
+        raise KeyError(f"recurrent cell {path!r} has gates {sorted(cell)}")
+
+    def kernels(names):
+        return torch.cat([_t(cell[g]["kernel"]).t() for g in names])
+
+    def biases(names):
+        return torch.cat([_t(cell[g]["bias"]) for g in names])
+
+    if kind == "gru":
+        for g in ("ir", "iz", "in", "hn"):
+            _leaves(cell[g], ("kernel", "bias"), f"{path}.{g}")
+        for g in ("hr", "hz"):
+            _leaves(cell[g], ("kernel",), f"{path}.{g}")
+        b_hn = _t(cell["hn"]["bias"])
+        b_hh = torch.cat([torch.zeros(2 * b_hn.shape[0]), b_hn])
+        return kind, {"weight_ih": kernels(("ir", "iz", "in")),
+                      "weight_hh": kernels(("hr", "hz", "hn")),
+                      "bias_ih": biases(("ir", "iz", "in")),
+                      "bias_hh": b_hh}
+    if kind == "lstm":
+        for g in "ifgo":
+            _leaves(cell["i" + g], ("kernel",), f"{path}.i{g}")
+            _leaves(cell["h" + g], ("kernel", "bias"), f"{path}.h{g}")
+        b_hh = biases(("hi", "hf", "hg", "ho"))
+        return kind, {"weight_ih": kernels(("ii", "if", "ig", "io")),
+                      "weight_hh": kernels(("hi", "hf", "hg", "ho")),
+                      "bias_ih": torch.zeros_like(b_hh), "bias_hh": b_hh}
+    _leaves(cell["i"], ("kernel", "bias"), f"{path}.i")
+    _leaves(cell["h"], ("kernel",), f"{path}.h")
+    b_ih = _t(cell["i"]["bias"])
+    return kind, {"weight_ih": kernels(("i",)), "weight_hh": kernels(("h",)),
+                  "bias_ih": b_ih, "bias_hh": torch.zeros_like(b_ih)}
+
+
+def _recurrence(cells: Mapping, path: str, out: Dict[str, torch.Tensor]):
+    """A head's cells (``fw_cell``/``bw_cell`` or ``l{n}_fw_cell``/...) →
+    the keys of one torch RNN module under ``path``."""
+    for name, cell in cells.items():
+        layer, direction = _CELL_NAME.match(name).groups()
+        kind, tensors = _cell(cell, f"{path}{name}")
+        module = kind if layer is None else "rnn"
+        suffix = f"_l{layer or 0}" + ("_reverse" if direction == "bw" else "")
+        out.update({f"{path}{module}.{k}{suffix}": v
+                    for k, v in tensors.items()})
 
 
 def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
              out: Dict[str, torch.Tensor]) -> None:
+    cells = {k: v for k, v in node.items() if _CELL_NAME.match(k)}
+    if cells:  # a recurrent head: its cells become one torch RNN module
+        _recurrence(cells, prefix, out)
+        node = {k: v for k, v in node.items() if k not in cells}
     for name, child in node.items():
         path = f"{prefix}{name}"
         if not isinstance(child, Mapping):
-            if name in ("gamma", "spatial_pos", "temporal_pos"):
+            if name in ("gamma", "spatial_pos", "temporal_pos",
+                        "pos_embedding"):
                 out[path] = _t(child)
                 continue
             raise KeyError(f"unexpected parameter leaf {path!r}")
-        if "fw_cell" in child or "bw_cell" in child:
-            # a recurrent head: its cells become one nn.GRU named `gru`
-            rest = {k: v for k, v in child.items()
-                    if k not in ("fw_cell", "bw_cell")}
-            out.update({f"{path}.gru.{k}": v for k, v in
-                        _gru_direction(child["fw_cell"], "").items()})
-            if "bw_cell" in child:
-                out.update({f"{path}.gru.{k}": v for k, v in
-                            _gru_direction(child["bw_cell"], "_reverse").items()})
-            _convert(rest, f"{path}.", dwconv_kernel, out)
-            continue
         if "kernel" in child:
             k = _t(child["kernel"])
             if set(child) - {"kernel", "bias"}:
@@ -118,6 +168,9 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
             elif k.dim() == 3 and name == "out":
                 # DenseGeneral back from heads: [H, D, dim]
                 w = k.reshape(-1, k.shape[-1]).t().contiguous()
+            elif k.dim() == 3:
+                # a convolution over T: [k, in, out] → Conv1d [out, in, k]
+                w = k.permute(2, 1, 0).contiguous()
             else:
                 raise KeyError(f"unexpected kernel rank {k.dim()} at {path!r}")
             out[f"{path}.weight"] = w
@@ -126,7 +179,7 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
             continue
         if "scale" in child:
             if set(child) != {"scale", "bias"}:
-                raise KeyError(f"unexpected LayerNorm leaves at {path!r}: "
+                raise KeyError(f"unexpected norm leaves at {path!r}: "
                                f"{sorted(child)}")
             out[f"{path}.weight"] = _t(child["scale"])
             out[f"{path}.bias"] = _t(child["bias"])
@@ -134,23 +187,40 @@ def _convert(node: Mapping, prefix: str, dwconv_kernel: bool,
         _convert(child, f"{path}.", dwconv_kernel, out)
 
 
+def _convert_stats(node: Mapping, prefix: str,
+                   out: Dict[str, torch.Tensor]) -> None:
+    """flax ``batch_stats`` (``{mean, var}`` under each BatchNorm's path)
+    → ``running_mean``/``running_var``."""
+    for name, child in node.items():
+        path = f"{prefix}{name}"
+        if not isinstance(child, Mapping):
+            raise KeyError(f"unexpected batch_stats leaf {path!r}")
+        if "mean" in child or "var" in child:
+            _leaves(child, ("mean", "var"), f"batch_stats {path!r}")
+            out[f"{path}.running_mean"] = _t(child["mean"])
+            out[f"{path}.running_var"] = _t(child["var"])
+            continue
+        _convert_stats(child, f"{path}.", out)
+
+
 def from_flax_params(tree: Mapping, *, dwconv_kernel: bool = True
                      ) -> Dict[str, torch.Tensor]:
-    """flax params (nested dict of arrays; a ``{"params": ...}`` variables
-    tree is unwrapped) → float32 ``state_dict`` of ``VideoClassifierModel``
-    or ``ViViT``.
-    ``dwconv_kernel`` must match the model's blocks: it picks the depthwise
-    weight layout."""
+    """flax params, or a variables tree ``{"params": ..., "batch_stats":
+    ...}`` → float32 ``state_dict``. ``dwconv_kernel`` must match the
+    model's ConvNeXt blocks: it picks the depthwise weight layout."""
+    stats = {}
     if "params" in tree:
+        stats = tree.get("batch_stats") or {}
         tree = tree["params"]
     out: Dict[str, torch.Tensor] = {}
     _convert(tree, "", dwconv_kernel, out)
+    _convert_stats(stats, "", out)
     return out
 
 
 def load_flax_params(model: torch.nn.Module, tree: Mapping) -> None:
-    """Load a flax parameter tree into ``model``; a missing or extra key
-    raises."""
+    """Load a flax parameter or variables tree into ``model``; a missing or
+    extra key raises."""
     blocks = [m for m in model.modules() if hasattr(m, "use_dwconv_kernel")]
     kinds = {m.use_dwconv_kernel for m in blocks}
     if len(kinds) > 1:

@@ -36,8 +36,10 @@ from vision_collision_detection_tpu_torch.models.backbones.convnext import (
     DwConv7x7,
     linear,
 )
+from vision_collision_detection_tpu_torch.models.norm import BatchNorm
 from vision_collision_detection_tpu_torch.models.temporal import (
     build_temporal_head,
+    dropout,
     temporal_out_dim,
 )
 from vision_collision_detection_tpu_torch.utils.device import resolve_device
@@ -77,10 +79,12 @@ class VideoClassifierModel(nn.Module):
               if backbone.startswith("convnext") else {})
         self.backbone = build_backbone(backbone, dtype=dtype, **kw)
         D = feature_dim(backbone)
+        # the JAX model gives the head no dropout rate: its attention
+        # head's stays at 0
         self.temporal = build_temporal_head(
             temporal_mode, D, hidden=temporal_hidden_dim,
             num_heads=attention_heads, max_seq_length=max_seq_length,
-            bidirectional=bidirectional, dropout=dropout)
+            bidirectional=bidirectional, dtype=dtype)
         head_out = temporal_out_dim(temporal_mode, D, temporal_hidden_dim)
         if use_sensor:
             self.sensor_fc1 = nn.Linear(SENSOR_CHANNELS, sensor_hidden_dim)
@@ -89,19 +93,6 @@ class VideoClassifierModel(nn.Module):
         self.fc1 = nn.Linear(head_out, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, hidden_dim // 2)
         self.fc_out = nn.Linear(hidden_dim // 2, num_classes)
-
-    def _dropout(self, h: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        """flax ``nn.Dropout``: kept values scaled by 1/keep, in h's dtype."""
-        if not self.training or self.dropout == 0.0:
-            return h
-        if generator is None:
-            raise ValueError("dropout in training draws its masks from a "
-                             "generator; pass generator=")
-        keep = 1.0 - self.dropout
-        mask = torch.bernoulli(torch.full(h.shape, keep, device=h.device),
-                               generator=generator)
-        return torch.where(mask.bool(), h / keep, torch.zeros_like(h))
 
     def forward(self, frames: torch.Tensor,
                 sensor: Optional[torch.Tensor] = None,
@@ -118,16 +109,17 @@ class VideoClassifierModel(nn.Module):
             T = x.shape[1]
         flat = x.reshape((B * T,) + tuple(x.shape[2:]))
         feats = self.backbone(flat, generator)  # [B·T, D] float32
-        pooled = self.temporal(feats.reshape(B, T, -1))  # [B, D_out] float32
+        pooled = self.temporal(feats.reshape(B, T, -1),
+                               generator)  # [B, D_out] float32
         dt = self.dtype
         if self.use_sensor:
             s = F.relu(linear(sensor, self.sensor_fc1, dt))
             s = F.relu(linear(s, self.sensor_fc2, dt))
             pooled = torch.cat([pooled, s.mean(dim=1).to(torch.float32)], -1)
         h = F.relu(linear(pooled, self.fc1, dt))
-        h = self._dropout(h, generator)
+        h = dropout(h, self.dropout, generator, self.training)
         h = F.relu(linear(h, self.fc2, dt))
-        h = self._dropout(h, generator)
+        h = dropout(h, self.dropout, generator, self.training)
         return linear(h, self.fc_out, torch.float32)
 
 
@@ -179,31 +171,38 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):
 def init_weights(model: nn.Module, g: torch.Generator) -> None:
     """Draw every parameter from ``g`` with the flax initialisers' laws:
     lecun-normal kernels, orthogonal recurrent kernels, zero biases, unit
-    LayerNorm scales, N(0, 0.02²) position tables; layer-scale γ keeps its
-    constructor value."""
+    LayerNorm and BatchNorm scales (running statistics 0 and 1),
+    N(0, 0.02²) position tables; layer-scale γ keeps its constructor
+    value."""
     for name, p in model.named_parameters():
-        if name in ("spatial_pos", "temporal_pos"):
+        if name.rsplit(".", 1)[-1] in ("spatial_pos", "temporal_pos",
+                                       "pos_embedding"):
             nn.init.normal_(p, 0.0, 0.02, generator=g)
     for module in model.modules():
-        if isinstance(module, nn.Conv2d):
+        if isinstance(module, (nn.Conv1d, nn.Conv2d)):
             fan_in = module.weight[0].numel()
             _lecun_normal_(module.weight, fan_in, g)
-            nn.init.zeros_(module.bias)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)
         elif isinstance(module, DwConv7x7):
             _lecun_normal_(module.weight, 49, g)
             nn.init.zeros_(module.bias)
         elif isinstance(module, nn.Linear):
             _lecun_normal_(module.weight, module.in_features, g)
             nn.init.zeros_(module.bias)
-        elif isinstance(module, nn.LayerNorm):
+        elif isinstance(module, (nn.LayerNorm, BatchNorm)):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
-        elif isinstance(module, nn.GRU):
+            if isinstance(module, BatchNorm):
+                module.running_mean.zero_()
+                module.running_var.fill_(1.0)
+        elif isinstance(module, nn.RNNBase):
+            gates = {"GRU": 3, "LSTM": 4, "RNN": 1}[type(module).__name__]
             for name, p in module.named_parameters():
                 if name.startswith("weight_ih"):
                     _lecun_normal_(p, p.shape[1], g)
                 elif name.startswith("weight_hh"):
-                    for block in p.chunk(3, dim=0):
+                    for block in p.chunk(gates, dim=0):
                         nn.init.orthogonal_(block, generator=g)
                 else:
                     nn.init.zeros_(p)

@@ -76,18 +76,17 @@ def weighted_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 def load_pretrained_backbone(model: torch.nn.Module, npz_path: str) -> None:
     """Load converted backbone weights (the JAX package's ``.npz``, whose
-    ``params`` subtree is the backbone's) into ``model.backbone``, cast to
-    the parameters' float32; the heads keep their initial weights. Every
-    backbone parameter must be in the file."""
+    ``params`` subtree, and ``batch_stats`` subtree where the backbone has
+    BatchNorms, are the backbone's) into ``model.backbone``, cast to
+    float32; the heads keep their initial weights. Every backbone
+    parameter and running statistic must be in the file."""
     loaded = load_npz(npz_path)
-    if loaded.get("batch_stats"):
-        raise NotImplementedError(
-            "backbones with batch statistics are not ported yet "
-            "(ROADMAP.md, queue 1, item 14)")
     blocks = [m for m in model.backbone.modules()
               if hasattr(m, "use_dwconv_kernel")]
-    sd = from_flax_params(loaded["params"], dwconv_kernel=all(
-        m.use_dwconv_kernel for m in blocks))
+    sd = from_flax_params(
+        {"params": loaded["params"],
+         "batch_stats": loaded.get("batch_stats") or {}},
+        dwconv_kernel=all(m.use_dwconv_kernel for m in blocks))
     model.backbone.load_state_dict(sd, strict=True)
 
 
