@@ -208,6 +208,37 @@ failure:
     against the plain step (TRAIN_TOL; K2 36, K2 wgrad 18, K3 train 18) and
     timed.
 
+20. Data parallelism (``parallel/``), its ranks child processes of this
+    script with torchrun's variables (``--rank``), this process holding no
+    process group. (a) World size 1 over NCCL: the flagship's
+    ``DataParallelStrategy`` step (DDP with the summing hook) on uint8
+    [8, 50, 126, 224, 3] bit-equal to ``make_train_step`` from the same
+    weights and generator (launches K2 36, K2 wgrad 18, K3 train 18), both
+    timed in turns (DDP's own overhead), the DP evaluation's gathered
+    probabilities bit-equal to ``make_eval_step``'s. (b) Two ranks sharing
+    the card over gloo, 4 clips each (augmentation and dropout off),
+    against one device on all 8: loss, every gradient and parameter within
+    5e-3 relative; gradients averaged (DDP's own hook) must land outside;
+    the GRU's frozen torch biases still 0. (c) resnet18 with the conv head
+    (BatchNorm in both), two ranks: the running statistics bit-equal on the
+    ranks and within 1e-6 of the mean of the ranks' own single-device
+    updates, which differ. (d) ``Trainer`` with ``DataParallelStrategy``,
+    two ranks, per-device batch 4: one epoch of 2 steps, the validation
+    gather, ``best`` and ``last`` written once by rank 0, ``test()`` on 7
+    clips (the wrap pad trimmed); ``from_checkpoint`` on one card
+    bit-equal to rank 0's ``test()`` probabilities. ms per step of (b) and
+    (d) are of two processes sharing one card: a correctness run, not a DP
+    speed.
+21. Tensor parallelism: the scaled ViViT (vivit_small, 32 frames of 336²,
+    ``"flash"``, bf16, blur off; biases and LayerNorms redrawn, the head
+    scaled) over a model group of 2 ranks sharing the card over gloo, B=8:
+    one ``ModelParallelStrategy`` step against one device's (4e-2, the
+    temporal query/key 1e-1) with K4's four kernels launched 8 times a rank
+    on 3 of the 6 heads; the out projection's bias added on both ranks must
+    land outside; the TP forward's probabilities within 2e-2 of one
+    device's; the gathered checkpoint served by ``from_checkpoint`` on one
+    card, bit-equal to one device's forward of the gathered weights.
+
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -406,6 +437,9 @@ def main() -> int:
     launches["heads"] = heads["launches"]
     report["phases_17_19_s"] = time.time() - t0
     log(f"[phases 17-19] {report['phases_17_19_s']:.1f} s")
+    torch.cuda.empty_cache()
+    report["parallel"], parallel_launches = parallel_phases(torch, dev)
+    launches.update(parallel_launches)
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
@@ -964,15 +998,18 @@ def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
 
 # ---- 2c. K4 against its plain version ------------------------------------
 
-# (B, S, H, D, dtype name): the scaled configuration's shape, the kernel A/B
+# (B, S, H, D, dtype name): the scaled configuration's shape, its shape under
+# phase 21's tensor parallelism (3 of the 6 heads a rank), the kernel A/B
 # shape of the JAX package's record, 448² frames, vivit_base's heads, ragged
 # tiles (S no multiple of 64), a sequence shorter than a tile, head_dim 16
 # (vivit_tiny) and float32 inputs; then the lengths on the edges of the
 # backward kernels' tiles (64 rows a warpgroup, 128 keys a dK/dV block, 192
 # queries a dQ block) and one past 1,024.
 FLASH_MAIN = (256, 576, 6, 64, "bfloat16")
+FLASH_TP = (256, 576, 3, 64, "bfloat16")
 FLASH_SHAPES = (
     FLASH_MAIN,
+    FLASH_TP,
     (64, 576, 6, 64, "bfloat16"),
     (16, 1024, 6, 64, "bfloat16"),
     (8, 576, 12, 64, "bfloat16"),
@@ -1109,7 +1146,7 @@ def compare_flash_kernels(torch, dev):
                    zip(grads, (dq, dk, dv))), 0.0, entry="K4 bwd dQ")
         del leaves, grads, dk2, dv2, dq2, o_nolse
 
-        if shape in (FLASH_MAIN, (4, 200, 6, 64, "bfloat16")):
+        if shape in (FLASH_MAIN, FLASH_TP, (4, 200, 6, 64, "bfloat16")):
             # faults in the forward's plain version
             bad = {"sm_scale dropped": fa.flash_mha_plain(q, k, v, 1.0)}
             p = torch.exp(torch.matmul(
@@ -2189,8 +2226,10 @@ def time_vivit_training(torch, dev, tr):
 
 def time_flash_kernels(torch, dev, inputs):
     """K4's kernels per launch at FLASH_MAIN (the main path's shape; rows of
-    the kernels line) and at the other whole-model bf16 shapes: the kernel,
-    its plain version, ``F.scaled_dot_product_attention`` forward and
+    the kernels line), at FLASH_TP (phase 21's shape a rank; the same
+    rows, kept in its ``by_shape`` record) and at the other whole-model bf16
+    shapes: the kernel, its plain version,
+    ``F.scaled_dot_product_attention`` forward and
     backward (one call that returns dq, dk and dv, so both backward kernels
     carry its time), the di kernel beside ``_row_dot``, and the bound worked
     from the shape."""
@@ -2198,9 +2237,9 @@ def time_flash_kernels(torch, dev, inputs):
 
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
-    rows, by_shape = [], []
+    rows, by_shape, tp_rows = [], [], []
     g = torch.Generator().manual_seed(21)
-    for shape in FLASH_SHAPES[:4]:
+    for shape in FLASH_SHAPES[:5]:
         B, S, H, D, dtype = shape
         main = shape == FLASH_MAIN
         if main:
@@ -2248,7 +2287,7 @@ def time_flash_kernels(torch, dev, inputs):
             f"({rec['bwd_tflops']:.1f} TFLOP/s over both; library backward "
             f"{lib_bwd:.4f}), di kernel {di_ms:.4f} (_row_dot "
             f"{row_dot_ms:.4f}); dK/dV + dQ + di {rec['bwd_all_ms']:.4f}")
-        if not main:
+        if shape not in (FLASH_MAIN, FLASH_TP):
             continue
         with torch.no_grad():
             plain = {"K4 fwd": median_ms(
@@ -2271,15 +2310,20 @@ def time_flash_kernels(torch, dev, inputs):
         # bf16 products, so library_ms is null.
         work["K4 bwd di"] = (di_ms, 2 * n * 2 + stats, None, None)
         bounds["K4 bwd di"] = bound_ms(2 * n * 2 + stats, 2 * n, F32_FLOPS)
+        krows = []
         for kernel, (ms, n_bytes, products, lib) in work.items():
             b, by = bounds[kernel]
-            rows.append({"kernel": kernel, "shape": list(shape),
-                         "per_forward": VIVIT_BLOCKS, "ms": ms,
-                         "mma_sync_ms": mma_fwd if kernel == "K4 fwd"
-                         else None,
-                         "plain_ms": plain[kernel], "library_ms": lib,
-                         "bound_ms": b, "bound_by": by})
-    for r in rows:
+            krows.append({"kernel": kernel, "shape": list(shape),
+                          "per_forward": VIVIT_BLOCKS, "ms": ms,
+                          "mma_sync_ms": mma_fwd if kernel == "K4 fwd"
+                          else None,
+                          "plain_ms": plain[kernel], "library_ms": lib,
+                          "bound_ms": b, "bound_by": by})
+        if main:
+            rows.extend(krows)
+        else:
+            rec["kernels"] = tp_rows = krows
+    for r in rows + tp_rows:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         log(f"[time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
@@ -4223,13 +4267,711 @@ def first_difference(torch, pred, frames):
     return "the classifier MLP or the softmax"
 
 
+# ---- 20–21. data and tensor parallelism ------------------------------------
+
+# The ranks of phases 20 and 21 are child processes of this script, launched
+# with torchrun's variables on a free port (``--rank NAME DIR``); this process
+# holds no process group. Two ranks share the one card over gloo, both with
+# LOCAL_RANK 0: NCCL refuses two ranks on one device.
+RANK_TIMEOUT_S = {"dp_nccl": 240, "dp_gloo": 420, "tp_gloo": 420}
+DDP_TIME_ITERS = 5             # phase 20 (a): median of 5 after 2 warm-ups
+BN_MEAN_TOL = 1e-6             # phase 20 (c): the statistics' mean
+# Phase 21's TP forward against one device's: phase 3's 2e-2, with the head
+# scaled by 10 as phase 9 scales it. TP sums each row-parallel product from
+# two bf16 partials (as the JAX package's GSPMD does), one bf16 rounding
+# more than one device, in 24 products a forward. The training step's model
+# scales the head by 3 (the ViViT CPU tests' factor); the forward's error
+# with that head is logged beside the bounded one, with no bound.
+TP_PROBS_TOL = 2e-2
+TP_LOGIT_SCALE = 3.0
+# phase 20 (d): per-device batch 4, 16 training clips (2 steps a rank), 8
+# validation clips, 7 test clips (one wrap pad, trimmed after the gather)
+DP_TRAINER_CLIPS = (16, 8, 7)
+DP_TRAINER_BATCH = 4
+
+
+def run_ranks(name, world, out_dir, backend):
+    """``world`` ranks of ``rank_main(name)``, each on card 0 over
+    ``backend``; their output is logged. A rank that fails or outlives
+    RANK_TIMEOUT_S fails the script; every rank is stopped before this
+    returns. → the ranks' results."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), VCD_BACKEND=backend)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", name,
+                 out_dir], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.time() + RANK_TIMEOUT_S[name]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.time()))[0])
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"{name}: a rank outlived "
+                                 f"{RANK_TIMEOUT_S[name]} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            log(f"[{name} r{rank}] {line}")
+        if p.returncode != 0:
+            raise SystemExit(f"{name}: rank {rank} exited {p.returncode}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out_dir, f"{name}_r{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def parallel_phases(torch, dev):
+    """Phases 20 and 21: the ranks, then what this process checks of their
+    checkpoints (``from_checkpoint`` on one card). → (report, launches by
+    path, each the sum over the path's ranks)."""
+    import tempfile
+
+    t0 = time.time()
+    report, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        a, = run_ranks("dp_nccl", 1, tmp, "nccl")
+        report["dp_nccl"] = a
+        launches["dp_nccl"] = a["launches"]
+        b = run_ranks("dp_gloo", 2, tmp, "gloo")
+        report["dp_gloo"] = b
+        for path in ("dp_step", "dp_bn", "dp_trainer"):
+            launches[path] = {k: sum(r["launches"][path][k] for r in b)
+                              for k in b[0]["launches"][path]}
+        report["dp_trainer_from_checkpoint"] = dp_trainer_served(
+            torch, dev, tmp)
+        report["phase_20_s"] = time.time() - t0
+        t1 = time.time()
+        tp = run_ranks("tp_gloo", 2, tmp, "gloo")
+        report["tp_gloo"] = tp
+        launches["tp_step"] = {k: sum(r["launches"]["tp_step"][k] for r in tp)
+                               for k in tp[0]["launches"]["tp_step"]}
+        launches["tp_eval"] = {k: sum(r["launches"]["tp_eval"][k] for r in tp)
+                               for k in tp[0]["launches"]["tp_eval"]}
+        report["tp_from_checkpoint"] = tp_served(torch, dev, tmp)
+        report["phase_21_s"] = time.time() - t1
+    log(f"[parallel] phase 20 {report['phase_20_s']:.1f} s, phase 21 "
+        f"{report['phase_21_s']:.1f} s")
+    return report, launches
+
+
+def rank_main(name, out_dir) -> int:
+    """A rank of phase 20 or 21 (``python3 chip_smoke.py --rank NAME DIR``,
+    torchrun's variables in the environment): it joins the process group,
+    runs its checks (a failed one raises), writes ``NAME_r{rank}.json`` and
+    leaves the group."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from vision_collision_detection_tpu_torch.parallel import (
+        maybe_initialize_distributed, sync_global_devices)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed(os.environ["VCD_BACKEND"])
+    rank = torch.distributed.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fn = {"dp_nccl": rank_dp_nccl, "dp_gloo": rank_dp_gloo,
+          "tp_gloo": rank_tp_gloo}[name]
+    out = fn(torch, dev, rank, out_dir)
+    with open(os.path.join(out_dir, f"{name}_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    sync_global_devices("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def flagship_batch(torch, dev, B, T):
+    """Phase 7's seeded uint8 batch [B, T, 126, 224, 3], targets, mask."""
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randint(0, 256, (B, T, *CONTENT, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    return frames, (torch.arange(B) % 3).to(dev), torch.ones(B, device=dev)
+
+
+def params_equal(torch, a, b):
+    """→ (every parameter bit-equal, the largest |a − b|)."""
+    diffs = [float((x.detach().float() - y.detach().float()).abs().max())
+             for x, y in zip(a.parameters(), b.parameters())]
+    return max(diffs) == 0.0, max(diffs)
+
+
+def grads_of(torch, model):
+    return {n: p.grad.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def rank_dp_nccl(torch, dev, rank, out_dir):
+    """Phase 20 (a), world size 1 over NCCL: the flagship's DP step (DDP,
+    the summing hook, the global loss) on uint8 [8, 50, 126, 224, 3]
+    against ``make_train_step`` from the same weights and generator; both
+    timed in turns; the DP evaluation's gathered probabilities against
+    ``make_eval_step``."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.parallel import (
+        DataParallelStrategy)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_eval_step, make_train_step)
+
+    cfg = ExperimentConfig()
+    B, T = cfg.data.batch_size, cfg.data.num_frames
+
+    def fresh():
+        return create_train_state(cfg, torch.Generator().manual_seed(3),
+                                  steps_per_epoch=STEPS_PER_EPOCH)
+
+    m_dp, s_dp = fresh()
+    m_one, s_one = fresh()
+    dp = DataParallelStrategy()
+    dp_step, dp_eval = dp.make_steps(m_dp, cfg, None)
+    one_step = make_train_step(m_one, cfg)
+    batch = flagship_batch(torch, dev, B, T)
+    init = {k: v.clone() for k, v in m_one.state_dict().items()}
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+    counters = zero_counters()
+    _, m = dp_step(s_dp, *batch, gen())
+    torch.cuda.synchronize()
+    launches = expect_launches("dp nccl", counters, K2=36, K2_wgrad=18,
+                               K3_train=18)
+    _, m1 = one_step(s_one, *batch, gen())
+    torch.cuda.synchronize()
+    same, diff = params_equal(torch, m_dp, m_one)
+    metrics = {k: float(v) for k, v in m.items()}
+    metrics_one = {k: float(v) for k, v in m1.items()}
+    log(f"DP step (world 1, NCCL) {metrics} against make_train_step "
+        f"{metrics_one}: parameters bit-equal {same} (largest |Δ| {diff:.3e})")
+    if metrics != metrics_one or not same:
+        raise SystemExit("DP at world size 1 is not bit-equal to "
+                         "make_train_step")
+
+    times = in_turns(
+        torch, "dp nccl", {"make_train_step": lambda: one_step(
+            s_one, *batch, gen()), "DP (DDP, world 1)": lambda: dp_step(
+                s_dp, *batch, gen())},
+        lambda fn: median_step_ms(torch, fn, 2, DDP_TIME_ITERS), B)
+    one_ms = times["make_train_step"]["ms"]
+    dp_ms = times["DP (DDP, world 1)"]["ms"]
+    overhead = (dp_ms - one_ms) / one_ms
+    log(f"DDP's overhead at world size 1: {dp_ms:.3f} against {one_ms:.3f} "
+        f"ms per step ({100 * overhead:+.2f}%)")
+
+    m_dp.load_state_dict(init)
+    m_one.load_state_dict(init)
+    probs = dp_eval(*batch)["probs"]
+    gathered = dp.gather_eval({"probs": probs.float().cpu().numpy()})["probs"]
+    ref = make_eval_step(m_one, cfg)(*batch)["probs"].float().cpu().numpy()
+    eval_equal = bool((gathered == ref).all())
+    log(f"DP evaluation gathered over NCCL against make_eval_step: "
+        f"bit-equal {eval_equal}")
+    if not eval_equal:
+        raise SystemExit("the DP evaluation disagrees with make_eval_step")
+    return {"launches": launches, "metrics": metrics,
+            "bit_equal": same, "max_abs_param_diff": diff,
+            "times": times, "ddp_overhead": overhead,
+            "eval_bit_equal": eval_equal}
+
+
+def averaging_dp(torch):
+    """The fault of phase 20 (b): DDP with its own hook, which averages the
+    gradients over the data group where the JAX step sums them."""
+    from vision_collision_detection_tpu_torch.parallel import (
+        DataParallelStrategy)
+
+    class Averaging(DataParallelStrategy):
+        def wrap(self, model):
+            dev = next(model.parameters()).device
+            return torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=[dev.index] if dev.type == "cuda" else None,
+                process_group=self.mesh.data_group, broadcast_buffers=False)
+
+    return Averaging()
+
+
+def all_ranks(torch, t):
+    """``t`` from every rank, in rank order, on the CPU (gloo)."""
+    t = t.detach().float().cpu().contiguous()
+    parts = [torch.empty_like(t)
+             for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(parts, t)
+    return parts
+
+
+def rank_dp_gloo(torch, dev, rank, out_dir):
+    """Phase 20 (b)–(d): two ranks sharing the card over gloo."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.models.norm import BatchNorm
+    from vision_collision_detection_tpu_torch.parallel import (
+        DataParallelStrategy)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    out = {"launches": {}}
+    dp = DataParallelStrategy()
+    n = dp.num_data_shards
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+    # ---- (b) the flagship, 4 clips a rank, against one device on all 8;
+    # no augmentation or dropout, whose draws follow the batch's size; SGD,
+    # since AdamW's first step moves a weight by ±lr whatever its
+    # gradient's size, so a near-zero gradient's rounding would decide it
+    cfg = ExperimentConfig().override({
+        "augment.enabled": False, "augment.horizontal_flip_prob": 0.0,
+        "model.dropout": 0.0, "optim.optimizer": "sgd"})
+    B, T = cfg.data.batch_size, cfg.data.num_frames
+    frames, targets, mask = flagship_batch(torch, dev, B, T)
+    mine = [t.chunk(n)[rank] for t in (frames, targets, mask)]
+
+    def fresh(c):
+        return create_train_state(c, torch.Generator().manual_seed(3),
+                                  steps_per_epoch=STEPS_PER_EPOCH)
+
+    model, state = fresh(cfg)
+    step, _ = dp.make_steps(model, cfg, None)
+    counters = zero_counters()
+    _, m = step(state, *mine, gen())
+    torch.cuda.synchronize()
+    out["launches"]["dp_step"] = expect_launches(
+        "dp step", counters, K2=36, K2_wgrad=18, K3_train=18)
+    metrics = {k: float(v) for k, v in m.items()}
+    grads = grads_of(torch, model)
+    params = {n_: p.detach().float().clone()
+              for n_, p in model.named_parameters()}
+    frozen = {n_: float(p.detach()[: 2 * (p.shape[0] // 3)].abs().max())
+              for n_, p in model.named_parameters() if "bias_hh" in n_}
+    log(f"(b) DP step {metrics}; the GRU's frozen r/z biases after it "
+        f"{frozen}")
+    if any(v != 0.0 for v in frozen.values()):
+        raise SystemExit("a frozen torch bias moved under DDP")
+    out["step_ms"] = median_step_ms(torch, lambda: step(state, *mine, gen()),
+                                    1, 3)
+    log(f"(b) {out['step_ms']:.3f} ms per DP step, two processes sharing "
+        f"one card over gloo (a correctness run, not a DP speed)")
+    avg_model, avg_state = fresh(cfg)
+    avg_step, _ = averaging_dp(torch).make_steps(avg_model, cfg, None)
+    avg_step(avg_state, *mine, gen())
+    avg_grads = grads_of(torch, avg_model)
+    del avg_model, avg_state, avg_step
+    if rank == 0:
+        one, one_state = fresh(cfg)
+        _, m1 = make_train_step(one, cfg)(one_state, frames, targets, mask,
+                                          gen())
+        torch.cuda.synchronize()
+        loss_err = abs(metrics["loss"] - float(m1["loss"])) / abs(
+            float(m1["loss"]))
+        gerr = rel_grad_errs(torch, grads, grads_of(torch, one))
+        perr = rel_param_errs(torch, params, {
+            n_: p.detach() for n_, p in one.named_parameters()})
+        fault = rel_grad_errs(torch, avg_grads, grads_of(torch, one))
+        worst_g = max(gerr.items(), key=lambda kv: kv[1])
+        worst_p = max(perr.items(), key=lambda kv: kv[1])
+        least_fault = min(fault.values())
+        log(f"(b) 2 ranks against one device on 8: loss rel {loss_err:.2e}, "
+            f"worst gradient {worst_g}, worst parameter {worst_p} (tol "
+            f"{TRAIN_TOL:.0e}); gradients averaged: least error "
+            f"{least_fault:.3e}")
+        if max(loss_err, worst_g[1], worst_p[1]) > TRAIN_TOL:
+            raise SystemExit("the 2-rank DP step disagrees with one device")
+        if not least_fault > TRAIN_TOL:
+            raise SystemExit("averaged gradients were not seen")
+        out["vs_one_device"] = {"loss_rel_err": loss_err,
+                                "worst_grad_rel_err": worst_g,
+                                "worst_param_rel_err": worst_p,
+                                "averaged_least_grad_rel_err": least_fault,
+                                "tol": TRAIN_TOL}
+        del one, one_state
+    del model, state, step, grads, params, avg_grads
+    torch.cuda.empty_cache()
+
+    # ---- (c) resnet18 + the conv head: BatchNorm in both
+    bn_cfg = ExperimentConfig().override({"model.backbone": "resnet18",
+                                          "model.temporal_mode": "conv"})
+
+    def stats(model_):
+        return torch.cat([b.reshape(-1) for m_ in model_.modules()
+                          if isinstance(m_, BatchNorm)
+                          for b in (m_.running_mean, m_.running_var)])
+
+    model, state = fresh(bn_cfg)
+    step, _ = dp.make_steps(model, bn_cfg, None)
+    counters = zero_counters()
+    step(state, *mine, gen())
+    torch.cuda.synchronize()
+    out["launches"]["dp_bn"] = expect_launches("dp bn", counters)
+    own, own_state = fresh(bn_cfg)
+    make_train_step(own, bn_cfg)(own_state, *mine, gen())
+    dp_stats = all_ranks(torch, stats(model))
+    own_stats = all_ranks(torch, stats(own))
+    mean = (own_stats[0] + own_stats[1]) / 2
+    bn = {"ranks_bit_equal": bool(torch.equal(dp_stats[0], dp_stats[1])),
+          "vs_mean_of_own": float((dp_stats[0] - mean).abs().max()),
+          "own_updates_differ_by": float(
+              (own_stats[0] - own_stats[1]).abs().max()),
+          "n_statistics": int(dp_stats[0].numel()), "tol": BN_MEAN_TOL}
+    log(f"(c) resnet18 + conv, running statistics after one DP step: {bn}")
+    if not bn["ranks_bit_equal"] or bn["vs_mean_of_own"] > BN_MEAN_TOL:
+        raise SystemExit("the BatchNorm statistics are not the ranks' mean")
+    if not bn["own_updates_differ_by"] > BN_MEAN_TOL:
+        raise SystemExit("without the mean the ranks would agree: the check "
+                         "has no power")
+    out["bn"] = bn
+    del model, state, step, own, own_state
+    torch.cuda.empty_cache()
+
+    # ---- (d) the Trainer
+    trainer = dp_trainer_rank(torch, dev, rank, out_dir, dp)
+    out["launches"]["dp_trainer"] = trainer.pop("launches")
+    out.update(trainer)
+    return out
+
+
+def dp_trainer_data(torch):
+    """Phase 20 (d)'s stand-in datasets (phase 16's clips, seeded)."""
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+
+    T = ExperimentConfig().data.num_frames
+    clips, labels, _ = trainer_data(torch, sum(DP_TRAINER_CLIPS), 16, T)
+    n_train, n_val, _ = DP_TRAINER_CLIPS
+    parts = np.split(np.arange(len(clips)), [n_train, n_train + n_val])
+    return [StandInClips(clips[p], TRAINER_BROKEN if k == 0 else None,
+                         labels=labels[p]) for k, p in enumerate(parts)]
+
+
+def dp_trainer_cfg():
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig().override({
+        "data.batch_size": DP_TRAINER_BATCH, "train.epochs": 1,
+        "train.validation_freq": 0, "train.checkpoint_every_epochs": 0,
+        "train.dashboard": False})
+
+
+def dp_trainer_rank(torch, dev, rank, out_dir, dp):
+    """Phase 20 (d) on a rank: ``Trainer`` with ``DataParallelStrategy``,
+    one epoch of 2 steps, the validation gather, ``test()``; the checkpoint
+    files this rank wrote, counted."""
+    from vision_collision_detection_tpu_torch.train import Trainer
+
+    train_ds, val_ds, test_ds = dp_trainer_data(torch)
+    run_dir = os.path.join(out_dir, "dp_run")
+    writes, save = [0], torch.save
+
+    def counted_save(*args, **kwargs):
+        writes[0] += 1
+        return save(*args, **kwargs)
+
+    counters = zero_counters()
+    tr = Trainer(dp_trainer_cfg(), train_ds, val_ds, test_ds,
+                 run_dir=run_dir, strategy=dp)
+    evals, _ = count_calls(tr, "eval_step")
+    step_fn, step_ms = tr.train_step, []
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    tr.train_step = timed_step
+    with swapped((torch, "save", counted_save)):
+        tr.train()
+        res = tr.test()
+    torch.cuda.synchronize()
+    launches = trainer_launches("dp trainer", counters, len(step_ms),
+                                evals[0])
+    roles = sorted(r for r in ("best", "last") if tr.store.exists(r))
+    out = {"launches": launches, "trainer": {
+        "steps": len(step_ms), "step_ms": step_ms, "eval_batches": evals[0],
+        "num_samples": int(res["num_samples"]), "loss": float(res["loss"]),
+        "ids": list(res["ids"]), "checkpoint_writes": writes[0],
+        "roles": roles}}
+    log(f"(d) Trainer: {out['trainer']} (ms per step: two processes "
+        f"sharing one card)")
+    want_writes = 2 if rank == 0 else 0
+    if (len(step_ms) != 2 or res["num_samples"] != DP_TRAINER_CLIPS[2]
+            or roles != ["best", "last"] or writes[0] != want_writes
+            or len(set(res["ids"])) != DP_TRAINER_CLIPS[2]):
+        raise SystemExit(f"(d) the DP Trainer run is not as expected: "
+                         f"{out['trainer']}")
+    if rank == 0:
+        torch.save({"probs": torch.from_numpy(res["_probs"])},
+                   os.path.join(out_dir, "dp_test_probs.pt"))
+    return out
+
+
+def dp_trainer_served(torch, dev, tmp):
+    """Phase 20 (d) on one card: ``from_checkpoint`` of the DP run serves
+    each rank's test batch as the ranks did (4 clips, the wrap pad after
+    the last); the pads dropped, bit-equal to rank 0's ``test()``."""
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.data.loader import ClipLoader
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+
+    cfg = dp_trainer_cfg()
+    _, _, test_ds = dp_trainer_data(torch)
+    pred = CollisionPredictor.from_checkpoint(os.path.join(tmp, "dp_run"))
+    forward = pred._make_forward(False)
+    probs, pads = [], []
+    for shard in range(2):
+        loader = ClipLoader(test_ds, DP_TRAINER_BATCH, num_workers=1,
+                            seed=cfg.data.seed, mask_wrap=True, num_shards=2,
+                            shard_index=shard, pad_partial=True)
+        for batch in loader:
+            probs.append(forward(batch["frames"]).float().cpu().numpy())
+            pads.append(batch["pad"])
+    probs = np.concatenate(probs)[~np.concatenate(pads)]
+    want = torch.load(os.path.join(tmp, "dp_test_probs.pt"))["probs"].numpy()
+    err = float(np.abs(probs - want).max())
+    log(f"[dp trainer] from_checkpoint on one card against rank 0's test(): "
+        f"max |Δprob| {err:.3e} (bit-equal required)")
+    if not np.array_equal(probs, want):
+        raise SystemExit("from_checkpoint of the DP run disagrees with test()")
+    del pred
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err}
+
+
+def vivit_noise_batch(torch, dev, T, B, seed):
+    """Phase 11's ViViT batch: noise frames, each of its own brightness."""
+    g = torch.Generator().manual_seed(seed)
+    noise = torch.randint(48, 208, (B, T, *VIVIT_CONTENT, 3), generator=g,
+                          dtype=torch.int16)
+    level = torch.randint(-48, 48, (B, T, 1, 1, 1), generator=g,
+                          dtype=torch.int16)
+    return ((noise + level).to(torch.uint8).to(dev),
+            (torch.arange(B) % 3).to(dev), torch.ones(B, device=dev))
+
+
+def tp_model(torch, cfg):
+    """The scaled ViViT with phase 11's seeded weights, every bias and
+    LayerNorm redrawn and the head scaled (as phase 3), so that a dropped
+    or doubled bias shows and the probabilities spread."""
+    from vision_collision_detection_tpu_torch.train import create_train_state
+
+    model, state = create_train_state(cfg, torch.Generator().manual_seed(13),
+                                      steps_per_epoch=STEPS_PER_EPOCH)
+    g = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias") and p.dim() == 1:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g)
+                               * 0.1)
+        model.head.weight.mul_(TP_LOGIT_SCALE)
+    return model, state
+
+
+def rank_tp_gloo(torch, dev, rank, out_dir):
+    """Phase 21: the scaled ViViT over a model group of 2 (two ranks
+    sharing the card over gloo), B=8: one TP step against one device's
+    (rank 0), with K4 on 3 of the 6 heads a rank; the out projection's bias
+    added on both ranks as the fault; the TP forward against one device's;
+    the gathered weights saved for ``from_checkpoint``."""
+    from vision_collision_detection_tpu_torch.ckpt import CheckpointStore
+    from vision_collision_detection_tpu_torch.config import MeshConfig
+    from vision_collision_detection_tpu_torch.ops.flash_attention import (
+        FlashSelfAttention)
+    from vision_collision_detection_tpu_torch.parallel import (
+        ModelParallelStrategy, create_mesh)
+    from vision_collision_detection_tpu_torch.parallel.tp import (
+        full_state_dict, shard_state_dict)
+    from vision_collision_detection_tpu_torch.train import (
+        make_eval_step, make_train_step)
+
+    cfg = vivit_cfg()
+    T = cfg.data.num_frames
+    tp = ModelParallelStrategy(create_mesh(MeshConfig(num_model=2)))
+    model, state = tp_model(torch, cfg)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    state = tp.shard_state(model, state)
+    local = tuple(model.spatial_0.attn.query.weight.shape)
+    step, eval_step = tp.make_steps(model, cfg, None)
+    batch = vivit_noise_batch(torch, dev, T, VIVIT_BATCH, 14)
+    opt0 = copy.deepcopy(state.optimizer.state_dict())
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+
+    def tp_shards(sd):
+        return shard_state_dict(sd, tp.rules, tp.mesh.model_index, 2)
+
+    def run():
+        """One TP step from the initial weights; → metrics, the gradients
+        gathered."""
+        model.load_state_dict(tp_shards(init))
+        state.optimizer.load_state_dict(opt0)
+        state.step = 0
+        _, m = step(state, *batch, gen())
+        torch.cuda.synchronize()
+        g_ = full_state_dict({n_: p.grad for n_, p in
+                              model.named_parameters()}, tp.rules,
+                             tp.mesh.model_group, 2)
+        return {k: float(v) for k, v in m.items()}, {
+            k: v.float() for k, v in g_.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    metrics, grads = run()
+    step_s = time.perf_counter() - t0
+    launches = {"tp_step": expect_launches(
+        "tp step", counters, K4_fwd=VIVIT_BLOCKS, K4_bwd_dKdV=VIVIT_BLOCKS,
+        K4_bwd_dQ=VIVIT_BLOCKS, K4_bwd_di=VIVIT_BLOCKS)}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"TP step {metrics} in {step_s:.2f} s (the first, over gloo); the "
+        f"query weight cut to {local}; peak memory {peak / 1e9:.2f} GB")
+
+    def bias_before_sum(self, o):
+        B_, S_ = o.shape[:2]
+        return self.tp.exit(torch.nn.functional.linear(
+            o.reshape(B_, S_, -1), self.out.weight.to(self.dtype),
+            self.out.bias.to(self.dtype)))
+
+    with swapped((FlashSelfAttention, "project_out", bias_before_sum)):
+        fault_metrics, fault_grads = run()
+
+    # the forward: the TP evaluation of the initial weights
+    model.load_state_dict(tp_shards(init))
+    counters = zero_counters()
+    probs = eval_step(*batch)["probs"].float()
+    torch.cuda.synchronize()
+    launches["tp_eval"] = expect_launches("tp eval", counters, K1=1,
+                                          K4_fwd=VIVIT_BLOCKS)
+    with torch.no_grad():  # the head as phase 9 scales it
+        model.head.weight.mul_(LOGIT_SCALE / TP_LOGIT_SCALE)
+    probs_x10 = eval_step(*batch)["probs"].float()
+    model.load_state_dict(tp_shards(init))
+    full_sd, opt_sd = tp.full_state(model, state.optimizer)
+    CheckpointStore(os.path.join(out_dir, "tp_run")).save(
+        "best", arrays={"model": full_sd, "optimizer": opt_sd, "step": 0},
+        meta={"epoch": 0, "hyperparams": cfg.to_dict()})
+    out = {"launches": launches, "local_query": local, "metrics": metrics,
+           "first_step_s": step_s, "peak_mem_bytes": peak, "batch":
+           VIVIT_BATCH}
+    if rank == 0:
+        one, one_state = tp_model(torch, cfg)
+        one_step = make_train_step(one, cfg)
+        _, m1 = one_step(one_state, *batch, gen())
+        torch.cuda.synchronize()
+        one_grads = grads_of(torch, one)
+        loss_err = abs(metrics["loss"] - float(m1["loss"])) / abs(
+            float(m1["loss"]))
+
+        def verdict(errs):
+            loose = {n_: e for n_, e in errs.items()
+                     if n_.startswith("temporal_") and (
+                         ".attn.query." in n_ or ".attn.key." in n_)}
+            rest = max(((n_, e) for n_, e in errs.items() if n_ not in loose),
+                       key=lambda kv: kv[1])
+            return max(loose.items(), key=lambda kv: kv[1]), rest
+
+        loose, rest = verdict(rel_grad_errs(torch, grads, one_grads,
+                                            GRAD_FLOOR))
+        f_loss = abs(fault_metrics["loss"] - float(m1["loss"])) / abs(
+            float(m1["loss"]))
+        f_loose, f_rest = verdict(rel_grad_errs(torch, fault_grads,
+                                                one_grads, GRAD_FLOOR))
+        log(f"TP step against one device: loss rel {loss_err:.2e}, worst "
+            f"temporal query/key {loose} (tol {VIVIT_TEMPORAL_QK_TOL:.0e}), "
+            f"worst other {rest} (tol {VIVIT_TRAIN_TOL:.0e}); the out bias "
+            f"added on both ranks: loss rel {f_loss:.2e}, worst other "
+            f"{f_rest}")
+        if (loss_err > VIVIT_TRAIN_TOL or rest[1] > VIVIT_TRAIN_TOL
+                or loose[1] > VIVIT_TEMPORAL_QK_TOL):
+            raise SystemExit("the TP step disagrees with one device")
+        if not max(f_loss, f_rest[1]) > VIVIT_TRAIN_TOL:
+            raise SystemExit("the doubled out bias was not seen")
+        one.load_state_dict(init)
+        one_eval = make_eval_step(one, cfg)
+        def spread_of(p):
+            return float((p.max(0).values - p.min(0).values).max())
+
+        ref = one_eval(*batch)["probs"].float()
+        err, spread = float((probs - ref).abs().max()), spread_of(ref)
+        with torch.no_grad():
+            one.head.weight.mul_(LOGIT_SCALE / TP_LOGIT_SCALE)
+        ref = one_eval(*batch)["probs"].float()
+        err_x10 = float((probs_x10 - ref).abs().max())
+        spread_x10 = spread_of(ref)
+        one.load_state_dict(full_sd)
+        gathered = one_eval(*batch)["probs"].float().cpu()
+        torch.save({"probs": gathered},
+                   os.path.join(out_dir, "tp_gathered_probs.pt"))
+        log(f"TP forward against one device, with phase 9's "
+            f"×{LOGIT_SCALE:g} head: max |Δprob| {err_x10:.3e} (tol "
+            f"{TP_PROBS_TOL:.0e}; the probabilities spread "
+            f"{spread_x10:.3f}); with the step's ×{TP_LOGIT_SCALE:g} head "
+            f"{err:.3e} (no bound; spread {spread:.3f})")
+        if err_x10 > TP_PROBS_TOL:
+            raise SystemExit("the TP forward disagrees with one device")
+        out["vs_one_device"] = {
+            "loss_rel_err": loss_err, "worst_temporal_qk": loose,
+            "worst_other": rest, "fault_loss_rel_err": f_loss,
+            "fault_worst_other": f_rest, "probs_max_abs_err": err,
+            "probs_spread": spread, "probs_max_abs_err_head_x10": err_x10,
+            "probs_spread_head_x10": spread_x10}
+    return out
+
+
+def tp_served(torch, dev, tmp):
+    """Phase 21 on one card: ``from_checkpoint`` of the gathered TP weights
+    bit-equal to one device's forward of them."""
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+
+    cfg = vivit_cfg()
+    frames = vivit_noise_batch(torch, dev, cfg.data.num_frames, VIVIT_BATCH,
+                               14)[0]
+    pred = CollisionPredictor.from_checkpoint(os.path.join(tmp, "tp_run"))
+    probs = pred._make_forward(False)(frames).float().cpu()
+    want = torch.load(os.path.join(tmp, "tp_gathered_probs.pt"))["probs"]
+    err = float((probs - want).abs().max())
+    log(f"[tp] from_checkpoint of the gathered weights on one card: max "
+        f"|Δprob| {err:.3e} against their forward (bit-equal required)")
+    if not torch.equal(probs, want):
+        raise SystemExit("from_checkpoint of the TP run disagrees")
+    del pred
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err}
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
     the scaled ViViT, predict's batch loop, the sliding forward, the
     Trainer's run, the reference checkpoint's forwards in float32 and
     bf16, the BatchNorm backbones' forwards and step, the other heads'
-    forwards and steps, each counted from 0), with the split in
+    forwards and steps, and phases 20 and 21's ranks summed: the DP step
+    at world size 1 and on two ranks, the BatchNorm DP step, the DP
+    Trainer, the TP step and evaluation; each counted from 0), with the
+    split in
     ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass
@@ -4314,4 +5056,6 @@ def kernel_line(compare_rows, launches, timing):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(*sys.argv[2:4]))
     sys.exit(main())

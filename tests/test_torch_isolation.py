@@ -115,7 +115,8 @@ def _chip_smoke_modules():
 
 TRAINING_MODULES = [f"vision_collision_detection_tpu_torch.{m}" for m in (
     "train.trainer", "train.notebook", "obs.history", "obs.dashboard",
-    "obs.logging_utils", "obs.plots")]
+    "obs.logging_utils", "obs.plots", "parallel", "parallel.mesh",
+    "parallel.dp", "parallel.tp")]
 
 
 def test_chip_smoke_modules_import_without_pandas_or_matplotlib():

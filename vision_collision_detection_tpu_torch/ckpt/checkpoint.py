@@ -17,6 +17,12 @@ Roles are ``best``, ``last`` and ``epoch_N``. A save writes ``<role>.tmp``
 and renames it into place, so a reader never sees half a checkpoint. The
 arrays load with ``weights_only=True``: nothing in a checkpoint is unpickled
 as code.
+
+Several processes (``parallel/``): every process calls ``save`` with the
+same arrays (the full tensors, gathered under tensor parallelism), and only
+rank 0 touches the file system, between two barriers, the second after
+the rename; every process then sees the same roles and loads the same
+files (the JAX store's contract, ``ckpt/checkpoint.py:56-92``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from vision_collision_detection_tpu_torch.utils.distributed import (
+    sync_global_devices,
+)
 
 META_FILE = "vcd_meta.json"
 ARRAYS_FILE = "arrays.pt"
@@ -48,24 +59,34 @@ class CheckpointStore:
     def exists(self, role: str) -> bool:
         return os.path.isfile(os.path.join(self.path(role), ARRAYS_FILE))
 
+    @staticmethod
+    def _is_main() -> bool:
+        return not dist.is_initialized() or dist.get_rank() == 0
+
     def save(self, role: str, *, arrays: dict, meta: dict) -> str:
         """``arrays``: tensors, numpy arrays and scalars, and plain values
         (see the module docstring); any other leaf raises ``TypeError``
         before anything is written. ``meta``: JSON-serialisable, numpy
-        scalars and arrays, tuples and sets allowed. Returns the
-        checkpoint's directory."""
+        scalars and arrays, tuples and sets allowed. Every process calls
+        it; rank 0 writes. Returns the checkpoint's directory."""
+        # on every process, so that a leaf it refuses raises on all alike
         arrays = _loadable(arrays, "arrays")
+        main = self._is_main()
         target = self.path(role)
         tmp = target + ".tmp"
-        if os.path.isdir(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        torch.save(arrays, os.path.join(tmp, ARRAYS_FILE))
-        with open(os.path.join(tmp, META_FILE), "w") as f:
-            json.dump(meta, f, indent=2, default=_json_default)
-        if os.path.isdir(target):
-            shutil.rmtree(target)
-        os.replace(tmp, target)
+        sync_global_devices(f"ckpt-pre-{role}")
+        if main:
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            torch.save(arrays, os.path.join(tmp, ARRAYS_FILE))
+            with open(os.path.join(tmp, META_FILE), "w") as f:
+                json.dump(meta, f, indent=2, default=_json_default)
+            if os.path.isdir(target):
+                shutil.rmtree(target)
+            os.replace(tmp, target)
+        # every process sees the finished rename before it goes on
+        sync_global_devices(f"ckpt-post-{role}")
         return target
 
     def load(self, role: str, map_location=None) -> tuple:
@@ -77,6 +98,8 @@ class CheckpointStore:
         return path
 
     def _prune_epochs(self):
+        if not self._is_main():
+            return
         epochs = []
         for name in os.listdir(self.run_dir):
             if name.startswith("epoch_") and not name.endswith(".tmp"):

@@ -70,6 +70,10 @@ class TransformerBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp_fc1 = nn.Linear(dim, dim * mlp_ratio)
         self.mlp_fc2 = nn.Linear(dim * mlp_ratio, dim)
+        # the model group's collectives where tensor parallelism cuts the
+        # MLP (parallel/tp.py): mlp_fc1 holds this rank's hidden units,
+        # mlp_fc2 the matching input columns
+        self.tp = None
 
     def _stock_attention(self, x: torch.Tensor,
                          generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -105,8 +109,14 @@ class TransformerBlock(nn.Module):
             h = self._stock_attention(h, generator)
         x = x + h
         h = layer_norm(x, self.norm2, dt)
-        h = F.gelu(linear(h, self.mlp_fc1, dt), approximate="tanh")
-        return x + linear(h, self.mlp_fc2, dt)
+        if self.tp is None:
+            h = F.gelu(linear(h, self.mlp_fc1, dt), approximate="tanh")
+            return x + linear(h, self.mlp_fc2, dt)
+        h = F.gelu(linear(self.tp.enter(h), self.mlp_fc1, dt),
+                   approximate="tanh")
+        # the partial products summed over the model group, the bias once
+        h = self.tp.exit(F.linear(h, self.mlp_fc2.weight.to(dt)))
+        return x + (h + self.mlp_fc2.bias.to(dt))
 
 
 class ViViT(nn.Module):

@@ -362,7 +362,15 @@ class FlashSelfAttention(nn.Module):
     """Self-attention with the parameters of flax's
     ``MultiHeadDotProductAttention`` (query, key, value and out
     projections), the attention itself computed by ``flash_mha``. The
-    projections run in ``dtype``, as the flax ``DenseGeneral``s do."""
+    projections run in ``dtype``, as the flax ``DenseGeneral``s do.
+
+    Under tensor parallelism (``parallel/tp.py``) the query, key and value
+    projections hold this rank's heads (their output rows), the out
+    projection the matching input columns, and ``tp`` the model group's
+    collectives: ``tp.enter`` before the projections (its backward sums
+    the input's gradient over the group), ``tp.exit`` after the out
+    projection (its forward sums the partial products), whose bias is then
+    added once."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16):
         super().__init__()
@@ -375,23 +383,30 @@ class FlashSelfAttention(nn.Module):
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+        self.tp = None
 
     def heads(self, x: torch.Tensor):
-        """x [B, S, dim] → q, k, v, each [B, S, H, D] in ``dtype``."""
+        """x [B, S, dim] → q, k, v, each [B, S, H, D] in ``dtype``; H is
+        this rank's heads under tensor parallelism."""
         B, S, _ = x.shape
         x = x.to(self.dtype)
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        local_heads = self.query.weight.shape[0] // self.head_dim
         return tuple(
             nn.functional.linear(x, m.weight.to(self.dtype),
                                  m.bias.to(self.dtype)).view(
-                                     B, S, self.num_heads, self.head_dim)
+                                     B, S, local_heads, self.head_dim)
             for m in (self.query, self.key, self.value))
 
     def project_out(self, o: torch.Tensor) -> torch.Tensor:
         """o [B, S, H, D] → [B, S, dim] through the out projection."""
         B, S = o.shape[:2]
-        return nn.functional.linear(o.reshape(B, S, -1),
-                                    self.out.weight.to(self.dtype),
-                                    self.out.bias.to(self.dtype))
+        o = o.reshape(B, S, -1)
+        w, b = self.out.weight.to(self.dtype), self.out.bias.to(self.dtype)
+        if self.tp is None:
+            return nn.functional.linear(o, w, b)
+        return self.tp.exit(nn.functional.linear(o, w)) + b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self.heads(x)

@@ -17,8 +17,9 @@ masked out by ``sample_mask``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,9 +56,13 @@ class TrainState:
 def weighted_loss(logits: torch.Tensor, targets: torch.Tensor,
                   class_weights: torch.Tensor, sample_mask: torch.Tensor, *,
                   loss_type: str = "cross_entropy",
-                  label_smoothing: float = 0.0):
+                  label_smoothing: float = 0.0,
+                  weight_sum: Optional[Callable] = None):
     """(batch loss, per-sample losses). The batch loss is
-    Σ wᵢ·lossᵢ / max(Σ wᵢ, 1e-8), wᵢ = class_weights[targetᵢ]·maskᵢ."""
+    Σ wᵢ·lossᵢ / max(Σ wᵢ, 1e-8), wᵢ = class_weights[targetᵢ]·maskᵢ.
+    ``weight_sum`` (t → t summed over the data group) makes the
+    denominator the global batch's: each rank's loss is then its share of
+    the global loss, and the ranks' losses sum to it."""
     num_classes = logits.shape[-1]
     onehot = F.one_hot(targets, num_classes).to(logits.dtype)
     if label_smoothing > 0:
@@ -70,7 +75,8 @@ def weighted_loss(logits: torch.Tensor, targets: torch.Tensor,
     else:
         raise ValueError(f"unknown loss type {loss_type!r}")
     w = class_weights[targets] * sample_mask
-    denom = w.sum().clamp_min(1e-8)
+    denom = w.sum() if weight_sum is None else weight_sum(w.sum())
+    denom = denom.clamp_min(1e-8)
     return (per_sample * w).sum() / denom, per_sample
 
 
@@ -116,8 +122,77 @@ def _on(x, device):
     return None if x is None else torch.as_tensor(x).to(device)
 
 
+class SingleDeviceStrategy:
+    """Default strategy: one device, no collectives. Its contract is the JAX
+    trainer's (``num_data_shards``, ``data_shard_index``, ``make_steps``,
+    ``gather_eval``, ``to_host``, ``is_main``), plus what the port's
+    steps and checkpoints call: ``wrap``, ``data_sum``, ``grad_norm`` and
+    ``after_update`` inside ``make_train_step`` and ``make_eval_step``,
+    ``shard_state``, ``full_state`` and ``load_full_state`` in the
+    ``Trainer``. ``DataParallelStrategy`` and ``ModelParallelStrategy``
+    (``parallel/``) override the collectives."""
+
+    num_data_shards = 1
+    data_shard_index = 0
+    # always 1: the port runs one process per device, so ``batch_size`` is
+    # both the device's and the process's (kept for the JAX contract)
+    local_device_count = 1
+
+    def make_steps(self, model, cfg, class_weights):
+        return (
+            make_train_step(model, cfg, class_weights, parallel=self),
+            make_eval_step(model, cfg, class_weights, parallel=self),
+        )
+
+    def gather_eval(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return arrays
+
+    @staticmethod
+    def to_host(x) -> np.ndarray:
+        if isinstance(x, torch.Tensor):
+            return x.cpu().numpy()
+        return np.asarray(x)
+
+    @property
+    def is_main(self) -> bool:
+        return True
+
+    # ---- the steps' collectives ------------------------------------------
+    def wrap(self, model: torch.nn.Module) -> torch.nn.Module:
+        """The module the training forward calls."""
+        return model
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group."""
+        return t
+
+    def grad_norm(self, params: List[torch.nn.Parameter]) -> torch.Tensor:
+        """The global norm of the parameters' gradients."""
+        return global_norm([p.grad for p in params])
+
+    def after_update(self, model: torch.nn.Module) -> None:
+        """Called after each optimizer step."""
+
+    # ---- the model's state -----------------------------------------------
+    def shard_state(self, model: torch.nn.Module,
+                    state: TrainState) -> TrainState:
+        """Called once the model is built: the state as this process
+        holds it."""
+        return state
+
+    def full_state(self, model, optimizer):
+        """→ (model state dict, optimizer state dict) as a checkpoint holds
+        them."""
+        return model.state_dict(), optimizer.state_dict()
+
+    def load_full_state(self, model, optimizer, model_sd, optimizer_sd) -> None:
+        model.load_state_dict(model_sd, strict=True)
+        optimizer.load_state_dict(optimizer_sd)
+
+
 def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
-                    class_weights=None, preprocess: bool = True) -> Callable:
+                    class_weights=None, preprocess: bool = True, *,
+                    parallel=None) -> Callable:
     """→ step(state, frames, targets, sample_mask, generator, sensor=None)
     → (state, {"loss", "accuracy", "grad_norm"}), the metrics 0-d tensors
     on the model's device.
@@ -127,7 +202,15 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     augmentation, then the dropout masks. The step updates the model's
     parameters and ``state`` in place; ``grad_norm`` is the gradients'
     global norm before clipping. ``sensor`` [B, T_sensor, 4] reaches the
-    model where ``cfg.model.use_sensor`` is set and is ignored elsewhere."""
+    model where ``cfg.model.use_sensor`` is set and is ignored elsewhere.
+
+    ``parallel``: the strategy whose collectives the step calls
+    (``SingleDeviceStrategy`` by default). Its ``wrap`` gives the module
+    the forward calls (a ``DistributedDataParallel`` that sums the
+    gradients over the data group), ``data_sum`` makes the loss's denominator and the metrics the
+    global batch's, ``grad_norm`` takes the norm that clipping uses, and
+    ``after_update`` runs after the optimizer's step."""
+    parallel = parallel or SingleDeviceStrategy()
     device = next(model.parameters()).device
     aug_cfg = cfg.augment
     S = cfg.data.frame_size
@@ -137,6 +220,7 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     dtype = getattr(torch, cfg.model.dtype)
     params = [p for p in model.parameters() if p.requires_grad]
     use_sensor = cfg.model.use_sensor
+    forward = parallel.wrap(model)
 
     def step(state: TrainState, frames, targets, sample_mask,
              generator: torch.Generator, sensor=None):
@@ -150,38 +234,44 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
             x = frames
         extra = {"sensor": _on(sensor, device)} if use_sensor else {}
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(x, generator=generator, **extra)
+        logits = forward(x, generator=generator, **extra)
         loss, _ = weighted_loss(logits, targets, cw, sample_mask,
                                 loss_type=loss_type,
-                                label_smoothing=smoothing)
+                                label_smoothing=smoothing,
+                                weight_sum=parallel.data_sum)
         loss.backward()
-        grads = [p.grad for p in params]
-        if any(g is None for g in grads):
+        if any(p.grad is None for p in params):
             # the optimizer would skip these parameters without a word
             missing = [n for n, p in model.named_parameters()
                        if p.requires_grad and p.grad is None]
             raise RuntimeError(f"no gradient reached {missing}")
-        grad_norm = global_norm(grads)
+        grad_norm = parallel.grad_norm(params)
         if state.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, state.grad_clip_norm, grad_norm)
+            clip_by_global_norm_([p.grad for p in params],
+                                 state.grad_clip_norm, grad_norm)
         set_learning_rate(state.optimizer, state.schedule(state.step))
         state.optimizer.step()
+        parallel.after_update(model)
         state.step += 1
         with torch.no_grad():
-            preds = logits.argmax(-1)
-            correct = ((preds == targets) * sample_mask).sum()
-            count = sample_mask.sum().clamp_min(1.0)
-        return state, {"loss": loss.detach(), "accuracy": correct / count,
-                       "grad_norm": grad_norm}
+            correct = ((logits.argmax(-1) == targets) * sample_mask).sum()
+            loss, correct, count = parallel.data_sum(torch.stack(
+                [loss.detach(), correct, sample_mask.sum()])).unbind()
+        return state, {"loss": loss, "accuracy": correct / count.clamp_min(
+            1.0), "grad_norm": grad_norm}
 
     return step
 
 
 def make_eval_step(model: torch.nn.Module, cfg: ExperimentConfig,
-                   class_weights=None, preprocess: bool = True) -> Callable:
+                   class_weights=None, preprocess: bool = True, *,
+                   parallel=None) -> Callable:
     """→ step(frames, targets, sample_mask, sensor=None) → {"loss",
     "per_sample_loss", "probs", "preds"} on the model's device, in eval mode
-    without gradients; ``sensor`` as in ``make_train_step``."""
+    without gradients; ``sensor`` as in ``make_train_step``. Under a
+    ``parallel`` strategy the loss is the global batch's and the other
+    outputs are this rank's shard's."""
+    parallel = parallel or SingleDeviceStrategy()
     device = next(model.parameters()).device
     aug_cfg = cfg.augment
     S = cfg.data.frame_size
@@ -201,8 +291,10 @@ def make_eval_step(model: torch.nn.Module, cfg: ExperimentConfig,
         extra = {"sensor": _on(sensor, device)} if use_sensor else {}
         logits = model(x, **extra)
         loss, per_sample = weighted_loss(logits, targets, cw, sample_mask,
-                                         loss_type=loss_type)
-        return {"loss": loss, "per_sample_loss": per_sample,
+                                         loss_type=loss_type,
+                                         weight_sum=parallel.data_sum)
+        return {"loss": parallel.data_sum(loss),
+                "per_sample_loss": per_sample,
                 "probs": torch.softmax(logits, dim=-1),
                 "preds": logits.argmax(-1)}
 

@@ -25,8 +25,17 @@ and read at a ``log_every_steps`` window and at the end of the epoch, and
 an evaluation stashes its outputs and reads them once after its last
 batch.
 
-The parallel strategy is injected; ``SingleDeviceStrategy`` is the only
-one ported so far.
+The parallel strategy is injected: ``SingleDeviceStrategy`` (in
+``train/steps.py``, beside the step bodies that call its collectives),
+``DataParallelStrategy`` and ``ModelParallelStrategy`` in ``parallel/``
+(one process per device, launched by ``torchrun``). Its contract is the
+JAX trainer's: the loaders shard by ``num_data_shards`` and
+``data_shard_index`` (model peers of tensor parallelism read the same
+batch), each device takes ``batch_size`` clips, ``make_steps`` gives the
+steps, ``gather_eval`` joins the shards' evaluation outputs, and
+``is_main`` writes the artifacts; ``shard_state`` cuts the model after it
+is built (tensor parallelism), and ``full_state`` / ``load_full_state`` move
+the checkpoints' full tensors.
 """
 
 from __future__ import annotations
@@ -52,13 +61,11 @@ from vision_collision_detection_tpu_torch.obs.history import (
     save_predictions_csv,
 )
 from vision_collision_detection_tpu_torch.obs.logging_utils import (
-    process_rank,
     setup_logging,
 )
 from vision_collision_detection_tpu_torch.train.steps import (
+    SingleDeviceStrategy,
     create_train_state,
-    make_eval_step,
-    make_train_step,
 )
 from vision_collision_detection_tpu_torch.utils.device import resolve_device
 from vision_collision_detection_tpu_torch.utils.rng import derive_seed
@@ -68,8 +75,9 @@ FEED_KEYS = ("frames", "sensor", "target", "mask")
 
 def step_seed(seed: int, epoch: int, step: int, rank: int = 0) -> int:
     """The seed of the generator of training step ``step`` of ``epoch`` on
-    process ``rank``: the counterpart of the JAX trainer's two
-    ``fold_in``s of ``PRNGKey(seed)``."""
+    data shard ``rank``: the counterpart of the JAX trainer's two
+    ``fold_in``s of ``PRNGKey(seed)`` and its DP step's fold of the shard
+    index."""
     return derive_seed(seed, epoch * 131071 + step, rank)
 
 
@@ -79,32 +87,6 @@ def _with_mask(loader) -> Iterator[dict]:
     for batch in loader:
         yield dict(batch, mask=(~(batch["error"] | batch["pad"])).astype(
             np.float32))
-
-
-class SingleDeviceStrategy:
-    """Default strategy: one device, no collectives."""
-
-    num_data_shards = 1
-    data_shard_index = 0
-
-    def make_steps(self, model, cfg, class_weights):
-        return (
-            make_train_step(model, cfg, class_weights),
-            make_eval_step(model, cfg, class_weights),
-        )
-
-    def gather_eval(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        return arrays
-
-    @staticmethod
-    def to_host(x) -> np.ndarray:
-        if isinstance(x, torch.Tensor):
-            return x.cpu().numpy()
-        return np.asarray(x)
-
-    @property
-    def is_main(self) -> bool:
-        return True
 
 
 def _ids_to_bytes(ids, width: int = 256) -> np.ndarray:
@@ -133,8 +115,10 @@ class Trainer:
         strategy=None,
         device=None,
     ):
-        """``device``: where the model trains, the card by default; a CUDA
-        device without a card raises (tests pass ``"cpu"``)."""
+        """``device``: where the model trains, the card by default (under
+        ``torchrun`` the rank's card, made current by
+        ``maybe_initialize_distributed``); a CUDA device without a card
+        raises (tests pass ``"cpu"``)."""
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -159,24 +143,26 @@ class Trainer:
         shards = {"num_shards": self.strategy.num_data_shards,
                   "shard_index": self.strategy.data_shard_index,
                   "pad_partial": pad_partial}
+        # one process per device: the per-device batch is the process's
+        batch_size = dc.batch_size
         self.train_loader = ClipLoader(
-            train_ds, dc.batch_size, shuffle=True,
+            train_ds, batch_size, shuffle=True,
             drop_last=dc.drop_last_train, num_workers=dc.num_workers,
             prefetch_batches=dc.prefetch_depth, seed=dc.seed, **shards,
         )
         self.val_loader = ClipLoader(
-            val_ds, dc.batch_size, shuffle=False, drop_last=False,
+            val_ds, batch_size, shuffle=False, drop_last=False,
             num_workers=dc.num_workers, seed=dc.seed, mask_wrap=True,
             **shards,
         )
         self.mini_val_loader = ClipLoader(
-            val_ds, dc.batch_size, shuffle=True, drop_last=False,
+            val_ds, batch_size, shuffle=True, drop_last=False,
             num_workers=dc.num_workers, seed=dc.seed + 1, mask_wrap=True,
             **shards,
         )
         self.test_loader = (
             ClipLoader(
-                test_ds, dc.batch_size, shuffle=False, drop_last=False,
+                test_ds, batch_size, shuffle=False, drop_last=False,
                 num_workers=dc.num_workers, seed=dc.seed, mask_wrap=True,
                 **shards,
             )
@@ -191,6 +177,7 @@ class Trainer:
             cfg, torch.Generator().manual_seed(cfg.train.seed),
             self.steps_per_epoch, device=self.device,
         )
+        self.state = self.strategy.shard_state(self.model, self.state)
         self.train_step, self.eval_step = self.strategy.make_steps(
             self.model, cfg, self.class_weights
         )
@@ -269,11 +256,12 @@ class Trainer:
     # checkpoint plumbing
     # ------------------------------------------------------------------
     def _arrays(self) -> dict:
-        return {
-            "model": self.model.state_dict(),
-            "optimizer": self.state.optimizer.state_dict(),
-            "step": int(self.state.step),
-        }
+        """What a checkpoint holds: the full tensors on every process (a
+        collective under tensor parallelism)."""
+        model_sd, optimizer_sd = self.strategy.full_state(
+            self.model, self.state.optimizer)
+        return {"model": model_sd, "optimizer": optimizer_sd,
+                "step": int(self.state.step)}
 
     def _meta(self, epoch: int) -> dict:
         return {
@@ -292,8 +280,8 @@ class Trainer:
         self.store.save(role, arrays=self._arrays(), meta=self._meta(epoch))
 
     def _restore_arrays(self, arrays: dict) -> None:
-        self.model.load_state_dict(arrays["model"], strict=True)
-        self.state.optimizer.load_state_dict(arrays["optimizer"])
+        self.strategy.load_full_state(self.model, self.state.optimizer,
+                                      arrays["model"], arrays["optimizer"])
         self.state.step = int(arrays["step"])
 
     def _resume(self) -> None:
@@ -495,7 +483,7 @@ class Trainer:
         mini_every = (max(1, self.steps_per_epoch // tc.validation_freq)
                       if tc.validation_freq > 0 else 0)
         use_sensor = self.cfg.model.use_sensor
-        rank = process_rank()
+        shard = self.strategy.data_shard_index
         viz = self._viz
         generator = torch.Generator(device=self.device)
         self.train_loader.set_epoch(epoch)
@@ -503,7 +491,7 @@ class Trainer:
         n_steps = 0
         with self._feed(self.train_loader) as it:
             for step_i, batch in enumerate(it):
-                generator.manual_seed(step_seed(tc.seed, epoch, step_i, rank))
+                generator.manual_seed(step_seed(tc.seed, epoch, step_i, shard))
                 kw = {"sensor": batch["sensor"]} if use_sensor else {}
                 self.state, m = self.train_step(
                     self.state, batch["frames"], batch["target"],
