@@ -238,6 +238,19 @@ failure:
     land outside; the TP forward's probabilities within 2e-2 of one
     device's; the gathered checkpoint served by ``from_checkpoint`` on one
     card, bit-equal to one device's forward of the gathered weights.
+22. Serving bundles (``infer/aot.py``): phase 3's predictor (buckets 1, 8,
+    32) and phase 10's ViViT (buckets 1, 8) exported with ``torch.export``
+    (one program, its batch dynamic) under ``build/`` and served by
+    ``ServingBundle``: export s and bytes, cold start in a fresh process
+    against ``from_checkpoint`` in another, each bucket and a 9-clip
+    request against ``_make_forward`` within 1e-6, one bucket-8 call's
+    launches (K1 1, K2 18, K3 18; K1 1, K4 fwd 8), the program without
+    the bundle's float32 pin under torch's default cuDNN flags outside
+    1e-6, ms at bucket 8 against the forward in turns, the flagship
+    forward through the ``torch.library`` ops against the same calls
+    straight to the ops' implementations, in turns; then
+    ``cli.convert_weights --full`` on phase 17's ``.pth`` in a child
+    process, its ``.npz`` served bit-equal to phase 17.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -403,6 +416,8 @@ def main() -> int:
     vserve = vivit_serving(torch, dev)
     report["vivit_serving"] = vserve["summary"]
     report["vivit_forward"] = time_vivit_forward(torch, vserve)
+    # phase 10's predictor and batch, for phase 22
+    vivit = {"pred": vserve["pred"], "frames": vserve["frames"]}
     del vserve
     torch.cuda.empty_cache()
     vtrain = vivit_training(torch, dev)
@@ -425,6 +440,7 @@ def main() -> int:
 
     t0 = time.time()
     ref = reference_phase(torch, dev, flagship["frames"])
+    reference = ref.pop("served")  # phase 17's .pth and reading, for 22
     report["reference"] = ref
     launches["reference"] = ref["launches"]
     launches["reference_bf16"] = ref["launches_bf16"]
@@ -440,6 +456,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["parallel"], parallel_launches = parallel_phases(torch, dev)
     launches.update(parallel_launches)
+    t0 = time.time()
+    report["bundles"], bundle_launches = bundle_phase(
+        torch, dev, flagship, vivit, reference)
+    launches.update(bundle_launches)
+    report["phase_22_s"] = time.time() - t0
+    log(f"[phase 22] {report['phase_22_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
@@ -3687,6 +3709,7 @@ def reference_phase(torch, dev, frames):
     BatchNorm's running variance set to 1, the GRU's r and z gates
     swapped); K2 and K3 on float32 at the stage shapes; times against
     stock blocks and the bfloat16 model."""
+    import shutil
     import tempfile
 
     from vision_collision_detection_tpu_torch.config import ExperimentConfig
@@ -3722,6 +3745,10 @@ def reference_phase(torch, dev, frames):
 
         sd = ref.state_dict()
         path = save("reference.pth", sd)
+        # phase 22 converts it with the command line
+        kept = os.path.join(BUNDLE_DIR, "reference.pth")
+        os.makedirs(BUNDLE_DIR, exist_ok=True)
+        shutil.copyfile(path, kept)
         t0 = time.perf_counter()
         pred = CollisionPredictor.from_torch_checkpoint(path)
         out["load_s"] = time.perf_counter() - t0
@@ -3834,7 +3861,8 @@ def reference_phase(torch, dev, frames):
                 "f64_tol": REF_F64_TOL,
                 "defaults_bit_equal": bit_equal, "faults": seen,
                 "spread": spread, "compare_rows": compare_rows,
-                "kernel_timing": timing})
+                "kernel_timing": timing,
+                "served": {"pth": kept, "frames": frames, "probs": probs}})
     return out
 
 
@@ -4960,6 +4988,285 @@ def tp_served(torch, dev, tmp):
     del pred
     torch.cuda.empty_cache()
     return {"max_abs_err": err}
+
+
+# ---- 22. serving bundles and the command line ------------------------------
+
+BUNDLE_DIR = os.path.join(ROOT, "build", "chip_smoke_bundles")
+FLAGSHIP_BUCKETS = (1, 8, 32)
+VIVIT_BUCKETS = (1, 8)
+BUNDLE_TOL = 1e-6              # a bundle against the forward it exports
+BUNDLE_SPEED_BAND = 0.05       # bucket 8 against the forward: reported
+
+
+def served_like_bundle(torch, forward, buckets, clips):
+    """``forward`` over ``clips`` cut and zero-padded as ``ServingBundle``
+    does: the smallest bucket that holds what remains, else the largest."""
+    out, i, n = [], 0, clips.shape[0]
+    while i < n:
+        bucket = next((b for b in buckets if b >= n - i), buckets[-1])
+        take = min(n - i, bucket)
+        batch = torch.zeros((bucket, *clips.shape[1:]), dtype=torch.uint8,
+                            device=clips.device)
+        batch[:take] = clips[i:i + take]
+        out.append(forward(batch)[:take])
+        i += take
+    return torch.cat(out)
+
+
+# A serving host's cold start, in a fresh process: imports, then (the
+# card's context made and the batch on it first) for a bundle the import of
+# torch.export's loader, then the bundle or the checkpoint loaded and its
+# first call, each on the host's clock; cold_s is all but the imports.
+COLD_START = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+mode, path, frames_path, folded, out = sys.argv[1:6]
+if mode == "bundle":
+    from vision_collision_detection_tpu_torch.infer import ServingBundle
+else:
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+got = {"import_s": time.perf_counter() - t0, "loader_import_s": 0.0}
+frames = torch.load(frames_path).cuda()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+if mode == "bundle":
+    import torch._export.serde.serialize  # what torch.export.load imports
+    got["loader_import_s"] = time.perf_counter() - t0
+    bundle = ServingBundle(path)
+    got["load_s"] = time.perf_counter() - t0 - got["loader_import_s"]
+    probs = bundle.run(frames)
+else:
+    pred = CollisionPredictor.from_checkpoint(path)
+    got["load_s"] = time.perf_counter() - t0
+    probs = pred._make_forward(folded == "1")(frames)
+torch.cuda.synchronize()
+got["cold_s"] = time.perf_counter() - t0
+got["first_call_s"] = got["cold_s"] - got["loader_import_s"] - got["load_s"]
+got["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+torch.save(probs.cpu(), out + ".pt")
+json.dump(got, open(out, "w"))
+"""
+
+
+def cold_start(torch, mode, path, frames_path, folded, want):
+    """``COLD_START`` in a child process; its probabilities must agree with
+    ``want`` within BUNDLE_TOL."""
+    out = os.path.join(BUNDLE_DIR, f"cold_{mode}.json")
+    proc = subprocess.run(
+        [sys.executable, "-c", COLD_START, mode, path, frames_path,
+         "1" if folded else "0", out],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"cold start ({mode}) failed: {proc.stderr[-2000:]}")
+    with open(out) as f:
+        got = json.load(f)
+    probs = torch.load(out + ".pt")
+    got["max_abs_err"] = max_err(torch, probs, want.cpu())
+    got["bit_equal"] = torch.equal(probs, want.cpu())
+    if not got["max_abs_err"] <= BUNDLE_TOL:
+        raise SystemExit(f"cold start ({mode}): other probabilities")
+    return got
+
+
+def bundle_phase(torch, dev, flagship, vivit, reference):
+    """Phase 22: phase 3's flagship predictor (content 126×224, buckets 1,
+    8, 32) and phase 10's scaled ViViT (buckets 1, 8) exported as serving
+    bundles under ``build/`` (one program with a dynamic batch) and
+    reloaded by ``ServingBundle``: export and save s and ``.pt2`` bytes;
+    cold start in a fresh process each (``ServingBundle`` and the first
+    bucket-8 call, against ``from_checkpoint`` and the first forward;
+    ``COLD_START``); at each bucket the program against ``_make_forward``
+    on the same batch (BUNDLE_TOL), a 9-clip request as the bundle cuts
+    it; launches of one bucket-8 call (K1 1, K2 18, K3 18; K1 1, K4 8; all
+    on the Hopper kernels); the flagship program run without the bundle's
+    pin under torch's default cuDNN flags (the GRU in TF32) must land
+    outside BUNDLE_TOL, and with it bit-equal; ms per call at bucket 8
+    against ``_make_forward`` in turns; the flagship forward, whose kernel
+    calls go through their ``torch.library`` ops, against the same forward
+    with the ops swapped for their implementations, in turns (the
+    dispatch's cost; the training step enters no op). Then
+    ``cli.convert_weights --full`` on phase 17's ``.pth`` in a child
+    process, its ``.npz`` pair served by ``from_torch_checkpoint``
+    bit-equal to phase 17's probabilities."""
+    import shutil
+
+    from vision_collision_detection_tpu_torch.ckpt import CheckpointStore
+    from vision_collision_detection_tpu_torch.infer import (
+        ServingBundle, aot, export_bundle)
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.ops import library
+
+    out, launches = {}, {}
+    cases = (("flagship", flagship, FLAGSHIP_BUCKETS, CONTENT, True,
+              dict(K1=1, K2=18, K3=18)),
+             ("vivit", vivit, VIVIT_BUCKETS, VIVIT_CONTENT, False,
+              dict(K1=1, K4_fwd=VIVIT_BLOCKS)))
+    for tag, serve, buckets, box, folded, expected in cases:
+        pred, frames = serve["pred"], serve["frames"]
+        forward = pred._make_forward(folded)
+        path = os.path.join(BUNDLE_DIR, tag)
+        times = {}
+        real_export, real_save = torch.export.export, torch.export.save
+
+        def timed_export(*a, **k):
+            t0 = time.perf_counter()
+            program = real_export(*a, **k)
+            times["export_s"] = time.perf_counter() - t0
+            return program
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            real_save(*a, **k)
+            times["save_s"] = time.perf_counter() - t0
+
+        with swapped((torch.export, "export", timed_export),
+                     (torch.export, "save", timed_save)):
+            manifest = export_bundle(pred, path, buckets, content_box=box)
+        if manifest["platforms"] != [dev.type] or manifest["buckets"] != list(
+                buckets):
+            raise SystemExit(f"bundle {tag}: manifest {manifest}")
+        times["bytes"] = os.path.getsize(os.path.join(path, aot.PROGRAM))
+        log(f"[bundle {tag}] exported {times}")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle = ServingBundle(path)
+        load_s = time.perf_counter() - t0
+        first = bundle.run(frames)
+        torch.cuda.synchronize()
+
+        # cold start: a fresh process each for the bundle and for a
+        # checkpoint of the same weights
+        run = os.path.join(BUNDLE_DIR, f"{tag}_run")
+        CheckpointStore(run).save(
+            "best", arrays={"model": pred.model.state_dict()},
+            meta={"hyperparams": pred.cfg.to_dict()})
+        frames_path = os.path.join(BUNDLE_DIR, f"{tag}_frames.pt")
+        torch.save(frames.cpu(), frames_path)
+        cold = {"bundle": cold_start(torch, "bundle", path, frames_path,
+                                     folded, first),
+                "checkpoint": cold_start(torch, "checkpoint", run,
+                                         frames_path, folded, first)}
+        shutil.rmtree(run)
+        log(f"[bundle {tag}] cold start in a fresh process (s): "
+            f"{cold}; ServingBundle in this process {load_s:.3f} s")
+
+        # agreement at each bucket and on a 9-clip request
+        batches = {1: frames[:1], 8: frames,
+                   32: torch.cat([frames, frames.flip(1), 255 - frames,
+                                  frames.flip(3)])}
+        errs, equal = {}, {}
+        for B in buckets:
+            got, want = bundle.run(batches[B]), forward(batches[B])
+            errs[B], equal[B] = max_err(torch, got, want), torch.equal(
+                got, want)
+        request = torch.cat([frames, frames[:1].flip(2)])
+        got = torch.from_numpy(bundle.predict_probs(request))
+        want = served_like_bundle(torch, forward, buckets, request).cpu()
+        errs["request_9"], equal["request_9"] = max_err(
+            torch, got, want), torch.equal(got, want)
+        log(f"[bundle {tag}] against _make_forward: max |Δprob| {errs} "
+            f"(tol {BUNDLE_TOL:.0e}); bit-equal {equal}")
+        if not all(v <= BUNDLE_TOL for v in errs.values()):
+            raise SystemExit(f"bundle {tag} disagrees with the forward")
+
+        counters = zero_counters()
+        bundle.run(frames)
+        torch.cuda.synchronize()
+        launches[f"bundle_{tag}"] = expect_launches(f"bundle {tag}",
+                                                    counters, **expected)
+
+        entry = {"program": times, "load_s": load_s, "cold_start": cold,
+                 "max_abs_err": errs, "bit_equal": equal,
+                 "launches": launches[f"bundle_{tag}"]}
+        if tag == "flagship":
+            # the exported graph holds no cuDNN flag: the pin is the
+            # bundle's (run() enters Float32Pin around every call)
+            cudnn = torch.backends.cudnn
+            cudnn.allow_tf32 = True  # torch's default, for these two calls
+            try:
+                pinned = bundle.run(frames)
+                with torch.inference_mode():
+                    unpinned = bundle._program(frames)
+            finally:
+                cudnn.allow_tf32 = False
+            fault = max_err(torch, unpinned, first)
+            log(f"[bundle {tag}] under torch's default flags: pinned "
+                f"bit-equal {torch.equal(pinned, first)}; the pin removed "
+                f"(GRU in TF32): max |Δprob| {fault:.3e} (must exceed "
+                f"{BUNDLE_TOL:.0e})")
+            if not torch.equal(pinned, first) or not fault > BUNDLE_TOL:
+                raise SystemExit("bundle: the float32 pin does not hold")
+            entry["unpinned_fault_max_abs_err"] = fault
+
+            def straight():
+                with swapped(
+                        (library, "dequant_pad", library._k1._run),
+                        (library, "dwconv7x7", library._k2._forward),
+                        (library, "convnext_mlp", library._k3._eval)):
+                    return forward(frames)
+
+            if not torch.equal(straight(), forward(frames)):
+                raise SystemExit("the forward without its ops differs")
+            entry["dispatch_ab"] = in_turns(
+                torch, "dispatch A/B", {"straight": straight,
+                                        "through_ops": lambda: forward(
+                                            frames)},
+                lambda fn: median_ms(torch, fn, warmup=2, iters=10,
+                                     queued=False), frames.shape[0])
+            d = entry["dispatch_ab"]
+            entry["dispatch_cost"] = (d["through_ops"]["ms"]
+                                      / d["straight"]["ms"] - 1)
+            log(f"[dispatch A/B] the forward through the ops: "
+                f"{entry['dispatch_cost']:+.2%} of straight calls")
+
+        speed = in_turns(
+            torch, f"bundle {tag} speed",
+            {"bundle": lambda: bundle.run(frames),
+             "forward": lambda: forward(frames)},
+            lambda fn: median_ms(torch, fn, warmup=2, iters=10,
+                                 queued=False), frames.shape[0])
+        ratio = speed["bundle"]["ms"] / speed["forward"]["ms"] - 1
+        band = "within" if abs(ratio) <= BUNDLE_SPEED_BAND else "OUTSIDE"
+        log(f"[bundle {tag}] bucket 8: {speed['bundle']['ms']:.3f} ms "
+            f"against the forward's {speed['forward']['ms']:.3f} "
+            f"({ratio:+.2%}; {band} ±{BUNDLE_SPEED_BAND:.0%})")
+        entry.update(speed=speed, bundle_vs_forward=ratio)
+        out[tag] = entry
+        del bundle, first
+        torch.cuda.empty_cache()
+
+    # the command line: phase 17's .pth through convert_weights --full
+    npz = os.path.join(BUNDLE_DIR, "reference.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "vision_collision_detection_tpu_torch.cli.convert_weights",
+         "--torch-checkpoint", reference["pth"], "--full", "--output", npz],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True)
+    convert_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise SystemExit(f"convert_weights failed: {proc.stderr[-2000:]}")
+    pred = CollisionPredictor.from_torch_checkpoint(npz)
+    probs = pred._make_forward(True)(reference["frames"])
+    torch.cuda.synchronize()
+    err = max_err(torch, probs, reference["probs"])
+    log(f"[cli] {proc.stdout.strip()} in {convert_s:.2f} s; its .npz pair "
+        f"served against the .pth: max |Δprob| {err:.3e} (bit-equal "
+        f"required)")
+    if not torch.equal(probs, reference["probs"]):
+        raise SystemExit("convert_weights --full: the .npz serves otherwise")
+    out["convert_weights"] = {"s": convert_s, "max_abs_err": err}
+    del pred
+    shutil.rmtree(BUNDLE_DIR)
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def kernel_line(compare_rows, launches, timing):

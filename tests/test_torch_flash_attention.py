@@ -268,13 +268,19 @@ def test_kernel_path_keeps_the_graph(monkeypatch):
     stat = ((2, 6, 576), torch.float32)           # [B, H, S]
     assert seen_args["di"] == [operand] * 2       # o, do
     assert seen_args["dkv"] == seen_args["dq"] == [operand] * 4 + [stat] * 2
-    # without a gradient the forward alone runs, and saves no log-sum-exp
+    # without a gradient the call is the op vcd::flash_mha (swapped here for
+    # its implementation: the op gives a meta tensor its fake), which runs
+    # the forward alone and saves no log-sum-exp
+    from vision_collision_detection_tpu_torch.ops import library
+
     seen = []
     monkeypatch.setattr(fa, "_launch_fwd", lambda q, k, v, s, need_lse: (
         seen.append(need_lse) or fa._flash_fwd_plain(q, k, v, s, need_lse)))
+    monkeypatch.setattr(library, "flash_mha", lambda q, k, v, s: (
+        seen.append("op") or fa._forward(q, k, v, s)))
     with torch.no_grad():
         assert mod(x).grad_fn is None
-    assert seen == [False]
+    assert seen == ["op", False]
 
 
 def test_dispatch_has_no_hidden_fallback():
@@ -282,16 +288,18 @@ def test_dispatch_has_no_hidden_fallback():
     assert torch.equal(fa.flash_mha(q, q, q, 0.25),
                        fa.flash_mha_plain(q, q, q, 0.25))
     # off the CPU the kernels run or the call raises, at any length: what
-    # they do not take is refused, never handed to the plain version
+    # they do not take is refused, never handed to the plain version (the
+    # forward through its op's implementation: the op gives a meta tensor
+    # its fake)
     for bad in (torch.empty(2, 8, 2, 32, dtype=torch.bfloat16, device="meta"),
                 torch.empty(2, 8, 2, 64, dtype=torch.float16, device="meta")):
         with pytest.raises(ValueError, match="flash_mha kernels take"):
-            fa.flash_mha(bad, bad, bad, 1.0)
+            fa._forward(bad, bad, bad, 1.0)
         with pytest.raises(ValueError, match="flash_mha kernels take"):
             fa.flash_mha_bwd_di(bad, bad)
     meta = torch.empty(2, 8, 2, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fa.flash_mha(meta, meta, meta, 1.0)
+        fa._forward(meta, meta, meta, 1.0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa.flash_mha_bwd_di(meta, meta)
     with pytest.raises(ValueError, match="do must be"):

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "vision_collision_detection_tpu_torch"
 FORBIDDEN = {"jax", "flax", "optax", "orbax", "vision_collision_detection_tpu"}
@@ -218,3 +220,38 @@ def test_no_port_file_names_the_jax_media_sources():
            for i, line in enumerate(p.read_text().splitlines(), 1)
            if pattern.search(line)]
     assert not bad, bad
+
+
+# the serving bundle and the command line
+SERVING_MODULES = ("infer/aot.py", "ops/library.py", "obs/profiling.py",
+                   "cli/__init__.py", "cli/train.py", "cli/infer.py",
+                   "cli/grid_search.py", "cli/convert_weights.py")
+
+
+def _module_level_imports(path: Path):
+    """The modules a file imports when it is imported (its top-level
+    statements; imports inside functions are left out)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("name", SERVING_MODULES)
+def test_serving_and_cli_module_imports(name):
+    """Each is scanned for JAX imports above; the bundle's runtime
+    (``infer/aot.py``, ``ops/library.py``) loads nothing of the models or
+    the predictor, and no command loads pandas or matplotlib until it needs
+    them (the card's machine has neither)."""
+    path = PORT / name
+    roots = {n for _, n in _imported_roots(path)}
+    assert not roots & FORBIDDEN
+    imports = list(_module_level_imports(path))
+    assert not [m for m in imports
+                if m.split(".")[0] in ("pandas", "matplotlib")]
+    if name in ("infer/aot.py", "ops/library.py"):
+        assert not [m for m in imports if m.startswith(
+            ("vision_collision_detection_tpu_torch.models",
+             "vision_collision_detection_tpu_torch.infer.predictor"))]

@@ -102,10 +102,11 @@ def test_k1_plain_float32_matches_pallas():
 
 
 def test_k1_kernel_path_rejects_an_out_dtype_it_does_not_write():
-    # a tensor off the CPU takes the kernel path, which checks before launch
+    # a tensor off the CPU takes the kernel path of the op's implementation,
+    # which checks before launch (the op gives a meta tensor its fake)
     u8 = torch.empty(2, 18, 32, 3, dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="bf16 or float32"):
-        k1.dequant_normalize_pad(u8, 32, MEAN, STD, torch.float16)
+        k1._run(u8, 32, MEAN, STD, torch.float16)
 
 
 @pytest.mark.parametrize("use_kernel", ["force", "never"])

@@ -88,6 +88,41 @@ def sliding_windows(num_frames: int, fps: float, duration: float, T: int,
     return starts, native_per_window, indices
 
 
+def fold_stride(cfg: ExperimentConfig) -> int:
+    """The stride the decoder may keep frames at because the model would
+    subsample them anyway. A ViViT never subsamples, so its stride is 1:
+    the JAX predictor folds by ``frame_subsample`` for every backbone,
+    which hands a ViViT half the frames its unfolded forward sees."""
+    m = cfg.model
+    T = cfg.data.num_frames
+    if m.backbone.startswith("vivit"):
+        return 1
+    if m.frame_subsample > 1 and T > m.subsample_threshold:
+        return m.frame_subsample
+    return 1
+
+
+class ServingForward(torch.nn.Module):
+    """uint8 frames [B, T, ch, cw, 3] on the model's device → K1
+    (``eval_preprocess``) → ``model`` → softmax, float32 [B, C]: the
+    program the predictor serves and a serving bundle exports
+    (``infer/aot.py``). A content-sized batch takes K1 on every device
+    (its plain version on the CPU), so that a bundle and the forward it
+    was exported from are one program on the CPU as on the card."""
+
+    def __init__(self, model: torch.nn.Module, cfg: ExperimentConfig):
+        super().__init__()
+        self.model = model
+        self.augment = cfg.augment
+        self.frame_size = cfg.data.frame_size
+        self.dtype = getattr(torch, cfg.model.dtype)
+
+    def forward(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        x = eval_preprocess(frames_u8, self.augment, self.frame_size,
+                            self.dtype, use_kernel="force")
+        return torch.softmax(self.model(x).to(torch.float32), dim=-1)
+
+
 class CollisionPredictor:
     def __init__(self, cfg: ExperimentConfig,
                  state_dict: Optional[Mapping[str, torch.Tensor]],
@@ -115,35 +150,36 @@ class CollisionPredictor:
         self.class_names = tuple(cfg.data.class_names)
         self._forward_cache: Dict[object, object] = {}
 
+    def serving_module(self, folded_stride: bool) -> ServingForward:
+        """The ``ServingForward`` of this predictor's model. With
+        ``folded_stride`` the decoder already kept every k-th frame (k =
+        model.frame_subsample), so the model's own subsample is off; the
+        parameters are shared."""
+        key = ("module", bool(folded_stride))
+        if key not in self._forward_cache:
+            model = self.model
+            if folded_stride:
+                model = copy.copy(model)  # shares parameters and submodules
+                model.frame_subsample = 1
+            self._forward_cache[key] = ServingForward(model, self.cfg).eval()
+        return self._forward_cache[key]
+
     def _make_forward(self, folded_stride: bool):
         """uint8 frames [B, T, ch, cw, 3] (tensor or array) → probs [B, C]
-        float32 on the predictor's device. With ``folded_stride`` the
-        decoder already kept every k-th frame (k = model.frame_subsample),
-        so the model's own subsample is off; the parameters are shared."""
+        float32 on the predictor's device, through ``serving_module``."""
         key = bool(folded_stride)
         if key in self._forward_cache:
             return self._forward_cache[key]
-        model = self.model
-        if folded_stride:
-            model = copy.copy(model)  # shares parameters and submodules
-            model.frame_subsample = 1
+        module = self.serving_module(folded_stride)
         device = self.device
 
         @torch.inference_mode()
         def _forward(frames_u8):
-            x = torch.as_tensor(frames_u8).to(device, non_blocking=True)
-            return self._probs(model, x)
+            return module(torch.as_tensor(frames_u8).to(device,
+                                                        non_blocking=True))
 
         self._forward_cache[key] = _forward
         return _forward
-
-    def _probs(self, model, frames_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 frames on the device → K1 (``eval_preprocess``) → model →
-        softmax, float32."""
-        x = eval_preprocess(frames_u8, self.cfg.augment,
-                            self.cfg.data.frame_size,
-                            getattr(torch, self.cfg.model.dtype))
-        return torch.softmax(model(x).to(torch.float32), dim=-1)
 
     def _make_sliding_forward(self):
         """(unique frames uint8 [U, S, S, 3], window indices int64 [W, T],
@@ -153,11 +189,13 @@ class CollisionPredictor:
         if "sliding" in self._forward_cache:
             return self._forward_cache["sliding"]
 
+        module = self.serving_module(False)
+
         @torch.inference_mode()
         def fn(unique_u8, idx):
             windows = unique_u8.index_select(0, idx.reshape(-1))
             windows = windows.reshape(*idx.shape, *unique_u8.shape[1:])
-            return self._probs(self.model, windows)
+            return module(windows)
 
         self._forward_cache["sliding"] = fn
         return fn
@@ -182,18 +220,19 @@ class CollisionPredictor:
         return fn(pool, idx)[:w]
 
     def _fold_stride(self) -> int:
-        """The stride the decoder may keep frames at because the model
-        would subsample them anyway. A ViViT never subsamples, so its
-        stride is 1: the JAX predictor folds by ``frame_subsample`` for
-        every backbone, which hands a ViViT half the frames its unfolded
-        forward sees."""
-        m = self.cfg.model
-        T = self.cfg.data.num_frames
-        if m.backbone.startswith("vivit"):
-            return 1
-        if m.frame_subsample > 1 and T > m.subsample_threshold:
-            return m.frame_subsample
-        return 1
+        return fold_stride(self.cfg)
+
+    def export_serving(self, out_dir: str, batch_sizes=(1, 8, 32),
+                       content_box=None, platforms=None) -> dict:
+        """Export this predictor's serving forward into a ``ServingBundle``
+        directory (``infer/aot.py``): one ``torch.export`` program per batch
+        bucket with the weights embedded, reloadable without model code."""
+        from vision_collision_detection_tpu_torch.infer.aot import (
+            export_bundle,
+        )
+
+        return export_bundle(self, out_dir, batch_sizes=batch_sizes,
+                             content_box=content_box, platforms=platforms)
 
     def _content_box(self, sample_path: str):
         """Rectangular decode canvas = the letterbox content of this video:

@@ -2,7 +2,9 @@
 
 ``load_npz`` reads the flattened ``.npz`` tree that the JAX package's
 ``models/convert.py`` ``save_npz`` writes (keys are ``/``-joined paths), so
-the port needs neither JAX nor orbax to read it. ``from_flax_params`` maps a
+the port needs neither JAX nor orbax to read it; ``save_npz`` writes the
+same file, and ``convert_checkpoint_file`` turns a torchvision ``.pth``
+into one (``cli/convert_weights.py``). ``from_flax_params`` maps a
 flax variables tree (``params`` and, for the BatchNorm models,
 ``batch_stats``) of ``VideoClassifierModel``, ``ViViT`` or
 ``ReferenceVideoClassifier`` onto this package's ``state_dict``; the port's
@@ -58,10 +60,28 @@ _CELLS = {
 _CELL_NAME = re.compile(r"^(?:l(\d+)_)?(fw|bw)_cell$")
 
 
+def save_npz(tree: Mapping, path: str) -> None:
+    """Write a nested tree of arrays as the flat ``.npz`` (``/``-joined
+    keys) that the JAX package's ``save_npz`` writes and ``load_npz``
+    reads."""
+    np.savez(path, **_flatten(tree))
+
+
 def load_npz(path: str) -> Dict:
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return _unflatten(flat)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
 
 
 def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
@@ -227,3 +247,19 @@ def load_flax_params(model: torch.nn.Module, tree: Mapping) -> None:
         raise ValueError("model mixes depthwise-conv layouts across blocks")
     sd = from_flax_params(tree, dwconv_kernel=kinds.pop() if kinds else True)
     model.load_state_dict(sd, strict=True)
+
+
+def convert_checkpoint_file(pth_path: str, backbone: str,
+                            out_path: str) -> str:
+    """A torchvision ImageNet ``state_dict`` (``.pth``) → the backbone's
+    flax-layout ``.npz`` (checked against the manifest first), which
+    ``load_pretrained_backbone`` reads; returns ``out_path``."""
+    from vision_collision_detection_tpu_torch.models.import_torch import (
+        convert_torch_state_dict,
+    )
+
+    sd = torch.load(pth_path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    save_npz(convert_torch_state_dict(sd, backbone, validate=True), out_path)
+    return out_path

@@ -497,3 +497,23 @@ def convert_reference_checkpoint(checkpoint: Dict) -> Tuple[Dict, Dict]:
     params.update(cls_params)
     stats.update(cls_stats)
     return hp, {"params": params, "batch_stats": stats}
+
+
+def import_checkpoint_file(pth_path: str, out_path: Optional[str] = None
+                           ) -> Tuple[Dict, Dict]:
+    """A reference training checkpoint (``.pth``) → (hyperparams,
+    variables); with ``out_path``, also written as the ``.npz`` and its
+    ``.npz.hyperparams.json`` sidecar that
+    ``CollisionPredictor.from_torch_checkpoint`` reads. The ``.pth`` is
+    read with ``weights_only=False``: load only files you trust."""
+    import torch
+
+    from vision_collision_detection_tpu_torch.models.convert import save_npz
+
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=False)
+    hp, variables = convert_reference_checkpoint(ckpt)
+    if out_path:
+        save_npz(variables, out_path)
+        with open(str(out_path) + ".hyperparams.json", "w") as f:
+            json.dump(hp, f, indent=2)
+    return hp, variables

@@ -1,7 +1,8 @@
 """Plot artifacts. Counterpart of ``vision_collision_detection_tpu/obs/
-plots.py``; so far the training curves the ``Trainer`` renders after a run
-and the confusion matrix that ``evaluate`` and ``Trainer.test`` render.
-matplotlib is imported inside the functions (headless, Agg)."""
+plots.py``; so far the training curves the ``Trainer`` renders after a run,
+the confusion matrix that ``evaluate`` and ``Trainer.test`` render, and the
+grid-search summary of ``cli/grid_search.py``. matplotlib is imported
+inside the functions (headless, Agg)."""
 
 from __future__ import annotations
 
@@ -73,6 +74,41 @@ def plot_confusion_matrix(cm, class_names: Sequence[str], out_path: str,
             ax.text(j, i, val, ha="center", va="center",
                     color="white" if cm[i, j] > thresh else "black")
     fig.colorbar(im)
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+    return out_path
+
+
+def plot_grid_search(results_df, out_path: str,
+                     metric: str = "best_val_loss") -> str:
+    """A bar per experiment of ``results_df`` (a DataFrame with
+    ``experiment`` and ``metric`` columns) and, where it has ``backbone``
+    and ``temporal_mode`` columns, a backbone × temporal-mode heatmap of the
+    least ``metric``; returns ``out_path``."""
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, 2, figsize=(13, 4.5))
+    df = results_df.sort_values(metric)
+    axes[0].barh(df["experiment"], df[metric], color="#3b6fb5")
+    axes[0].set_xlabel(metric)
+    axes[0].invert_yaxis()
+    axes[0].grid(alpha=0.3, axis="x")
+
+    if {"backbone", "temporal_mode"} <= set(df.columns):
+        pivot = df.pivot_table(index="backbone", columns="temporal_mode",
+                               values=metric, aggfunc="min")
+        im = axes[1].imshow(pivot.values, cmap="viridis_r")
+        axes[1].set_xticks(range(len(pivot.columns)), pivot.columns)
+        axes[1].set_yticks(range(len(pivot.index)), pivot.index)
+        for i in range(pivot.shape[0]):
+            for j in range(pivot.shape[1]):
+                v = pivot.values[i, j]
+                if np.isfinite(v):
+                    axes[1].text(j, i, f"{v:.3f}", ha="center", va="center",
+                                 color="white")
+        fig.colorbar(im, ax=axes[1])
+        axes[1].set_title(f"min {metric}")
     fig.tight_layout()
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     fig.savefig(out_path, dpi=120)

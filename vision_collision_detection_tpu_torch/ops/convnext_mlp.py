@@ -319,11 +319,22 @@ def convnext_mlp(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
 
     Where a gradient is needed, the call goes through ``_ConvNeXtMLP``: the
     train variant, then the torch backward. Otherwise a CPU tensor takes
-    the plain version and a CUDA tensor launches the eval kernel."""
+    the plain version and a CUDA tensor launches the eval kernel, through
+    the op ``vcd::convnext_mlp`` (``ops/library.py``), whose implementation
+    is ``_eval``, so that ``torch.export`` can trace it."""
     args = (x, y, ln_w, ln_b, w1, b1, w2, b2, gamma)
     _check(*args)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _ConvNeXtMLP.apply(*args, approximate)
+    from vision_collision_detection_tpu_torch.ops import library
+
+    return library.convnext_mlp(*args, bool(approximate))
+
+
+def _eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
+    """K3's eval variant on real tensors: the plain version on the CPU, the
+    kernel on the card."""
+    args = (x, y, ln_w, ln_b, w1, b1, w2, b2, gamma)
     if x.device.type == "cpu":
         return convnext_mlp_plain(*args, approximate)
     return _launch_eval(*args, approximate)

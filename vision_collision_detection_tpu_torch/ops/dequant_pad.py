@@ -66,7 +66,21 @@ def dequant_normalize_pad(frames_u8: torch.Tensor, target_size: int,
     """K1. A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel, which writes bf16 or float32 and raises for another
     ``out_dtype``. Returns a contiguous [..., S, S, 3] tensor, so
-    ``.permute(0, 3, 1, 2)`` of a frame batch is a channels_last NCHW view."""
+    ``.permute(0, 3, 1, 2)`` of a frame batch is a channels_last NCHW view.
+    The call is the op ``vcd::dequant_pad`` (``ops/library.py``), whose
+    implementation is ``_run``, so that ``torch.export`` can trace it."""
+    _check_shape(frames_u8, target_size)
+    from vision_collision_detection_tpu_torch.ops import library
+
+    return library.dequant_pad(frames_u8, int(target_size),
+                               [float(m) for m in mean],
+                               [float(s) for s in std], out_dtype)
+
+
+def _run(frames_u8: torch.Tensor, target_size: int, mean, std,
+         out_dtype) -> torch.Tensor:
+    """K1 on a real tensor: the plain version on the CPU, the kernel on
+    the card."""
     if frames_u8.device.type == "cpu":
         return dequant_normalize_pad_plain(frames_u8, target_size, mean, std,
                                            out_dtype)

@@ -271,12 +271,16 @@ def dwconv7x7(x: torch.Tensor, w: torch.Tensor,
     kernel of ``route`` (``hopper_launches`` counts those that took
     ``dwconv_hopper.cu``). Where a gradient is needed, the call goes through ``_DwConv7x7``,
     whose backward launches the forward kernel once more (dx) and the
-    weight-gradient kernel."""
+    weight-gradient kernel. Otherwise the call is the op ``vcd::dwconv7x7``
+    (``ops/library.py``), whose implementation is ``_forward``, so that
+    ``torch.export`` can trace it."""
     _check(x, w, b)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                     or b.requires_grad):
         return _DwConv7x7.apply(x, w, b)
-    return _forward(x, w, b)
+    from vision_collision_detection_tpu_torch.ops import library
+
+    return library.dwconv7x7(x, w, b)
 
 
 dwconv7x7.launches = 0

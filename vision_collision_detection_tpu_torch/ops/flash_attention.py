@@ -342,11 +342,21 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Where a gradient is needed, the call goes through ``_FlashMHA``.
     Otherwise a CPU tensor takes the plain version and a CUDA tensor
-    launches the forward kernel."""
+    launches the forward kernel, through the op ``vcd::flash_mha``
+    (``ops/library.py``), whose implementation is ``_forward``, so that
+    ``torch.export`` can trace it."""
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashMHA.apply(q, k, v, sm_scale)
+    from vision_collision_detection_tpu_torch.ops import library
+
+    return library.flash_mha(q, k, v, float(sm_scale))
+
+
+def _forward(q, k, v, sm_scale: float) -> torch.Tensor:
+    """K4's forward without its log-sum-exp on real tensors: the plain
+    version on the CPU, the kernel on the card."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, sm_scale)
     return _launch_fwd(q, k, v, sm_scale, need_lse=False)[0]

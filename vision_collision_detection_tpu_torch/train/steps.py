@@ -287,7 +287,9 @@ def make_eval_step(model: torch.nn.Module, cfg: ExperimentConfig,
         frames = torch.as_tensor(frames).to(device, non_blocking=True)
         targets = torch.as_tensor(targets).to(device, torch.int64)
         sample_mask = torch.as_tensor(sample_mask).to(device, torch.float32)
-        x = eval_preprocess(frames, aug_cfg, S, dtype) if preprocess else frames
+        # K1 on every device, as the predictor serves (``ServingForward``)
+        x = (eval_preprocess(frames, aug_cfg, S, dtype, use_kernel="force")
+             if preprocess else frames)
         extra = {"sensor": _on(sensor, device)} if use_sensor else {}
         logits = model(x, **extra)
         loss, per_sample = weighted_loss(logits, targets, cw, sample_mask,
