@@ -251,6 +251,21 @@ failure:
     straight to the ops' implementations, in turns; then
     ``cli.convert_weights --full`` on phase 17's ``.pth`` in a child
     process, its ``.npz`` served bit-equal to phase 17.
+23. The attention view (``obs/viz.py``): phase 19's ConvNeXt-tiny +
+    attention model (bf16), its query and key projections scaled so the
+    attention logits spread over the keys, on seeded uint8 clips [8, 25,
+    126, 224, 3] whose frames differ, through eval preprocessing and
+    ``extract_attention_weights``: launches K1 1, K2 18, K3 18 on the
+    Hopper kernels and nothing else; logits bit-equal to the forward;
+    rows summing to 1; the per-frame importance [8, 25] and the full
+    matrix [8, 4, 25, 25] against the same call on plain versions, where
+    the previous call's matrix (another batch) and the mean over keys must
+    land outside; the view against the forward in turns; the overlay's
+    frames on clip 0. The MP4, HTML and PNG only where FFmpeg and
+    matplotlib exist (elsewhere one "not run" line). Then
+    ``scripts/run_training_torch.sh distributed 4`` through a recording
+    PYTHON (``--nproc-per-node`` the card count, the global batch echoed)
+    and, where FFmpeg exists, its ``check``.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -462,6 +477,9 @@ def main() -> int:
     launches.update(bundle_launches)
     report["phase_22_s"] = time.time() - t0
     log(f"[phase 22] {report['phase_22_s']:.1f} s")
+    report["attention_view"] = attention_view_phase(torch, dev)
+    launches["attention_view"] = report["attention_view"]["launches"]
+    log(f"[phase 23] {report['attention_view']['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
@@ -5269,6 +5287,326 @@ def bundle_phase(torch, dev, flagship, vivit, reference):
     return out, launches
 
 
+# ---- 23. the attention view and the launcher ---------------------------------
+
+# Phase 23 (a): ``extract_attention_weights`` on the kernels against the
+# same call on plain versions, absolute: the per-frame importance [8, 25]
+# (ATTN_TOL) and the full matrix [8, 4, 25, 25] (ATTN_FULL_TOL). The
+# blocks' bf16 flips move the head's input, and the attention logits,
+# spread to a standard deviation of ATTN_LOGIT_STD over the keys, carry
+# them into the weights. On an H100 at std 3 they read 1.116e-2 per frame
+# and 6.811e-2 on the full matrix (the same in two calls); at std 2, 5 and
+# 8: 9.5e-3, 1.47e-2, 3.30e-2 per frame, the spread growing more slowly.
+ATTN_TOL = 1.5e-2
+ATTN_FULL_TOL = 1e-1
+ATTN_LOGIT_STD = 3.0           # of the attention logits over the keys
+ATTN_SPREAD_MIN = 10 * ATTN_TOL  # least max − min over T of any clip's importance
+ATTN_ROW_TOL = 1e-5            # every row of the matrix sums to 1
+ATTN_TIME_BAND = 0.03          # the view against the forward: predicted
+ATTN_SEED = 41                 # phase 19's attention model (redraw_weights)
+LAUNCHER_BATCH = 8             # run_training_torch.sh's default BATCH_SIZE
+
+# A PYTHON for scripts/run_training_torch.sh that runs ``-c`` with the real
+# interpreter (the device count) and records every other call's arguments.
+LAUNCHER_STUB = """#!/bin/sh
+if [ "$1" = "-c" ]; then exec "$VCD_REAL_PYTHON" "$@"; fi
+printf '%s\\n' "$*" >> "$VCD_STUB_LOG"
+"""
+
+
+def frame_clips(torch, dev, B, T, content, seed):
+    """Seeded uint8 clips [B, T, *content, 3] whose every frame shows its own
+    smooth random image under noise (``distinct_clips`` per frame), so that
+    the frames' features differ and the attention has something to weigh."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand(B * T, 3, 4, 7, generator=g) * 255
+    smooth = F.interpolate(coarse, size=content, mode="bilinear",
+                           align_corners=False)
+    noise = torch.rand(B * T, 3, *content, generator=g) * 64 - 32
+    clips = (smooth + noise).clamp(0, 255).to(torch.uint8)
+    return clips.permute(0, 2, 3, 1).reshape(B, T, *content, 3).contiguous(
+        ).to(dev)
+
+
+def spread_attention(torch, model, x):
+    """Scale the attention head's query and key projections (weights and
+    biases) by s, so that the attention logits on ``x`` have a standard
+    deviation over the keys of ATTN_LOGIT_STD (the logits scale by s²):
+    seeded weights leave them close to uniform, and the importance of each
+    frame nearly flat. → s."""
+    from vision_collision_detection_tpu_torch.models import temporal
+
+    head = model.temporal
+    seen = []
+    hook = head.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        hook.remove()
+    feats = seen[0]
+    B, T, D = feats.shape
+    H = head.num_heads
+    with torch.no_grad():
+        h = feats.to(head.dtype) + head.pos_embedding[:T].to(head.dtype)
+
+        def heads(fc):
+            return temporal.linear(h, fc, head.dtype).reshape(
+                B, T, H, D // H).transpose(1, 2).float()
+
+        logits = heads(head.query) @ heads(head.key).transpose(-1, -2)
+        logits = logits / math.sqrt(D // H)
+        std = float(logits.std(dim=-1).mean())
+        s = math.sqrt(ATTN_LOGIT_STD / std)
+        for fc in (head.query, head.key):
+            fc.weight.mul_(s)
+            fc.bias.mul_(s)
+    return s
+
+
+def attention_view_phase(torch, dev):
+    """Phase 23: ConvNeXt-tiny + the attention head (4 heads) + MLP, bf16,
+    phase 19's attention model (seed ATTN_SEED), its query and key scaled
+    by ``spread_attention``, on seeded uint8 clips [8, 25, 126, 224, 3]
+    (``frame_clips``) through eval preprocessing (K1) and
+    ``obs.viz.extract_attention_weights``: launches K1 1, K2 18, K3 18 on
+    the Hopper kernels and nothing else; the logits bit-equal to
+    ``model(x)``; rows summing to 1 (ATTN_ROW_TOL); the per-frame form the
+    full matrix's mean over heads and queries; both against the same call
+    on plain versions (ATTN_TOL per frame, ATTN_FULL_TOL on the matrix),
+    where the matrix of the previous call on another batch and the mean
+    over keys (1/T) must land outside, and each clip's importance must
+    spread across frames (ATTN_SPREAD_MIN). The view
+    against the forward in turns; the overlay's frames on clip 0. The
+    MP4s, HTML and PNG where FFmpeg and matplotlib are installed. (b) The
+    launcher's ``distributed 4`` through a recording PYTHON, and its
+    ``check`` where FFmpeg is installed."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+    from vision_collision_detection_tpu_torch.obs import viz
+    from vision_collision_detection_tpu_torch.ops import (
+        convnext_mlp, dequant_pad, dwconv, preprocess)
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        eval_preprocess)
+
+    t_start = time.time()
+    cfg = ExperimentConfig().override({"model.temporal_mode": "attention"})
+    pred = CollisionPredictor(cfg, None)
+    redraw_weights(torch, pred.model, torch.Generator().manual_seed(ATTN_SEED))
+    model = pred.model
+    model.frame_subsample = 1  # the clips are folded already
+    T = cfg.data.num_frames // pred._fold_stride()
+    frames = frame_clips(torch, dev, 8, T, CONTENT, seed=23)
+    other = frame_clips(torch, dev, 8, T, CONTENT, seed=24)
+
+    def prep(u8):
+        return eval_preprocess(u8, cfg.augment, cfg.data.frame_size,
+                               torch.bfloat16)
+
+    scale = spread_attention(torch, model, prep(frames))
+
+    counters = zero_counters()
+    x = prep(frames)
+    logits, full = viz.extract_attention_weights(model, x, per_frame=False)
+    torch.cuda.synchronize()
+    launches = expect_launches("attention view", counters, K1=1, K2=18,
+                               K3=18)
+    _, per = viz.extract_attention_weights(model, x)
+    with torch.no_grad():
+        forward_logits = model(x)
+    logits_equal = bool(torch.equal(logits, forward_logits))
+    row_err = float(np.abs(full.sum(-1) - 1).max())
+    per_is_mean = bool(np.array_equal(per, full.mean(axis=(1, 2))))
+
+    with swapped((convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
+                 (convnext, "convnext_mlp", convnext_mlp.convnext_mlp_plain),
+                 (preprocess, "dequant_normalize_pad",
+                  dequant_pad.dequant_normalize_pad_plain)):
+        _, plain_full = viz.extract_attention_weights(model, prep(frames),
+                                                      per_frame=False)
+    plain_per = plain_full.mean(axis=(1, 2))
+    full_err = float(np.abs(full - plain_full).max())
+    per_err = float(np.abs(per - plain_per).max())
+    spreads = (per.max(1) - per.min(1)).tolist()
+    # the check's power: the previous call's matrix, on another batch, and
+    # the importance averaged over keys instead of queries (1/T everywhere)
+    _, stale = viz.extract_attention_weights(model, prep(other),
+                                             per_frame=False)
+    faults = {
+        "previous_call_full": float(np.abs(stale - plain_full).max()),
+        "previous_call_per_frame": float(
+            np.abs(stale.mean(axis=(1, 2)) - plain_per).max()),
+        "mean_over_keys": float(np.abs(full.mean(axis=(1, 3))
+                                       - plain_per).max())}
+    log(f"[attention view] query/key scaled by {scale:.4f}; launches "
+        f"{launches}; logits bit-equal to the forward: {logits_equal}; "
+        f"row sums within {row_err:.2e}; per-frame form the mean: "
+        f"{per_is_mean}")
+    log(f"[attention view] kernels vs plain: full matrix {full_err:.3e} "
+        f"(tol {ATTN_FULL_TOL:.0e}), per frame {per_err:.3e} (tol "
+        f"{ATTN_TOL:.1e}); importance spread over T per clip "
+        f"{[round(v, 4) for v in spreads]} (min {ATTN_SPREAD_MIN:.2f}); "
+        f"faults {faults} (each must exceed its tol)")
+    out = {"qk_scale": scale, "launches": launches,
+           "logits_bit_equal": logits_equal, "row_sum_err": row_err,
+           "per_frame_is_mean": per_is_mean, "tol": ATTN_TOL,
+           "full_tol": ATTN_FULL_TOL,
+           "full_err": full_err, "per_frame_err": per_err,
+           "spread_per_clip": spreads, "faults": faults,
+           "importance_clip0": per[0].tolist()}
+    if not (logits_equal and per_is_mean and row_err <= ATTN_ROW_TOL):
+        raise SystemExit(f"attention view: {out}")
+    if full_err > ATTN_FULL_TOL or per_err > ATTN_TOL:
+        raise SystemExit("attention view disagrees with its plain version")
+    if min(spreads) < ATTN_SPREAD_MIN:
+        raise SystemExit(f"attention too flat to test with ({spreads})")
+    if not (faults["previous_call_full"] > ATTN_FULL_TOL
+            and faults["previous_call_per_frame"] > ATTN_TOL
+            and faults["mean_over_keys"] > ATTN_TOL):
+        raise SystemExit(f"the tolerance does not see a fault: {faults}")
+
+    def view():
+        return viz.extract_attention_weights(model, x)
+
+    def forward():
+        with torch.no_grad():
+            return model(x)
+
+    def forward_synced():
+        # the forward waited for, as a caller that reads its logits does:
+        # the view's copy to the host drains the queue the same way
+        y = forward()
+        torch.cuda.synchronize()
+        return y
+
+    out["timing"] = in_turns(
+        torch, "attention view", {"view": view, "forward": forward,
+                                  "forward_synced": forward_synced},
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10, queued=False), 8)
+    ms = {k: v["ms"] for k, v in out["timing"].items()}
+    ratio = ms["view"] / ms["forward"] - 1
+    out["view_over_forward"] = ratio
+    out["view_over_forward_synced"] = ms["view"] / ms["forward_synced"] - 1
+    log(f"[attention view] the view {ratio * 100:+.2f}% of the forward "
+        f"(predicted within +{ATTN_TIME_BAND * 100:.0f}%: one "
+        f"{full.nbytes} B copy to the host; reported, not enforced), "
+        f"{out['view_over_forward_synced'] * 100:+.2f}% of the forward "
+        f"followed by a synchronise")
+
+    # the overlay's frames on clip 0: brightness, and a bar filled in
+    # proportion to each frame's min-max normalised weight
+    clip = frames[0].cpu().numpy()
+    over = viz._overlay_frames(clip, per[0])
+    w = per[0].astype(np.float32)
+    w_norm = (w - w.min()) / max(float(w.max() - w.min()), 1e-8)
+    fills = [int(v * clip.shape[2]) for v in w_norm]
+    bar_ok = over.shape == clip.shape and over.dtype == np.uint8 and all(
+        bool(np.all(over[i, -8:, :f] == (255, 64, 64)))
+        and not bool(np.all(over[i, -8:, f:f + 1] == (255, 64, 64)))
+        for i, f in enumerate(fills) if f < clip.shape[2])
+    bar_ok = bar_ok and max(fills) == clip.shape[2] and min(fills) == 0
+    out["overlay"] = {"shape": list(over.shape), "fills": fills,
+                      "bar_ok": bar_ok}
+    log(f"[attention view] overlay {over.shape}, bar widths {fills}")
+    if not bar_ok:
+        raise SystemExit(f"overlay frames: {out['overlay']}")
+
+    ffmpeg = bool(shutil.which("pkg-config")) and subprocess.run(
+        ["pkg-config", "--exists", "libavformat"]).returncode == 0
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    if not (ffmpeg and mpl):
+        missing = " / ".join(n for n, have in (("no FFmpeg", ffmpeg),
+                                               ("no matplotlib", mpl))
+                             if not have)
+        line = {"attention_artifacts":
+                f"not run: {missing} on this machine"}
+        print(json.dumps(line), flush=True)
+        out["artifacts"] = line["attention_artifacts"]
+    with tempfile.TemporaryDirectory() as tmp:
+        made = {}
+        if ffmpeg:
+            made["mp4"] = viz.render_attention_overlay(
+                clip, per[0], os.path.join(tmp, "overlay.mp4"))
+            made["html"] = viz.export_batch_preview(
+                {"frames": frames[:2].cpu().numpy(), "id": ["a", "b"]}, tmp)
+        if mpl:
+            made["png"] = viz.plot_attention_heatmap(
+                full, os.path.join(tmp, "heatmap.png"))
+        sizes = {k: os.path.getsize(p) for k, p in made.items()}
+        if made:
+            out["artifact_bytes"] = sizes
+            log(f"[attention view] artifacts {sizes}")
+        if not all(sizes.values()):
+            raise SystemExit(f"empty artifact: {sizes}")
+    del pred, model, x
+    torch.cuda.empty_cache()
+    out["launcher"] = launcher_phase(ffmpeg)
+    out["phase_s"] = time.time() - t_start
+    return out
+
+
+def launcher_phase(ffmpeg):
+    """scripts/run_training_torch.sh in child processes: ``distributed 4``
+    through LAUNCHER_STUB on this machine's cards, which must launch one
+    process per card (``--nproc-per-node 1`` on one card) and echo the
+    batch they share; ``check`` where FFmpeg is installed (the media
+    library is built there), else "not run"."""
+    import tempfile
+
+    script = os.path.join(ROOT, "scripts", "run_training_torch.sh")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BATCH_SIZE", "DEVICE", "METADATA_CSV", "VIDEO_DIRS")}
+    with tempfile.TemporaryDirectory() as tmp:
+        stub = os.path.join(tmp, "python")
+        with open(stub, "w") as f:
+            f.write(LAUNCHER_STUB)
+        os.chmod(stub, 0o755)
+        rec = os.path.join(tmp, "calls.log")
+        run = subprocess.run(
+            ["bash", script, "distributed", "4"], cwd=tmp, timeout=120,
+            env=dict(env, PYTHON=stub, VCD_REAL_PYTHON=sys.executable,
+                     VCD_STUB_LOG=rec), capture_output=True, text=True)
+        calls = open(rec).read().splitlines() if os.path.exists(rec) else []
+    import torch
+
+    cards = torch.cuda.device_count()
+    want_echo = f"effective global batch: {LAUNCHER_BATCH * cards}"
+    ok = (run.returncode == 0 and len(calls) == 1
+          and f"--nproc-per-node {cards} " in calls[0]
+          and calls[0].startswith("-m torch.distributed.run --standalone")
+          and want_echo in run.stdout.splitlines())
+    out = {"distributed_4": {"rc": run.returncode, "stdout": run.stdout,
+                             "calls": calls}}
+    log(f"[launcher] distributed 4 on {cards} card(s): rc {run.returncode}, "
+        f"{run.stdout.strip()!r}; recorded {calls}")
+    if not ok:
+        raise SystemExit(f"launcher: {out} {run.stderr[-2000:]}")
+    if not ffmpeg:
+        line = {"launcher_check": "not run: no FFmpeg on this machine"}
+        print(json.dumps(line), flush=True)
+        out["check"] = line["launcher_check"]
+        return out
+    check = subprocess.run(
+        ["bash", script, "check"], cwd=ROOT, timeout=300,
+        env=dict(env, PYTHON=sys.executable, PYTHONPATH=ROOT),
+        capture_output=True, text=True)
+    out["check"] = {"rc": check.returncode, "stdout": check.stdout}
+    log(f"[launcher] check: rc {check.returncode}, {check.stdout.strip()!r}")
+    if check.returncode != 0 or "check passed" not in check.stdout:
+        raise SystemExit(f"launcher check: {check.stdout} {check.stderr}")
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -5277,8 +5615,8 @@ def kernel_line(compare_rows, launches, timing):
     bf16, the BatchNorm backbones' forwards and step, the other heads'
     forwards and steps, and phases 20 and 21's ranks summed: the DP step
     at world size 1 and on two ranks, the BatchNorm DP step, the DP
-    Trainer, the TP step and evaluation; each counted from 0), with the
-    split in
+    Trainer, the TP step and evaluation; the bundles' bucket-8 calls; the
+    attention view's call; each counted from 0), with the split in
     ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
     pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
     pass through the ConvNeXt blocks; K4: the 8 launches of one pass

@@ -80,3 +80,71 @@ def test_feature_dim_from_port_registry():
 def test_class_names():
     assert CLASS_NAMES == ("Normal", "Near Collision", "Collision")
     assert CLASS_TO_INDEX["Collision"] == 2
+
+
+def _registries():
+    from vision_collision_detection_tpu.utils.registry import (
+        Registry as JaxRegistry,
+    )
+    from vision_collision_detection_tpu_torch.utils.registry import Registry
+
+    out = []
+    for cls in (JaxRegistry, Registry):
+        reg = cls("head")
+        for name, meta in (("gru", {"dim": 256, "recurrent": True}),
+                           ("attention", {}), ("conv", {"kernel": 3})):
+            reg.register(name, **meta)(lambda name=name: name)
+        out.append(reg)
+    return out
+
+
+@pytest.mark.parametrize("query", ["names", "meta", "contains", "get",
+                                   "twice", "unknown"])
+def test_registry_matches_jax_registry(query):
+    """The port's ``Registry`` answers as the JAX one on the same
+    registrations: meta kept with each factory, names sorted, membership,
+    ``get`` unchanged, and the same errors."""
+    jax_reg, reg = _registries()
+    if query == "names":
+        assert reg.names() == jax_reg.names() == ["attention", "conv", "gru"]
+    elif query == "meta":
+        for name in jax_reg.names():
+            assert reg.meta(name) == jax_reg.meta(name)
+        assert reg.meta("gru") == {"dim": 256, "recurrent": True}
+    elif query == "contains":
+        for name in ("gru", "conv", "lstm", ""):
+            assert (name in reg) == (name in jax_reg)
+    elif query == "get":
+        for name in jax_reg.names():
+            assert reg.get(name)() == jax_reg.get(name)() == name
+    else:
+        errors = []
+        for r in (jax_reg, reg):
+            with pytest.raises(KeyError) as e:
+                if query == "twice":
+                    r.register("gru")(lambda: None)
+                else:
+                    r.get("lstm")
+            errors.append(str(e.value))
+        assert errors[0] == errors[1]
+
+
+def test_backbone_registry_names_every_backbone():
+    """Once each package has imported its families (``build_backbone``
+    does), both registries hold the same ten names, none with meta."""
+    from vision_collision_detection_tpu.models.backbones import (
+        BACKBONE_REGISTRY as JAX_BACKBONES,
+    )
+    from vision_collision_detection_tpu.models.backbones import (  # noqa: F401
+        convnext, efficientnet, mobilenet, resnet)
+    from vision_collision_detection_tpu_torch.models.backbones import (
+        BACKBONE_REGISTRY,
+    )
+    from vision_collision_detection_tpu_torch.models.backbones import (  # noqa: F401,E501
+        convnext as _c, efficientnet as _e, mobilenet as _m, resnet as _r)
+
+    assert BACKBONE_REGISTRY.names() == JAX_BACKBONES.names()
+    assert len(BACKBONE_REGISTRY.names()) == 10
+    assert all(BACKBONE_REGISTRY.meta(n) == JAX_BACKBONES.meta(n) == {}
+               for n in BACKBONE_REGISTRY.names())
+    assert "convnext_tiny" in BACKBONE_REGISTRY and "vgg" not in BACKBONE_REGISTRY

@@ -130,8 +130,8 @@ def test_chip_smoke_modules_import_without_pandas_or_matplotlib():
             "vision_collision_detection_tpu_torch.data.loader",
             "vision_collision_detection_tpu_torch.train.trainer",
             "vision_collision_detection_tpu_torch.infer.predictor",
-            "vision_collision_detection_tpu_torch.models.norm"} <= set(
-        modules)
+            "vision_collision_detection_tpu_torch.models.norm",
+            "vision_collision_detection_tpu_torch.obs.viz"} <= set(modules)
     modules = sorted(set(modules) | set(TRAINING_MODULES))
     code = (
         "import sys, importlib, pkgutil\n"
@@ -239,18 +239,23 @@ def _module_level_imports(path: Path):
             yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
-@pytest.mark.parametrize("name", SERVING_MODULES)
+# the attention view and clip previews, label ETL, dataset statistics
+OFFLINE_MODULES = ("obs/viz.py", "data/etl.py", "data/stats.py")
+
+
+@pytest.mark.parametrize("name", SERVING_MODULES + OFFLINE_MODULES)
 def test_serving_and_cli_module_imports(name):
     """Each is scanned for JAX imports above; the bundle's runtime
     (``infer/aot.py``, ``ops/library.py``) loads nothing of the models or
-    the predictor, and no command loads pandas or matplotlib until it needs
+    the predictor, and no command, and none of the offline modules, loads
+    pandas or matplotlib (or the widget libraries and boto3) until it needs
     them (the card's machine has neither)."""
     path = PORT / name
     roots = {n for _, n in _imported_roots(path)}
     assert not roots & FORBIDDEN
     imports = list(_module_level_imports(path))
-    assert not [m for m in imports
-                if m.split(".")[0] in ("pandas", "matplotlib")]
+    assert not [m for m in imports if m.split(".")[0] in (
+        "pandas", "matplotlib", "ipywidgets", "IPython", "boto3")]
     if name in ("infer/aot.py", "ops/library.py"):
         assert not [m for m in imports if m.startswith(
             ("vision_collision_detection_tpu_torch.models",

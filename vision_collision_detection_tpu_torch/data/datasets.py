@@ -254,6 +254,24 @@ class ClipDataset:
             "pad": np.zeros(b, dtype=bool),
         }
 
+    def show_batch(self, out_dir: str, indices: Optional[Sequence[int]] = None,
+                   max_clips: int = 4, fps: Optional[float] = None) -> str:
+        """Preview-export a few samples (the first ``max_clips``, or
+        ``indices``) as MP4s + an HTML grid (``obs.viz.export_batch_preview``).
+        Returns the HTML path."""
+        from vision_collision_detection_tpu_torch.data.loader import collate
+        from vision_collision_detection_tpu_torch.obs.viz import (
+            export_batch_preview,
+        )
+
+        idx = list(indices) if indices is not None else list(
+            range(min(max_clips, len(self)))
+        )
+        batch = collate([self.get(i) for i in idx])
+        return export_batch_preview(
+            batch, out_dir, fps=fps or self.fps, max_clips=max_clips
+        )
+
 
 def _records_from_df(
     df: pd.DataFrame,

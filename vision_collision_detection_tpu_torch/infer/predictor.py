@@ -519,6 +519,15 @@ class CollisionPredictor:
 
     # ------------------------------------------------------------------
     @staticmethod
+    def display_results_widget(results: List[Dict]):
+        """Notebook browsing: matplotlib result cards behind an ipywidgets
+        clip selector (``obs.viz.browse_results``); without ipywidgets, one
+        card per result. ``display_results`` prints ANSI bars instead."""
+        from vision_collision_detection_tpu_torch.obs.viz import browse_results
+
+        return browse_results(results)
+
+    @staticmethod
     def display_results(results: List[Dict], width: int = 40) -> str:
         """ANSI bar chart per clip; returns the text."""
         lines = []
