@@ -27,9 +27,10 @@ failure:
    Hopper kernel's forward and dx at the last stage of 112² and 40² frames
    ([200, 4, 4, 768], [64, 2, 2, 768]), at odd sides ([64, 3, 5, 384],
    [64, 10, 6, 96]) and at [64, 16, 64, 96], a short frame too wide to be
-   staged whole. Then what stays on the mma.sync kernel, off the main
-   path (K3 at widths 1024 and 1536, K2 and K3 on float32 activations), at
-   small shapes; the launch counters show which kernel each call took.
+   staged whole. Then what stays on the mma.sync kernel, off the
+   flagship's path (K3 at widths 1024 and 1536, which phase 24 holds at
+   full size; K2 and K3 on float32 activations), at small shapes; the
+   launch counters show which kernel each call took.
    Then the training path's kernels at the same shapes: K2 wgrad on its
    Hopper kernel (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
    (the route forced) against its plain version relative to Σ|x·g| and
@@ -183,16 +184,18 @@ failure:
     weights and random BatchNorm statistics, saved as a reference-format
     ``.pth`` and loaded with ``CollisionPredictor.from_torch_checkpoint``
     in float32 on the card; ``_make_forward(folded_stride=True)`` on seeded
-    uint8 clips [8, 25, 126, 224, 3] of distinct content: launches K1 1,
-    K2 18 on ``dwconv.cu``, K3 18 on ``convnext_mlp.cu``; against the same
-    forward on plain versions (2e-2), the reference module in float64
-    (5e-2: K3's bf16 rounding), the stock float32 blocks against float64
-    (1e-4) and bit-equal under torch's default cuDNN flags; faults (the
-    classifier BatchNorm's running variance set to 1, the GRU's r and z
-    gates swapped) must land outside; K2 and K3 on float32 at the stage
-    shapes against their plain versions and timed (cuDNN, the stock
-    float32 chain); the forward against stock blocks and the bf16 model
-    (its launches on the Hopper kernels).
+    uint8 clips [8, 25, 126, 224, 3] of distinct content. On default
+    switches (K3 only on bf16 activations): launches K1 1, K2 18 on
+    ``dwconv.cu``, no K3; against the same forward on plain versions and
+    the reference module in float64 (1e-4 each); the stock float32 blocks
+    against float64 (1e-4) and bit-equal under torch's default cuDNN
+    flags; faults (the classifier BatchNorm's running variance set to 1,
+    the GRU's r and z gates swapped) must land outside. With
+    ``fused_mlp=True``: K1 1, K2 18, K3 18 on ``convnext_mlp.cu``, against
+    plain versions (2e-2) and float64 (5e-2: K3's bf16 rounding). K2 and
+    K3 on float32 at the stage shapes against their plain versions and
+    timed (cuDNN, the stock float32 chain); both legs against stock blocks
+    and the bf16 model (its launches on the Hopper kernels), in turns.
 18. The seven BatchNorm backbones with the flagship head in bf16, served
     (K1 once, nothing else launched), timed, peak memory; one training step
     of resnet50 + the conv head on a uint8 batch [8, 50, 126, 224, 3]:
@@ -266,6 +269,19 @@ failure:
     ``scripts/run_training_torch.sh distributed 4`` through a recording
     PYTHON (``--nproc-per-node`` the card count, the global batch echoed)
     and, where FFmpeg exists, its ``check``.
+24. ConvNeXt base and large (``ExperimentConfig()`` with only
+    ``model.backbone`` changed; bf16): one ``make_train_step`` of
+    ``create_train_state``'s model on uint8 [8, 50, 126, 224, 3] (K2 72,
+    K2 wgrad 36, K3 train 36: 33 on the wgmma kernel, the last stage's 3
+    at C = 1024 or 1536 on ``convnext_mlp.cu``) against the plain step,
+    where a 1% dγ and a dropped K2 db must land outside; the same model,
+    weights redrawn, served through ``_make_forward(folded_stride=True)``
+    on uint8 [8, 25, 126, 224, 3] (K1 1, K2 36, K3 36: 33 on the wgmma
+    kernel) against plain versions, where a dropped K2 or K3 bias must
+    land outside; ms per step and per batch with peak memory; each
+    stage's K2 forward, dx and wgrad and K3 eval and train at the full
+    stage shape against their plain versions, with their faults, and
+    timed beside their bounds.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -296,6 +312,16 @@ K1_SIDE_CONTENT = (120, 213)   # bars on all four sides, rows of 639 bytes
 S = 224
 STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))  # (H=W, C, blocks)
 LOGIT_SCALE = 10.0             # fc_out weights × this in the serving forward
+# The serving forward against the same forward on plain versions, max
+# |Δprob|: bf16 activations through 18 blocks, where 1-ulp flips between
+# kernel and plain sums propagate. With ``fc_out`` rescaled so that the
+# clips' logits spread (``spread_logits``; phase 24, whose seeded clips sit
+# together near one class otherwise) the flips reach the probabilities
+# about ten times further (ConvNeXt base 6.2e-2, large 6.4e-2 on an H100,
+# where base read 6.5e-3 without the rescale): phase 19's 1e-1 for spread
+# logits.
+SERVE_TOL = 2e-2
+SPREAD_SERVE_TOL = 1e-1
 SPREAD_MIN = 0.05              # least spread of one class's probability across clips
 WGRAD_TOL = 1e-6               # K2 wgrad error per tap and channel / Σ|x·g|
 # Kernel step vs plain step: the loss and each parameter's gradient,
@@ -458,6 +484,7 @@ def main() -> int:
     reference = ref.pop("served")  # phase 17's .pth and reading, for 22
     report["reference"] = ref
     launches["reference"] = ref["launches"]
+    launches["reference_fused"] = ref["launches_fused"]
     launches["reference_bf16"] = ref["launches_bf16"]
     bn = bn_backbones_phase(torch, dev, flagship["frames"])
     report["bn_backbones"] = bn
@@ -480,11 +507,17 @@ def main() -> int:
     report["attention_view"] = attention_view_phase(torch, dev)
     launches["attention_view"] = report["attention_view"]["launches"]
     log(f"[phase 23] {report['attention_view']['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    big = big_convnext_phase(torch, dev)
+    report["big_convnext"] = big
+    launches.update(big["launches"])
+    log(f"[phase 24] {big['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
-        + ref["compare_rows"], launches, report["timing"]
-        + ref["kernel_timing"])
+        + ref["compare_rows"] + big["compare_rows"], launches,
+        report["timing"] + ref["kernel_timing"] + [
+            r for r in big["timing"] if r["kernel"].endswith("(mma.sync)")])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -503,10 +536,12 @@ def main() -> int:
 
 def k3_params(torch, C, g, dev):
     def n(*shape, std=1.0):
-        return (torch.randn(*shape, generator=g) * std).to(dev)
+        return (torch.randn(*shape, generator=g, device=g.device)
+                * std).to(dev)
 
     def u(*shape):
-        return (torch.rand(*shape, generator=g) + 0.5).to(dev)
+        return (torch.rand(*shape, generator=g, device=g.device)
+                + 0.5).to(dev)
 
     return dict(ln_w=u(C), ln_b=n(C, std=0.1), w1=n(C, 4 * C, std=C ** -0.5),
                 b1=n(4 * C, std=0.1), w2=n(4 * C, C, std=(4 * C) ** -0.5),
@@ -576,15 +611,29 @@ K3_FAULTS = {
 }
 
 
+def k3_entries(torch, C):
+    """The kernels-line entries (eval, train) of K3 in bf16 at width C:
+    the Hopper kernel's, or the mma.sync kernel's at the widths
+    ``convnext_mlp.route`` sends there."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+
+    if k3.route(torch.bfloat16, C) == "wgmma":
+        return "K3", "K3 train"
+    return "K3 (mma.sync)", "K3 train (mma.sync)"
+
+
 def check_k3_small(torch, dev, g, C, M, record, faults, failed):
     """K3's eval and train variants against their plain version at [M, C]
     bf16, both GELU forms (K3's rule; the train variant's out bit-equal to
     the eval variant's), and K3's faults in the plain version, which must
-    land outside."""
+    land outside. ``g`` may be a CUDA generator (the inputs are drawn
+    there)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
-    xs = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
-    y = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
+    eval_entry, train_entry = k3_entries(torch, C)
+    xs = torch.randn(M, C, generator=g, device=g.device).to(dev,
+                                                            torch.bfloat16)
+    y = torch.randn(M, C, generator=g, device=g.device).to(dev, torch.bfloat16)
     p = k3_params(torch, C, g, dev)
     for approximate in (True, False):
         with torch.no_grad():
@@ -600,9 +649,9 @@ def check_k3_small(torch, dev, g, C, M, record, faults, failed):
             record(f"K3 {name} width {C} approximate={approximate}", [M, C],
                    max_err(torch, v, r), tols[name][0],
                    mean_err(torch, v, r), tols[name][1],
-                   entry="K3" if name == "out" else "K3 train")
+                   entry=eval_entry if name == "out" else train_entry)
         record(f"K3 train out vs eval width {C} (bit-equal)", [M, C],
-               max_err(torch, train[0], got), 0.0, entry="K3 train")
+               max_err(torch, train[0], got), 0.0, entry=train_entry)
     # got, ref and tols are those of approximate=False
     for fault, change in K3_FAULTS.items():
         fp, fap = change(p, False)
@@ -622,11 +671,15 @@ K2_ODD_SHAPES = ((N_FRAMES, 4, 4, 768), (64, 2, 2, 768), (64, 3, 5, 384),
 
 
 def k2_inputs(torch, dev, g, shape):
-    """Seeded bf16 x [N, H, W, C], w [49, C] (taps of order 1/7) and b [C]."""
+    """Seeded bf16 x [N, H, W, C], w [49, C] (taps of order 1/7) and b [C],
+    drawn on ``g``'s device."""
     N, H, W, C = shape
-    x = torch.randn(N, H, W, C, generator=g).to(dev, torch.bfloat16)
-    w = (torch.randn(49, C, generator=g) / 7).to(dev, torch.bfloat16)
-    b = (torch.randn(C, generator=g) * 0.1).to(dev, torch.bfloat16)
+    x = torch.randn(N, H, W, C, generator=g, device=g.device).to(
+        dev, torch.bfloat16)
+    w = (torch.randn(49, C, generator=g, device=g.device) / 7).to(
+        dev, torch.bfloat16)
+    b = (torch.randn(C, generator=g, device=g.device) * 0.1).to(
+        dev, torch.bfloat16)
     return x, w, b
 
 
@@ -855,7 +908,7 @@ def compare_kernels(torch, dev):
         for M in (100, 2000):
             check_k3_small(torch, dev, g, C, M, record, faults, failed)
     k3_routed = k3.convnext_mlp.wgmma_launches
-    # The other compiled variants, off the main path, on the mma.sync
+    # The other compiled variants, off the flagship's path, on the mma.sync
     # kernel (``convnext_mlp.cu``): K3 at the widths the Hopper kernel does
     # not take, and K2 and K3 on float32 activations. A row count that is
     # no multiple of any block's rows exercises the tail.
@@ -868,7 +921,8 @@ def compare_kernels(torch, dev):
         ref = convnext_mlp_plain(xs, y, approximate=True, **p)
         torch.cuda.synchronize()
         record(f"K3 width {C}", [rows_off, C], max_err(torch, got, ref),
-               float(ref.float().abs().max()) * 2 ** -6)
+               float(ref.float().abs().max()) * 2 ** -6,
+               entry="K3 (mma.sync)")
     xs = torch.randn(rows_off, 96, generator=g).to(dev)
     y = torch.randn(rows_off, 96, generator=g).to(dev)
     p = k3_params(torch, 96, g, dev)
@@ -1310,11 +1364,26 @@ def redraw_weights(torch, model, g):
         model.fc_out.weight.mul_(LOGIT_SCALE)
 
 
+def block_launches(torch, model):
+    """(ConvNeXt blocks in ``model``, of them on K3's Hopper kernel in
+    bf16): one K2 and one K3 launch a block in a forward."""
+    from vision_collision_detection_tpu_torch.models.backbones import convnext
+
+    dims = [m.dim for m in model.modules()
+            if isinstance(m, convnext.ConvNeXtBlock)]
+    return len(dims), sum(k3_entries(torch, C)[0] == "K3" for C in dims)
+
+
 def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
-                    power=True):
+                    power=True, cfg=None, model=None, logit_spread=False):
     """The flagship's serving forward at ``size``² frames of ``content``
     letterbox rows and columns, against the same forward on plain versions;
-    ``power``: the faults that must land outside the tolerance."""
+    ``power``: the faults that must land outside the tolerance. ``cfg``
+    (default ``ExperimentConfig()``) and ``model`` (default: the
+    predictor's seeded one) serve another configuration; its weights are
+    redrawn here. ``logit_spread``: ``fc_out`` rescaled so that the
+    clips' logits spread about 0 (``spread_logits``), for a model whose
+    clips' probabilities would otherwise sit together near one class."""
     from vision_collision_detection_tpu_torch.config import ExperimentConfig
     from vision_collision_detection_tpu_torch.infer.predictor import (
         CollisionPredictor)
@@ -1322,10 +1391,11 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
     from vision_collision_detection_tpu_torch.ops import (
         convnext_mlp, dequant_pad, dwconv, preprocess)
 
-    cfg = ExperimentConfig()
+    cfg = cfg or ExperimentConfig()
     if size != S:
         cfg = cfg.override({"data.frame_size": size})
-    pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
+    # seeded weights, on the card
+    pred = CollisionPredictor(cfg, None, model_override=model)
     g = torch.Generator().manual_seed(2)
     redraw_weights(torch, pred.model, g)
     T = cfg.data.num_frames // pred._fold_stride()
@@ -1335,13 +1405,24 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
                       dtype=torch.uint8) for i in range(8)])
     forward = pred._make_forward(folded_stride=True)
     frames_dev = frames.to(dev)
+    if logit_spread:
+        module = pred.serving_module(True)
+        with torch.no_grad():
+            x = preprocess.eval_preprocess(frames_dev, module.augment,
+                                           module.frame_size, module.dtype,
+                                           use_kernel="force")
+        a = spread_logits(torch, module.model, pred.model.fc_out, x)
+        log(f"[{tag}] fc_out rescaled by {a:.3f}")
+        del x
     torch.cuda.synchronize()
 
     counters = zero_counters()
     probs = forward(frames_dev)
     torch.cuda.synchronize()
     log(f"[{tag}] probs {probs.tolist()}")
-    launches = expect_launches(tag, counters, K1=1, K2=18, K3=18)
+    blocks, on_wgmma = block_launches(torch, pred.model)
+    launches = expect_launches(tag, counters, hopper={"K3": on_wgmma}, K1=1,
+                               K2=blocks, K3=blocks)
     if tuple(probs.shape) != (8, 3) or not bool(torch.isfinite(probs).all()):
         raise SystemExit(f"bad probabilities {probs}")
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -1369,16 +1450,15 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
         return out
 
     err = max_err(torch, probs, plain_forward())
-    # bf16 activations through 18 blocks: 1-ulp flips between kernel and
-    # plain sums propagate; probabilities must agree to 2e-2 absolute
-    tol = 2e-2
+    tol = SPREAD_SERVE_TOL if logit_spread else SERVE_TOL
     log(f"[{tag}] kernels vs plain: max |Δprob| {err:.3e} (tol {tol:.0e})")
-    if not err <= tol:
-        raise SystemExit(f"{tag}: forward disagrees with its plain version")
     summary = {"frame_size": size, "launches": launches,
                "probs": probs.tolist(), "max_abs_err_vs_plain": err,
                "tol": tol, "spread": spread, "row_sum_err": row_err}
     if not power:
+        if not err <= tol:
+            raise SystemExit(f"{tag}: forward disagrees with its plain "
+                             "version")
         return {"pred": pred, "forward": forward, "frames": frames_dev,
                 "summary": summary}
 
@@ -1400,6 +1480,8 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
         log(f"[{tag}] with fault {name}: max |Δprob| {v:.3e} "
             f"({'must exceed' if name in required else 'beside'} tol "
             f"{tol:.0e})")
+    if not err <= tol:
+        raise SystemExit(f"{tag}: forward disagrees with its plain version")
     if not all(seen[name] > tol for name in required):
         raise SystemExit(f"the tolerance does not see a dropped bias: {seen}")
     return {"pred": pred, "forward": forward, "frames": frames_dev,
@@ -1441,11 +1523,15 @@ def expect_launches(tag, counters, hopper=True, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
     and where a wrapper has two kernels (K2, K2 wgrad, K3, K3 train, K4
     fwd), every launch must have taken the Hopper one, or with ``hopper``
-    False (a float32 path) none of them. Returns the launches by
-    kernels-line entry: K2's split into ``K2`` (``dwconv.cu``) and ``K2
-    (hopper)``, K2 wgrad's into ``K2 wgrad`` (``dwconv_wgrad.cu``) and ``K2
-    wgrad (hopper)``, K3's into ``K3`` (``convnext_mlp_wgmma.cu``) and ``K3
-    (f32)`` (``convnext_mlp.cu``)."""
+    False (a float32 path) none of them; ``hopper`` may instead map a
+    counter to the launches expected on its Hopper kernel (ConvNeXt base
+    and large: K3's last stage on the mma.sync kernel), the others taking
+    it every time. Returns the launches by kernels-line entry: K2's split
+    into ``K2`` (``dwconv.cu``) and ``K2 (hopper)``, K2 wgrad's into ``K2
+    wgrad`` (``dwconv_wgrad.cu``) and ``K2 wgrad (hopper)``, K3's into
+    ``K3`` (``convnext_mlp_wgmma.cu``) and ``convnext_mlp.cu``'s ``K3
+    (f32)`` (float32 paths) or ``K3 (mma.sync)`` (bf16 at C = 1024 and
+    1536), K3 train's into ``K3 train`` and ``K3 train (mma.sync)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1455,14 +1541,18 @@ def expect_launches(tag, counters, hopper=True, **expected):
         f"{on_hopper}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
-    if any(v != (launches[k] if hopper else 0)
-           for k, v in on_hopper.items()):
+    want_hopper = {k: (hopper.get(k, launches[k]) if isinstance(hopper, dict)
+                       else launches[k] if hopper else 0) for k in on_hopper}
+    if on_hopper != want_hopper:
         raise SystemExit(f"{tag}: a launch took the wrong one of its "
-                         f"wrapper's two kernels: {on_hopper} of {launches}")
+                         f"wrapper's two kernels: {on_hopper} of {launches}, "
+                         f"expected {want_hopper}")
     by_entry = dict(launches)
-    for k, other in (("K2", "K2"), ("K2 wgrad", "K2 wgrad"),
-                     ("K3", "K3 (f32)")):
-        hopper_entry = f"{k} (hopper)" if k != "K3" else "K3"
+    mma = "K3 (f32)" if hopper is False else "K3 (mma.sync)"
+    for k, hopper_entry, other in (
+            ("K2", "K2 (hopper)", "K2"),
+            ("K2 wgrad", "K2 wgrad (hopper)", "K2 wgrad"),
+            ("K3", "K3", mma), ("K3 train", "K3 train", "K3 train (mma.sync)")):
         by_entry[hopper_entry] = on_hopper[k]
         by_entry[other] = launches[k] - on_hopper[k]
     return by_entry
@@ -1489,21 +1579,22 @@ def rel_grad_errs(torch, got, ref, floor=0.0):
     return {n: float((got[n] - ref[n]).norm()) / scale(n) for n in ref}
 
 
-def training_step(torch, dev):
-    """One optimizer step of the flagship through the port's entry points
-    (``create_train_state``, ``make_train_step``) on a seeded uint8 batch
-    [8, 50, 126, 224, 3]: launch counts, finite loss, a finite gradient
-    for every parameter and a nonzero one for every block parameter; the
-    same step with every kernel swapped for its plain version; faults in
-    the backward that the comparison must see; the loss falling over
-    TRAIN_FALL_STEPS steps on a fixed batch with augmentation off."""
+def training_step(torch, dev, cfg=None, tag="train", fall=True):
+    """One optimizer step of the flagship (or of ``cfg``) through the
+    port's entry points (``create_train_state``, ``make_train_step``) on a
+    seeded uint8 batch [8, 50, 126, 224, 3]: launch counts, finite loss, a
+    finite gradient for every parameter and a nonzero one for every block
+    parameter; the same step with every kernel swapped for its plain
+    version; faults in the backward that the comparison must see; with
+    ``fall``, the loss falling over TRAIN_FALL_STEPS steps on a fixed
+    batch with augmentation off."""
     from vision_collision_detection_tpu_torch.config import ExperimentConfig
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
     from vision_collision_detection_tpu_torch.train import (
         create_train_state, make_train_step)
 
-    cfg = ExperimentConfig()
+    cfg = cfg or ExperimentConfig()
     B, T = cfg.data.batch_size, cfg.data.num_frames
     model, state = create_train_state(cfg, torch.Generator().manual_seed(3),
                                       steps_per_epoch=STEPS_PER_EPOCH)
@@ -1532,18 +1623,20 @@ def training_step(torch, dev):
     t0 = time.perf_counter()
     metrics, grads = run(TRAIN_SEED)
     first_s = time.perf_counter() - t0
-    log(f"[train] first step {first_s:.2f} s, metrics {metrics}")
-    launches = expect_launches("train", counters, K2=36, K2_wgrad=18,
-                               K3_train=18)
+    log(f"[{tag}] first step {first_s:.2f} s, metrics {metrics}")
+    blocks, on_wgmma = block_launches(torch, model)
+    launches = expect_launches(tag, counters, hopper={"K3 train": on_wgmma},
+                               K2=2 * blocks, K2_wgrad=blocks,
+                               K3_train=blocks)
     if not math.isfinite(metrics["loss"]):
         raise SystemExit(f"non-finite loss {metrics}")
     bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
     block_params = [n for n in grads if ".stage" in n and "_block" in n]
     n_blocks = len({n.split(".")[1] for n in block_params})
     zero = [n for n in block_params if float(grads[n].abs().max()) == 0.0]
-    log(f"[train] {len(grads)} parameters with a gradient; non-finite "
+    log(f"[{tag}] {len(grads)} parameters with a gradient; non-finite "
         f"{bad}; {n_blocks} blocks, zero block gradients {zero}")
-    if bad or zero or n_blocks != 18:
+    if bad or zero or n_blocks != blocks:
         raise SystemExit("a parameter's gradient is missing, non-finite or "
                          "zero")
 
@@ -1556,7 +1649,7 @@ def training_step(torch, dev):
         plain_metrics["loss"])
     errs = rel_grad_errs(torch, grads, plain_grads)
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[train] kernels vs plain: loss {metrics['loss']:.6f} vs "
+    log(f"[{tag}] kernels vs plain: loss {metrics['loss']:.6f} vs "
         f"{plain_metrics['loss']:.6f} (rel {loss_err:.2e}); worst gradient "
         f"errors {[(n, f'{e:.2e}') for n, e in worst]} (tol {TRAIN_TOL:.0e})")
     if loss_err > TRAIN_TOL or worst[0][1] > TRAIN_TOL:
@@ -1581,10 +1674,20 @@ def training_step(torch, dev):
                                 if n.endswith(".gamma")),
              "k2_db_dropped": min(e for n, e in ferrs.items()
                                   if n.endswith(".dwconv.bias"))}
-    log(f"[train] faults, least relative gradient error over the affected "
+    log(f"[{tag}] faults, least relative gradient error over the affected "
         f"parameters: {power} (must exceed tol {TRAIN_TOL:.0e})")
     if not all(v > TRAIN_TOL for v in power.values()):
         raise SystemExit(f"the tolerance does not see a backward fault: {power}")
+    summary = {"launches": launches, "metrics": metrics,
+               "first_step_s": first_s, "plain_metrics": plain_metrics,
+               "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+               "tol": TRAIN_TOL, "faults_least_rel_err": power}
+    out = {"cfg": cfg, "model": model, "state": state, "step": step,
+           "batch": (frames, targets, mask), "summary": summary}
+    if not fall:
+        model.load_state_dict(init)
+        state.optimizer.load_state_dict(opt_init)
+        return out
 
     fixed_cfg = cfg.override({"augment.enabled": False,
                               "augment.horizontal_flip_prob": 0.0})
@@ -1596,18 +1699,11 @@ def training_step(torch, dev):
         _, m = fixed_step(state, frames, targets, mask,
                           torch.Generator(device=dev).manual_seed(TRAIN_SEED))
         losses.append(float(m["loss"]))
-    log(f"[train] fixed batch, augmentation off: losses {losses}")
+    log(f"[{tag}] fixed batch, augmentation off: losses {losses}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"the loss did not fall: {losses}")
-    return {"cfg": cfg, "model": model, "state": state, "step": step,
-            "batch": (frames, targets, mask),
-            "summary": {"launches": launches, "metrics": metrics,
-                        "first_step_s": first_s,
-                        "plain_metrics": plain_metrics,
-                        "loss_rel_err": loss_err,
-                        "worst_grad_rel_err": worst, "tol": TRAIN_TOL,
-                        "faults_least_rel_err": power,
-                        "fixed_batch_losses": losses}}
+    summary["fixed_batch_losses"] = losses
+    return out
 
 
 def median_step_ms(torch, fn, warmup, iters):
@@ -3542,14 +3638,16 @@ def gru_pin_phase(torch, dev, flagship):
 
 # ---- 17. serving a reference checkpoint ------------------------------------
 
-# The float32 reference path's probabilities. Against plain versions:
+# The float32 reference path's probabilities. On default switches (K2 on
+# dwconv.cu, the stock float32 MLP: float32 throughout), against plain
+# versions and against the reference module in float64: REF_F64_TOL, as
+# the stock blocks are held; the faults must land outside it. With
+# ``fused_mlp=True`` (K3 on convnext_mlp.cu), against plain versions:
 # phase 3's 2e-2, for the same reason (K3's bf16 roundings of t and h flip
 # by 1 ulp where the two sum in another order, and 18 blocks carry the
-# flips on: 5.4e-3 on an H100). Against the reference module in float64:
-# K3 rounds t and h to bf16 (its rule), through 18 blocks (1.7e-2 on this
-# batch on the CPU, where the kernels' plain versions run); the faults
-# must land outside that limit. The stock blocks, float32 throughout,
-# against float64: REF_F64_TOL.
+# flips on: 5.4e-3 on an H100); against float64: K3 rounds t and h to bf16
+# (its rule), through 18 blocks (1.7e-2 on this batch on the CPU, where
+# the kernels' plain versions run).
 REF_TOL = 2e-2
 REF_K3_TOL = 5e-2
 REF_F64_TOL = 1e-4
@@ -3719,14 +3817,17 @@ def reference_phase(torch, dev, frames):
     served with ``from_torch_checkpoint`` in float32 on the card through
     ``_make_forward(folded_stride=True)`` on seeded uint8 clips of the
     shape of phase 3's batch (50-frame clips decoded at stride 2:
-    [8, 25, 126, 224, 3]; ``reference_clips``): launches K1
-    1, K2 18 on ``dwconv.cu``, K3 18 on ``convnext_mlp.cu``; against the
-    same forward on plain versions, and against the reference module in
-    float64 on K1's output; the stock blocks against float64 under torch's
+    [8, 25, 126, 224, 3]; ``reference_clips``). Default switches: launches
+    K1 1, K2 18 on ``dwconv.cu``, no K3 (float32 takes the stock MLP, as
+    the JAX package's default does); against the same forward on plain
+    versions and against the reference module in float64 on K1's output,
+    both within REF_F64_TOL; the stock blocks against float64 under torch's
     default cuDNN flags and under the switch; two faults (the classifier
     BatchNorm's running variance set to 1, the GRU's r and z gates
-    swapped); K2 and K3 on float32 at the stage shapes; times against
-    stock blocks and the bfloat16 model."""
+    swapped). ``fused_mlp=True``: K1 1, K2 18, K3 18 on
+    ``convnext_mlp.cu``, against plain versions and float64 by K3's rule.
+    K2 and K3 on float32 at the stage shapes; times of both legs against
+    stock blocks and the bfloat16 model, in turns."""
     import shutil
     import tempfile
 
@@ -3775,7 +3876,7 @@ def reference_phase(torch, dev, frames):
         probs = forward(frames)
         torch.cuda.synchronize()
         launches = expect_launches("reference", counters, hopper=False,
-                                   K1=1, K2=18, K3=18)
+                                   K1=1, K2=18)
         if tuple(probs.shape) != (frames.shape[0], 3) or not bool(
                 torch.isfinite(probs).all()):
             raise SystemExit(f"reference: bad probabilities {probs}")
@@ -3785,13 +3886,27 @@ def reference_phase(torch, dev, frames):
         if spread < SPREAD_MIN:
             raise SystemExit("reference: probabilities too alike")
 
-        with swapped((convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
-                     (convnext, "convnext_mlp",
-                      convnext_mlp.convnext_mlp_plain),
-                     (preprocess, "dequant_normalize_pad",
-                      dequant_pad.dequant_normalize_pad_plain)):
+        plain_swaps = (
+            (convnext, "dwconv7x7", dwconv.dwconv7x7_plain),
+            (convnext, "convnext_mlp", convnext_mlp.convnext_mlp_plain),
+            (preprocess, "dequant_normalize_pad",
+             dequant_pad.dequant_normalize_pad_plain))
+        with swapped(*plain_swaps):
             plain = pred._make_forward(True)(frames)
         errs = {"kernels_vs_plain": max_err(torch, probs, plain)}
+
+        # fused_mlp=True: K3's float32 route
+        fused = CollisionPredictor.from_torch_checkpoint(path, fused_mlp=True)
+        fused_fwd = fused._make_forward(True)
+        counters = zero_counters()
+        probs_fused = fused_fwd(frames)
+        torch.cuda.synchronize()
+        launches_fused = expect_launches("reference fused_mlp=True", counters,
+                                         hopper=False, K1=1, K2=18, K3=18)
+        with swapped(*plain_swaps):
+            plain = fused._make_forward(True)(frames)
+        errs["fused_vs_plain"] = max_err(torch, probs_fused, plain)
+        del plain
 
         # the reference module in float64 on K1's output
         ref64 = copy.deepcopy(ref).to(dev).double().eval()
@@ -3799,6 +3914,7 @@ def reference_phase(torch, dev, frames):
             probs64 = torch.softmax(ref64(x.double()), dim=-1).float()
         del ref64, x
         errs["kernels_vs_float64"] = max_err(torch, probs, probs64)
+        errs["fused_vs_float64"] = max_err(torch, probs_fused, probs64)
         stock = CollisionPredictor.from_torch_checkpoint(
             path, dwconv_kernel=False, fused_mlp=False)
         stock_fwd = stock._make_forward(True)
@@ -3847,22 +3963,25 @@ def reference_phase(torch, dev, frames):
                                      K2=18, K3=18)
         errs["bf16_vs_float64"] = max_err(torch, probs16, probs64)
 
-    log(f"[reference] max |Δprob|: {errs} (tol: against plain "
-        f"{REF_TOL:.0e}, the kernels against float64 {REF_K3_TOL:.0e}, the "
-        f"stock float32 forward against float64 {REF_F64_TOL:.0e}); under "
-        f"torch's default cuDNN flags bit-equal to the switch: {bit_equal}")
+    log(f"[reference] max |Δprob|: {errs} (tol: the default forward and "
+        f"the stock float32 forward against plain and float64 "
+        f"{REF_F64_TOL:.0e}; fused_mlp=True against plain {REF_TOL:.0e}, "
+        f"against float64 {REF_K3_TOL:.0e}); under torch's default cuDNN "
+        f"flags bit-equal to the switch: {bit_equal}")
     for name, v in seen.items():
         log(f"[reference] with fault {name}: max |Δprob| from float64 "
-            f"{v:.3e} (must exceed {REF_K3_TOL:.0e})")
-    if not (errs["kernels_vs_plain"] <= REF_TOL
-            and errs["kernels_vs_float64"] <= REF_K3_TOL):
+            f"{v:.3e} (must exceed {REF_F64_TOL:.0e})")
+    if not (errs["kernels_vs_plain"] <= REF_F64_TOL
+            and errs["kernels_vs_float64"] <= REF_F64_TOL
+            and errs["fused_vs_plain"] <= REF_TOL
+            and errs["fused_vs_float64"] <= REF_K3_TOL):
         raise SystemExit(f"reference: the forward disagrees: {errs}")
     if not (errs["stock_vs_float64"] <= REF_F64_TOL
             and errs["stock_defaults_vs_float64"] <= REF_F64_TOL
             and all(bit_equal.values())):
         raise SystemExit(f"reference: float32 is not float32 math under "
                          f"the default flags: {errs}, {bit_equal}")
-    if not all(v > REF_K3_TOL for v in seen.values()):
+    if not all(v > REF_F64_TOL for v in seen.values()):
         raise SystemExit(f"reference: a fault lands inside: {seen}")
     if not bool(torch.isfinite(probs16).all()):
         raise SystemExit("reference: non-finite bf16 probabilities")
@@ -3870,11 +3989,13 @@ def reference_phase(torch, dev, frames):
     compare_rows, timing = f32_kernels(torch, dev)
     out["timing"] = in_turns(
         torch, "reference forward",
-        {"kernels": lambda: forward(frames), "stock": lambda: stock_fwd(frames),
-         "bf16": lambda: fwd16(frames)},
+        {"kernels": lambda: forward(frames),
+         "fused_mlp": lambda: fused_fwd(frames),
+         "stock": lambda: stock_fwd(frames), "bf16": lambda: fwd16(frames)},
         lambda fn: median_ms(torch, fn, warmup=2, iters=10, queued=False),
         frames.shape[0])
-    out.update({"launches": launches, "launches_bf16": launches16,
+    out.update({"launches": launches, "launches_fused": launches_fused,
+                "launches_bf16": launches16,
                 "errors": errs, "tol": REF_TOL, "k3_f64_tol": REF_K3_TOL,
                 "f64_tol": REF_F64_TOL,
                 "defaults_bit_equal": bit_equal, "faults": seen,
@@ -5607,6 +5728,149 @@ def launcher_phase(ffmpeg):
     return out
 
 
+# ---- 24. ConvNeXt base and large at full width ---------------------------
+
+BIG_BACKBONES = ("convnext_base", "convnext_large")
+BIG_TIME_ITERS = 3             # steps timed, after one warm-up
+
+
+def big_stage_kernels(torch, dev, name, model, g, record, faults, failed):
+    """At each stage of ``model``'s ConvNeXt at its full stage shape
+    [200, H, H, C] (224² frames: H 56, 28, 14, 7), on inputs drawn from
+    ``g`` on the card: K2's forward (bit-equal twice; taps transposed must
+    land outside), dx and wgrad (flipped and swapped taps outside), K3's
+    eval and train variants on the kernel ``convnext_mlp.route`` takes
+    (both GELU forms; train's out bit-equal to eval's; K3's faults
+    outside). Then each timed per launch beside its bound, K3 on the
+    mma.sync kernel (C = 1024, 1536) beside its plain version too. →
+    timing rows (``per_forward``: the stage's blocks)."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    rows = []
+    bb = model.backbone
+    for stage, (C, depth) in enumerate(zip(bb.dims, bb.depths)):
+        side = (S // 4) >> stage
+        shape = (N_FRAMES, side, side, C)
+        M, n = N_FRAMES * side * side, N_FRAMES * side * side * C
+        x, w, b = k2_inputs(torch, dev, g, shape)
+        gy = torch.randn(shape, generator=g, device=g.device).to(
+            dev, torch.bfloat16)
+        check_k2(torch, x, w, b, record, faults, failed)
+        check_k2_dx(torch, x, w, b, gy, record, failed)
+        check_k2_wgrad(torch, x, gy, record, failed, faults)
+        check_k3_small(torch, dev, g, C, M, record, faults, failed)
+
+        def row(kernel, ms, bound, plain_ms=None):
+            rows.append({"kernel": kernel, "model": name,
+                         "shape": list(shape), "per_forward": depth,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": bound[0], "bound_by": bound[1]})
+
+        row(k2_entry(torch, x), median_ms(torch, lambda: k2.dwconv7x7(x, w, b)),
+            bound_ms(2 * n * 2 + 50 * C * 2, 98 * n, F32_FLOPS))
+        row(k2_wgrad_entry(torch, x),
+            median_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy)),
+            bound_ms(2 * n * 2 + 49 * C * 4, 98 * n, F32_FLOPS))
+        del x, w, b, gy
+        xs = torch.randn(M, C, generator=g, device=g.device).to(
+            dev, torch.bfloat16)
+        y = torch.randn(M, C, generator=g, device=g.device).to(
+            dev, torch.bfloat16)
+        p = k3_params(torch, C, g, dev)
+        mma = k3.route(torch.bfloat16, C) == "mma"
+        eval_entry, train_entry = k3_entries(torch, C)
+        for entry, fn, plain, bound in (
+                (eval_entry, k3.convnext_mlp, k3.convnext_mlp_plain,
+                 bound_ms(3 * n * 2 + 8 * C * C * 2, 16 * M * C * C,
+                          BF16_FLOPS)),
+                # x, y, out, t, m at 2 bytes per row-channel, h_pre at 8
+                (train_entry, k3.convnext_mlp_train,
+                 k3.convnext_mlp_train_plain,
+                 bound_ms(18 * n + 8 * C * C * 2, 16 * M * C * C,
+                          BF16_FLOPS))):
+            row(entry, median_ms(torch, lambda: fn(xs, y, approximate=True,
+                                                   **p)), bound,
+                median_ms(torch, lambda: plain(xs, y, approximate=True, **p),
+                          warmup=1, iters=3) if mma else None)
+        del xs, y, p
+    for r in rows:
+        plain = "" if r["plain_ms"] is None else f"; plain {r['plain_ms']:.4f}"
+        log(f"[{name} time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}{plain})")
+    return rows
+
+
+def big_convnext_phase(torch, dev):
+    """Phase 24: ConvNeXt base and large, ``ExperimentConfig()`` with only
+    ``model.backbone`` changed (bi-GRU head, 25 frames of 224² after
+    thinning, bf16). For each: ``create_train_state`` and one
+    ``make_train_step`` on uint8 [8, 50, 126, 224, 3] (``training_step``:
+    K2 72, K2 wgrad 36, K3 train 36, 33 of them on the wgmma kernel and
+    the last stage's 3 on ``convnext_mlp.cu``; against the plain step, a
+    1% dγ and a dropped K2 db outside), the step timed with its peak
+    memory; the same model, its weights redrawn, served by
+    ``CollisionPredictor._make_forward(folded_stride=True)`` on uint8
+    [8, 25, 126, 224, 3] (``serving_forward``: K1 1, K2 36, K3 36, 33 on
+    the wgmma kernel; against plain versions, a dropped K2 or K3 bias
+    outside), timed with its peak memory; then each stage's K2 and K3
+    calls against their plain versions and timed
+    (``big_stage_kernels``)."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+
+    t_start = time.time()
+    rows, faults, failed = [], [], []
+    record = recorder(rows, failed)
+    out = {"models": {}, "launches": {}, "timing": []}
+    g = torch.Generator(device=dev).manual_seed(24)
+    for name in BIG_BACKBONES:
+        t0 = time.time()
+        cfg = ExperimentConfig().override({"model.backbone": name})
+        tr = training_step(torch, dev, cfg=cfg, tag=f"{name} train",
+                           fall=False)
+        frames, targets, mask = tr["batch"]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = median_step_ms(
+            torch, lambda: tr["step"](tr["state"], frames, targets, mask, gen),
+            warmup=1, iters=BIG_TIME_ITERS)
+        step_peak = torch.cuda.max_memory_allocated()
+        model, train = tr["model"], tr["summary"]
+        del tr, frames, targets, mask
+        model.zero_grad(set_to_none=True)  # the AdamW moments went with tr
+        torch.cuda.empty_cache()
+
+        serve = serving_forward(torch, dev, tag=f"{name} serve", cfg=cfg,
+                                model=model, logit_spread=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = median_ms(torch, lambda: serve["forward"](serve["frames"]),
+                           warmup=2, iters=10, queued=False)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        served = serve["summary"]
+        del serve
+        out["timing"] += big_stage_kernels(torch, dev, name, model, g, record,
+                                           faults, failed)
+        out["launches"][f"{name}_serve"] = served["launches"]
+        out["launches"][f"{name}_train"] = train["launches"]
+        del model
+        torch.cuda.empty_cache()
+        ms = {"forward_ms": fwd_ms, "forward_peak_bytes": fwd_peak,
+              "step_ms": step_ms, "step_peak_bytes": step_peak,
+              "phase_s": time.time() - t0}
+        out["models"][name] = dict(ms, serve=served, train=train)
+        log(f"[{name}] forward {fwd_ms:.3f} ms a batch of 8 (peak "
+            f"{fwd_peak / 2**30:.2f} GiB), step {step_ms:.3f} ms (peak "
+            f"{step_peak / 2**30:.2f} GiB), {ms['phase_s']:.1f} s")
+    out.update(compare_rows=rows, faults=faults,
+               phase_s=time.time() - t_start)
+    if failed:
+        raise SystemExit(f"base/large kernels disagree: {failed}")
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -5616,13 +5880,17 @@ def kernel_line(compare_rows, launches, timing):
     forwards and steps, and phases 20 and 21's ranks summed: the DP step
     at world size 1 and on two ranks, the BatchNorm DP step, the DP
     Trainer, the TP step and evaluation; the bundles' bucket-8 calls; the
-    attention view's call; each counted from 0), with the split in
-    ``launches_by_path``; ms, plain_ms, bound_ms and library_ms cover one
-    pass over the stages (K1: one launch; K2 and K3: the 18 launches of one
-    pass through the ConvNeXt blocks; K4: the 8 launches of one pass
-    through the spatial blocks). ``K2`` (``dwconv.cu``) and ``K3 (f32)``
+    attention view's call; ConvNeXt base's and large's forward and step;
+    each counted from 0), with the split in ``launches_by_path``; ms,
+    plain_ms, bound_ms and library_ms cover one pass over the stages (K1:
+    one launch; K2 and K3: the 18 launches of one pass through the
+    flagship's ConvNeXt blocks; K4: the 8 launches of one pass through the
+    spatial blocks; ``K3 (mma.sync)`` and ``K3 train (mma.sync)``, bf16 on
+    ``convnext_mlp.cu``: the 3 launches of base's last stage at C = 1024
+    and the 3 of large's at 1536). ``K2`` (``dwconv.cu``) and ``K3 (f32)``
     (``convnext_mlp.cu``) are timed on float32 activations, their main
-    path's; ``dwconv.cu`` also on the Hopper kernel's bf16 inputs
+    path's (``K3 (f32)``: the reference checkpoint with ``fused_mlp=True``);
+    ``dwconv.cu`` also on the Hopper kernel's bf16 inputs
     (``bf16_inputs_ms``). Both K4 backward kernels carry the
     library's whole backward as library_ms: it is one call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
@@ -5648,6 +5916,11 @@ def kernel_line(compare_rows, launches, timing):
                      tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
+        "K3 (mma.sync)": ("convnext_mlp_mma_sync", csrc + "convnext_mlp.cu",
+                          tpu + "convnext_mlp_pallas.py:160"),
+        "K3 train (mma.sync)": ("convnext_mlp_train_mma_sync",
+                                csrc + "convnext_mlp.cu",
+                                tpu + "convnext_mlp_pallas.py:160"),
         "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention_fwd_wgmma.cu",
                    tpu + "flash_attention.py:96" + lib + "758)"),
         "K4 bwd dKdV": ("flash_mha_bwd_dkv",

@@ -91,18 +91,16 @@ def _jax_logits(pred, x):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_pth_serves_the_reference_logits(case, tmp_path):
-    """The port's logits within 1e-4 absolute and 1e-4 relative of the
-    torch reference's and of the JAX package's on the same ``.pth`` (as the
-    JAX package's ``_roundtrip`` holds it). The ConvNeXt runs its stock
-    blocks here (``fused_mlp=False``): K3's plain version rounds to bf16
-    inside whatever the model's dtype."""
+    """The port's logits on default switches within 1e-4 absolute and 1e-4
+    relative of the torch reference's and of the JAX package's default on
+    the same ``.pth`` (as the JAX package's ``_roundtrip`` holds it). A
+    float32 ConvNeXt runs K2 and the stock MLP by default, no K3."""
     model, hp = _reference(case)
     path = _save(tmp_path, model, hp)
     x = _frames(CASES[case][3])
     with torch.no_grad():
         ref = model(torch.from_numpy(x)).numpy()
-    pred = CollisionPredictor.from_torch_checkpoint(path, device="cpu",
-                                                    fused_mlp=False)
+    pred = CollisionPredictor.from_torch_checkpoint(path, device="cpu")
     assert pred.device == torch.device("cpu") and not pred.model.training
     got = _port_logits(pred, x)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
@@ -115,24 +113,30 @@ def test_pth_serves_the_reference_logits(case, tmp_path):
 
 
 def test_kernel_path_of_the_reference_convnext(tmp_path):
-    """The default blocks (K2 and K3 through their autograd Functions; on
-    the CPU their plain versions, K3's rounding t and h to bf16 by its
-    rule) within 1e-3 of the reference's logits (measured 8.3e-5 on logits
-    up to 0.065), visibly apart from the stock blocks, on the same
-    weights."""
+    """K3 asked for (``fused_mlp=True``; in float32 the default is the
+    stock chain): K2 and K3 through their autograd Functions (on the CPU
+    their plain versions, K3's rounding t and h to bf16 by its rule) within
+    1e-3 of the reference's logits (measured 8.3e-5 on logits up to 0.065),
+    visibly apart from the stock blocks, on the same weights. The default
+    blocks take K2 and the stock MLP."""
     model, hp = _reference("convnext_tiny-gru")
     path = _save(tmp_path, model, hp)
     x = _frames(0)
     with torch.no_grad():
         ref = model(torch.from_numpy(x)).numpy()
-    pred = CollisionPredictor.from_torch_checkpoint(path, device="cpu")
+    pred = CollisionPredictor.from_torch_checkpoint(path, device="cpu",
+                                                    fused_mlp=True)
     stock = CollisionPredictor.from_torch_checkpoint(path, device="cpu",
                                                      dwconv_kernel=False,
                                                      fused_mlp=False)
+    default = CollisionPredictor.from_torch_checkpoint(path, device="cpu")
     blocks = [m for m in pred.model.modules()
               if hasattr(m, "use_fused_mlp")]
     assert len(blocks) == 18
     assert all(m.use_fused_mlp and m.use_dwconv_kernel for m in blocks)
+    assert all(m.use_dwconv_kernel and not m.use_fused_mlp
+               for m in default.model.modules()
+               if hasattr(m, "use_fused_mlp"))
     got = _port_logits(pred, x)
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
     assert np.abs(got - _port_logits(stock, x)).max() > 1e-6
@@ -141,6 +145,61 @@ def test_kernel_path_of_the_reference_convnext(tmp_path):
     assert w.shape == (49, 96)
     assert torch.equal(w.t().reshape(96, 1, 7, 7),
                        sd_stock["backbone.stage0_block0.dwconv.weight"])
+
+
+def test_default_switches_serve_the_reference(tmp_path):
+    """A float32 reference checkpoint on default switches runs no K3 (K2's
+    float32 plain version and the stock MLP): within 1e-4 of the reference
+    module on logits of order 1 (``test_pth_serves_the_reference_logits``
+    holds the same default against the JAX package's), where
+    ``fused_mlp=True`` is visibly apart (K3's plain version rounds t and h
+    to bf16)."""
+    model, hp = _reference("convnext_tiny-gru")
+    with torch.no_grad():  # logits of order 1, so K3's rounding shows
+        model.classifier[8].weight.mul_(30.0)
+    path = _save(tmp_path, model, hp)
+    x = _frames(5)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(x)).numpy()
+    got = _port_logits(CollisionPredictor.from_torch_checkpoint(
+        path, device="cpu"), x)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+    fused = _port_logits(CollisionPredictor.from_torch_checkpoint(
+        path, device="cpu", fused_mlp=True), x)
+    # ten times the tolerance (measured 1.9e-3 on logits up to 1.46; the
+    # default 2.4e-7)
+    assert np.abs(fused - ref).max() > 1e-3
+
+
+def test_reference_convnext_pads_as_torchvision(tmp_path):
+    """At 72² the reference ConvNeXt's stages are 18, 9, 4 and 2: the
+    stride-2 downsamples drop the remainder of 9 rows, as torchvision's
+    ``Conv2d(padding=0)`` does. The port's reference model pads so and
+    serves the torch reference's logits within 1e-4, from the ``.pth`` and
+    from the ``.npz`` that ``cli.convert_weights --full`` writes; flax's ``SAME`` (5 and
+    3), which the flagship ConvNeXt and the JAX package's reference model
+    keep, is visibly apart, and is what the JAX package serves."""
+    model, hp = _reference("convnext_tiny-gru")
+    path = _save(tmp_path, model, hp)
+    x = np.random.default_rng(6).random((2, 12, 72, 72, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(x)).numpy()
+    pred = CollisionPredictor.from_torch_checkpoint(path, device="cpu")
+    assert pred.model.backbone.padding == "VALID"
+    got = _port_logits(pred, x)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+    npz = str(tmp_path / "model.npz")
+    import_checkpoint_file(path, npz)  # what cli.convert_weights --full does
+    assert np.array_equal(_port_logits(CollisionPredictor.from_torch_checkpoint(
+        npz, device="cpu"), x), got)
+    pred.model.backbone.padding = "SAME"
+    same = _port_logits(pred, x)
+    # ten times the tolerance (measured 6.5e-3 on logits up to 0.067)
+    assert np.abs(same - ref).max() > 1e-3
+    # where the port departs: the JAX package's import pads SAME
+    jax_got = _jax_logits(JaxPredictor.from_torch_checkpoint(path), x)
+    np.testing.assert_allclose(jax_got, same, atol=1e-4, rtol=1e-4)
 
 
 def test_npz_pair_and_ddp_prefix(tmp_path):

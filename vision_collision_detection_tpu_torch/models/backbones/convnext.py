@@ -13,9 +13,19 @@ as float32 after the global mean.
 Each block keeps the JAX switches: ``dwconv_kernel`` (JAX
 ``dwconv_pallas``) runs the depthwise 7×7 through K2 (``ops/dwconv.py``),
 ``fused_mlp`` runs LN→MLP→scale→residual through K3
-(``ops/convnext_mlp.py``). ``None`` means the module default, ``True`` for
-both at every stage; with a switch ``False`` the block runs stock PyTorch
-layers, the counterpart of the flax path.
+(``ops/convnext_mlp.py``). ``None`` means the module default: K2 at every
+stage and dtype (``DWCONV_KERNEL_DEFAULT``; its float32 route sums in
+float32), K3 only on bf16 activations (``fused_mlp_default``). With a
+switch ``False`` the block runs stock PyTorch layers, the counterpart of
+the flax path; ``fused_mlp=True`` sends float32 activations to K3 too, as
+the JAX package's ``fused_mlp=True`` does.
+
+The stem and downsample convolutions pad as ``padding`` says: flax's
+``"SAME"`` (the default, the JAX package's), or ``"VALID"``: no padding,
+the remainder of an odd side dropped, as torchvision's ``Conv2d(k, s,
+padding=0)`` does (the reference's checkpoints, ``models/reference_model``;
+the JAX package pads those ``SAME`` too, which departs from torchvision
+where a stage's side is odd, e.g. the last downsample at 112²).
 
 Stochastic depth follows the flax block: ``drop_path_rate`` per block on
 the linear schedule over the blocks, active only in training
@@ -41,7 +51,19 @@ from vision_collision_detection_tpu_torch.utils.precision import cudnn_float32
 
 LN_EPS = 1e-6
 DWCONV_KERNEL_DEFAULT = True
+# K3 by default, on bf16 activations only (``fused_mlp_default``).
 FUSED_MLP_DEFAULT = True
+PADDINGS = ("SAME", "VALID")
+
+
+def fused_mlp_default(dtype) -> bool:
+    """Whether a block of compute dtype ``dtype`` takes K3 when its
+    ``fused_mlp`` is None: ``FUSED_MLP_DEFAULT`` on bf16, never on float32.
+    K3 rounds t, h_pre and h to bf16 (its rule), where flax's bf16 chain
+    rounds them and its float32 chain does not; so a float32 block runs the
+    stock chain, what the JAX package computes by default (its
+    ``FUSED_MLP_DEFAULT`` is False)."""
+    return FUSED_MLP_DEFAULT and dtype == torch.bfloat16
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
@@ -65,7 +87,8 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype,
     in ``dtype`` as flax's default ``SAME`` does (the stem and downsample
     convolutions, whose ``conv.padding`` is 0); otherwise ``conv.padding``
     (the stock depthwise conv's explicit 3, the BatchNorm backbones'
-    explicit pads). A float32 convolution runs without TF32
+    explicit pads, the stem's and downsamples' 0 under ``"VALID"``). A
+    float32 convolution runs without TF32
     (``utils/precision.py``), as flax's does."""
     x = x.to(dtype)
     if same:
@@ -111,7 +134,7 @@ class ConvNeXtBlock(nn.Module):
         self.gelu_approximate = gelu_approximate
         self.use_dwconv_kernel = (DWCONV_KERNEL_DEFAULT if dwconv_kernel is None
                                   else bool(dwconv_kernel))
-        self.use_fused_mlp = (FUSED_MLP_DEFAULT if fused_mlp is None
+        self.use_fused_mlp = (fused_mlp_default(dtype) if fused_mlp is None
                               else bool(fused_mlp))
         self.dtype = dtype
         if self.use_dwconv_kernel:
@@ -162,18 +185,23 @@ class ConvNeXtBlock(nn.Module):
 class ConvNeXt(nn.Module):
     """NHWC frames [N, H, W, 3] → pooled (and head-normed) features [N, D]
     in float32. Any H and W: the stem and downsample convolutions pad as
-    flax's ``SAME`` does."""
+    ``padding`` says, flax's ``"SAME"`` or torchvision's ``"VALID"``."""
 
     def __init__(self, depths: Sequence[int], dims: Sequence[int],
                  drop_path_rate: float = 0.0,
                  apply_head_norm: bool = True, gelu_approximate: bool = False,
                  dwconv_kernel: Optional[bool] = None,
-                 fused_mlp: Optional[bool] = None, dtype=torch.bfloat16):
+                 fused_mlp: Optional[bool] = None, dtype=torch.bfloat16,
+                 padding: str = "SAME"):
         super().__init__()
+        if padding not in PADDINGS:
+            raise ValueError(f"padding must be one of {PADDINGS}, got "
+                             f"{padding!r}")
         self.depths = tuple(depths)
         self.dims = tuple(dims)
         self.apply_head_norm = apply_head_norm
         self.dtype = dtype
+        self.padding = padding
         self.stem_conv = nn.Conv2d(3, dims[0], 4, stride=4)
         self.stem_norm = nn.LayerNorm(dims[0], eps=LN_EPS)
         total_blocks = sum(self.depths)
@@ -199,14 +227,14 @@ class ConvNeXt(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the drop-path masks' source in training."""
-        dt = self.dtype
-        x = conv_nhwc(x, self.stem_conv, dt, same=True)
+        dt, same = self.dtype, self.padding == "SAME"
+        x = conv_nhwc(x, self.stem_conv, dt, same=same)
         x = layer_norm(x, self.stem_norm, dt)
         for stage, depth in enumerate(self.depths):
             if stage > 0:
                 x = layer_norm(x, getattr(self, f"downsample{stage}_norm"), dt)
                 x = conv_nhwc(x, getattr(self, f"downsample{stage}_conv"), dt,
-                               same=True)
+                              same=same)
             for blk in range(depth):
                 x = getattr(self, f"stage{stage}_block{blk}")(x, generator)
         # global mean pool: float32 sum, result in the compute dtype

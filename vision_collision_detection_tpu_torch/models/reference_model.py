@@ -9,9 +9,18 @@ BatchNorm + ReLU + Dropout → Linear(256, num_classes). Frames are
 subsampled every 2nd when T > 10, as the reference does.
 
 float32 by default, the reference's precision; ``dtype=torch.bfloat16`` is
-the faster option. The ConvNeXt blocks run K2 and K3 as the flagship's do:
-in float32 on ``dwconv.cu`` and ``convnext_mlp.cu`` (whose products round
-to bf16 by K3's rule), in bf16 on the Hopper kernels.
+the faster option. The ConvNeXt blocks take the module defaults
+(``models/backbones/convnext.py``): in float32 K2 on ``dwconv.cu`` (float32
+sums) and the stock float32 MLP chain, as the JAX package computes it
+(``fused_mlp=True`` sends them to K3's ``convnext_mlp.cu``, whose products
+round to bf16 by K3's rule); in bf16 K2 and K3 on the Hopper kernels.
+
+The ConvNeXt pads as torchvision's does (``padding="VALID"``: the stem and
+downsample convolutions drop the remainder of an odd side), so a
+checkpoint serves the reference's numbers at any frame side. Here the
+port departs from the JAX package, whose reference model pads flax's
+``SAME`` (the same at 224² and 96²; at 112² its last downsample sees 7
+rows and gives 4 where torchvision gives 3).
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ class ReferenceVideoClassifier(nn.Module):
         self.subsample_threshold = subsample_threshold
         self.dtype = dtype
         kw = ({"apply_head_norm": False, "dwconv_kernel": dwconv_kernel,
-               "fused_mlp": fused_mlp}
+               "fused_mlp": fused_mlp, "padding": "VALID"}
               if backbone.startswith("convnext") else {})
         self.backbone = build_backbone(backbone, dtype=dtype, **kw)
         D = feature_dim(backbone)
