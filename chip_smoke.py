@@ -27,9 +27,12 @@ failure:
    Hopper kernel's forward and dx at the last stage of 112² and 40² frames
    ([200, 4, 4, 768], [64, 2, 2, 768]), at odd sides ([64, 3, 5, 384],
    [64, 10, 6, 96]) and at [64, 16, 64, 96], a short frame too wide to be
-   staged whole. Then what stays on the mma.sync kernel, off the
-   flagship's path (K3 at widths 1024 and 1536, which phase 24 holds at
-   full size; K2 and K3 on float32 activations), at small shapes; the
+   staged whole. K3 in bf16 at 1024 and 1536 runs on its split kernel
+   (``convnext_mlp_wide.cu``: a LayerNorm and two wgmma GEMMs), held the
+   same way at 100, 2,000 and 9,800 rows, two calls bit-equal, and each of
+   its three launches against its own plain stage. Then what stays on the
+   mma.sync kernel, off the main paths (K3 in bf16 at 1024 and 1536, the
+   route forced; K2 and K3 on float32 activations), at small shapes; the
    launch counters show which kernel each call took.
    Then the training path's kernels at the same shapes: K2 wgrad on its
    Hopper kernel (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
@@ -273,15 +276,17 @@ failure:
     ``model.backbone`` changed; bf16): one ``make_train_step`` of
     ``create_train_state``'s model on uint8 [8, 50, 126, 224, 3] (K2 72,
     K2 wgrad 36, K3 train 36: 33 on the wgmma kernel, the last stage's 3
-    at C = 1024 or 1536 on ``convnext_mlp.cu``) against the plain step,
+    at C = 1024 or 1536 on the split kernel) against the plain step,
     where a 1% dγ and a dropped K2 db must land outside; the same model,
     weights redrawn, served through ``_make_forward(folded_stride=True)``
     on uint8 [8, 25, 126, 224, 3] (K1 1, K2 36, K3 36: 33 on the wgmma
-    kernel) against plain versions, where a dropped K2 or K3 bias must
-    land outside; ms per step and per batch with peak memory; each
-    stage's K2 forward, dx and wgrad and K3 eval and train at the full
-    stage shape against their plain versions, with their faults, and
-    timed beside their bounds.
+    kernel, 3 on the split kernel) against plain versions, where a
+    dropped K2 or K3 bias must land outside; ms per step and per batch
+    with peak memory; each stage's K2 forward, dx and wgrad and K3 eval
+    and train at the full stage shape against their plain versions, with
+    their faults, and timed beside their bounds (the split kernel also
+    beside ``convnext_mlp.cu`` on the same inputs, the stock chain and
+    its plain version).
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -517,7 +522,7 @@ def main() -> int:
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
         + ref["compare_rows"] + big["compare_rows"], launches,
         report["timing"] + ref["kernel_timing"] + [
-            r for r in big["timing"] if r["kernel"].endswith("(mma.sync)")])
+            r for r in big["timing"] if r["kernel"].endswith("(wide)")])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -612,14 +617,59 @@ K3_FAULTS = {
 
 
 def k3_entries(torch, C):
-    """The kernels-line entries (eval, train) of K3 in bf16 at width C:
-    the Hopper kernel's, or the mma.sync kernel's at the widths
-    ``convnext_mlp.route`` sends there."""
+    """The kernels-line entries (eval, train) of K3 in bf16 at width C, by
+    the kernel ``convnext_mlp.route`` sends it to: the Hopper kernel's, the
+    split kernel's, or (the route forced) the mma.sync kernel's, which is
+    off the main paths in bf16 and has no entry of its own."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
-    if k3.route(torch.bfloat16, C) == "wgmma":
-        return "K3", "K3 train"
-    return "K3 (mma.sync)", "K3 train (mma.sync)"
+    return {"wgmma": ("K3", "K3 train"),
+            "wide": ("K3 (wide)", "K3 train (wide)")}.get(
+        k3.route(torch.bfloat16, C), ("K3 (mma.sync)", "K3 train (mma.sync)"))
+
+
+def check_k3_wide(torch, dev, g, C, M, record, failed):
+    """The split kernel at [M, C] bf16 beyond ``check_k3_small``: two calls
+    of each variant bit-equal, and each of its three launches
+    (``ln_stage``, ``up_stage``, ``down_stage``) against its own plain
+    version on the plain version's inputs, by K3's rule (m against the
+    plain m rounded to bf16, as the kernel saves it)."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+
+    xs = torch.randn(M, C, generator=g, device=g.device).to(dev,
+                                                            torch.bfloat16)
+    y = torch.randn(M, C, generator=g, device=g.device).to(dev, torch.bfloat16)
+    p = k3_params(torch, C, g, dev)
+    with torch.no_grad():
+        a, b = (k3.convnext_mlp(xs, y, approximate=False, **p)
+                for _ in range(2))
+    ta, tb = (k3.convnext_mlp_train(xs, y, approximate=False, **p)
+              for _ in range(2))
+    torch.cuda.synchronize()
+    record(f"K3 wide twice width {C} (bit-equal)", [M, C],
+           max_err(torch, a, b), 0.0, entry="K3 (wide)")
+    record(f"K3 wide train twice width {C} (bit-equal)", [M, C],
+           max(max_err(torch, u, v) for u, v in zip(ta, tb)), 0.0,
+           entry="K3 train (wide)")
+    del a, b, ta, tb
+    t_ref = k3.ln_stage_plain(y, p["ln_w"], p["ln_b"])
+    hp_ref, h_ref = k3.up_stage_plain(t_ref, p["w1"], p["b1"], False)
+    out_ref, m_ref = k3.down_stage_plain(h_ref, xs, p["w2"], p["b2"],
+                                         p["gamma"])
+    got = {"ln t": k3.ln_stage(y, p["ln_w"], p["ln_b"])}
+    got["up h_pre"], got["up h"] = k3.up_stage(t_ref, p["w1"], p["b1"],
+                                               False)
+    got["down out"], got["down m"] = k3.down_stage(h_ref, xs, p["w2"],
+                                                   p["b2"], p["gamma"])
+    torch.cuda.synchronize()
+    refs = {"ln t": t_ref, "up h_pre": hp_ref, "up h": h_ref,
+            "down out": out_ref, "down m": m_ref.to(torch.bfloat16)}
+    for name, r in refs.items():
+        record(f"K3 wide stage {name} width {C}", [M, C],
+               max_err(torch, got[name], r),
+               float(r.float().abs().max()) * 2 ** -6,
+               mean_err(torch, got[name], r),
+               float(r.float().abs().mean()) * 2 ** -12, entry="K3 (wide)")
 
 
 def check_k3_small(torch, dev, g, C, M, record, faults, failed):
@@ -813,6 +863,7 @@ def compare_kernels(torch, dev):
     inputs = {}
     record = recorder(rows, failed)
     k3.convnext_mlp.wgmma_launches = 0
+    k3.convnext_mlp.wide_launches = 0
 
     mean, std = (0.45,) * 3, (0.225,) * 3
     u8 = torch.randint(0, 256, (N_FRAMES, *CONTENT, 3), generator=g,
@@ -901,28 +952,31 @@ def compare_kernels(torch, dev):
         del x, w, b, gy
 
     # The Hopper kernel (``convnext_mlp_wgmma.cu``) at every width it
-    # takes, eval and train, both GELU forms, at 100 rows (less than one
-    # block's) and 2,000 (no multiple of any block's rows), with K3's
-    # faults; the stage shapes above already went through it.
-    for C in k3.WGMMA_DIMS:
+    # takes and the split kernel (``convnext_mlp_wide.cu``) at its two,
+    # eval and train, both GELU forms, at 100 rows (less than one block's)
+    # and 2,000 (no multiple of any block's rows), with K3's faults; the
+    # stage shapes above already went through the Hopper kernel. The split
+    # kernel also at the last stage's 9,800 rows, twice, and stage by
+    # stage.
+    for C in k3.WGMMA_DIMS + k3.WIDE_DIMS:
         for M in (100, 2000):
             check_k3_small(torch, dev, g, C, M, record, faults, failed)
-    k3_routed = k3.convnext_mlp.wgmma_launches
-    # The other compiled variants, off the flagship's path, on the mma.sync
-    # kernel (``convnext_mlp.cu``): K3 at the widths the Hopper kernel does
-    # not take, and K2 and K3 on float32 activations. A row count that is
-    # no multiple of any block's rows exercises the tail.
+    for C in k3.WIDE_DIMS:
+        check_k3_small(torch, dev, g, C, N_FRAMES * 7 * 7, record, faults,
+                       failed)
+        check_k3_wide(torch, dev, g, C, N_FRAMES * 7 * 7, record, failed)
+        torch.cuda.empty_cache()
+    k3_routed = (k3.convnext_mlp.wgmma_launches,
+                 k3.convnext_mlp.wide_launches)
+    # The other compiled variants, off the main paths, on the mma.sync
+    # kernel (``convnext_mlp.cu``): K3 in bf16 at 1024 and 1536 with the
+    # route forced (the yardstick phase 24 times beside the split kernel),
+    # and K2 and K3 on float32 activations. A row count that is no
+    # multiple of any block's rows exercises the tail.
     rows_off = 2000
-    for C in (1024, 1536):
-        xs = torch.randn(rows_off, C, generator=g).to(dev, torch.bfloat16)
-        y = torch.randn(rows_off, C, generator=g).to(dev, torch.bfloat16)
-        p = k3_params(torch, C, g, dev)
-        got = convnext_mlp(xs, y, approximate=True, **p)
-        ref = convnext_mlp_plain(xs, y, approximate=True, **p)
-        torch.cuda.synchronize()
-        record(f"K3 width {C}", [rows_off, C], max_err(torch, got, ref),
-               float(ref.float().abs().max()) * 2 ** -6,
-               entry="K3 (mma.sync)")
+    with swapped((k3, "route", lambda dtype, C_: "mma")):
+        for C in k3.WIDE_DIMS:
+            check_k3_small(torch, dev, g, C, rows_off, record, faults, failed)
     xs = torch.randn(rows_off, 96, generator=g).to(dev)
     y = torch.randn(rows_off, 96, generator=g).to(dev)
     p = k3_params(torch, 96, g, dev)
@@ -943,12 +997,15 @@ def compare_kernels(torch, dev):
     record("K2 float32", [8, 56, 56, 96], max_err(torch, got, ref),
            float(ref.abs().max()) * 2 ** -16)
     # the route by dtype and width: the four stage shapes (two GELU forms
-    # each) and the small checks took the Hopper kernel, the rest did not
-    want = 4 * 2 + len(k3.WGMMA_DIMS) * 2 * 2
-    log(f"[compare] K3 launches on the Hopper kernel {k3_routed} (expected "
-        f"{want}), after the mma.sync checks "
-        f"{k3.convnext_mlp.wgmma_launches}")
-    if not k3_routed == want == k3.convnext_mlp.wgmma_launches:
+    # each) and the small checks took the Hopper kernel; the split
+    # kernel's widths at three row counts (two forms each) and twice more
+    # in ``check_k3_wide`` took the split kernel; the rest neither
+    want = (4 * 2 + len(k3.WGMMA_DIMS) * 2 * 2,
+            len(k3.WIDE_DIMS) * (3 * 2 + 2))
+    after = (k3.convnext_mlp.wgmma_launches, k3.convnext_mlp.wide_launches)
+    log(f"[compare] K3 launches on the Hopper and split kernels {k3_routed} "
+        f"(expected {want}), after the mma.sync checks {after}")
+    if not k3_routed == want == after:
         failed.append("K3 took the wrong kernel")
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -1365,13 +1422,14 @@ def redraw_weights(torch, model, g):
 
 
 def block_launches(torch, model):
-    """(ConvNeXt blocks in ``model``, of them on K3's Hopper kernel in
+    """(ConvNeXt blocks in ``model``, of them on K3's split kernel in
     bf16): one K2 and one K3 launch a block in a forward."""
     from vision_collision_detection_tpu_torch.models.backbones import convnext
 
     dims = [m.dim for m in model.modules()
             if isinstance(m, convnext.ConvNeXtBlock)]
-    return len(dims), sum(k3_entries(torch, C)[0] == "K3" for C in dims)
+    return len(dims), sum(k3_entries(torch, C)[0] == "K3 (wide)"
+                          for C in dims)
 
 
 def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
@@ -1420,8 +1478,8 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
     probs = forward(frames_dev)
     torch.cuda.synchronize()
     log(f"[{tag}] probs {probs.tolist()}")
-    blocks, on_wgmma = block_launches(torch, pred.model)
-    launches = expect_launches(tag, counters, hopper={"K3": on_wgmma}, K1=1,
+    blocks, on_wide = block_launches(torch, pred.model)
+    launches = expect_launches(tag, counters, wide={"K3": on_wide}, K1=1,
                                K2=blocks, K3=blocks)
     if tuple(probs.shape) != (8, 3) or not bool(torch.isfinite(probs).all()):
         raise SystemExit(f"bad probabilities {probs}")
@@ -1514,48 +1572,76 @@ def zero_counters():
     return counters
 
 
-# A wrapper with two kernels counts the launches of its Hopper one under
-# one of these names beside ``launches``.
-HOPPER_COUNTS = ("wgmma_launches", "hopper_launches")
+# A wrapper with two or three kernels counts the launches of its Hopper
+# ones under these names beside ``launches`` (K3's split kernel under the
+# last).
+HOPPER_COUNTS = ("wgmma_launches", "hopper_launches", "wide_launches")
 
 
-def expect_launches(tag, counters, hopper=True, **expected):
+def expect_launches(tag, counters, hopper=True, wide=None, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
-    and where a wrapper has two kernels (K2, K2 wgrad, K3, K3 train, K4
-    fwd), every launch must have taken the Hopper one, or with ``hopper``
-    False (a float32 path) none of them; ``hopper`` may instead map a
-    counter to the launches expected on its Hopper kernel (ConvNeXt base
-    and large: K3's last stage on the mma.sync kernel), the others taking
-    it every time. Returns the launches by kernels-line entry: K2's split
-    into ``K2`` (``dwconv.cu``) and ``K2 (hopper)``, K2 wgrad's into ``K2
-    wgrad`` (``dwconv_wgrad.cu``) and ``K2 wgrad (hopper)``, K3's into
-    ``K3`` (``convnext_mlp_wgmma.cu``) and ``convnext_mlp.cu``'s ``K3
-    (f32)`` (float32 paths) or ``K3 (mma.sync)`` (bf16 at C = 1024 and
-    1536), K3 train's into ``K3 train`` and ``K3 train (mma.sync)``."""
+    and where a wrapper has several kernels (K2, K2 wgrad, K3, K3 train, K4
+    fwd), every launch must have taken a Hopper one, or with ``hopper``
+    False (a float32 path) none of them; ``wide`` maps K3's counters to
+    the launches expected on its split kernel (ConvNeXt base's and large's
+    last stage), 0 where it is silent. Returns the launches by
+    kernels-line entry: K2's split into ``K2`` (``dwconv.cu``) and ``K2
+    (hopper)``, K2 wgrad's into ``K2 wgrad`` (``dwconv_wgrad.cu``) and
+    ``K2 wgrad (hopper)``, K3's into ``K3`` (``convnext_mlp_wgmma.cu``),
+    ``K3 (wide)`` (``convnext_mlp_wide.cu``) and ``convnext_mlp.cu``'s
+    ``K3 (f32)`` (float32 paths) or ``K3 (mma.sync)``, K3 train's
+    likewise."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
-    on_hopper = {k: getattr(fn, name) for k, fn in counters.items()
-                 for name in HOPPER_COUNTS if hasattr(fn, name)}
+    on_hopper = {k: sum(getattr(fn, n) for n in HOPPER_COUNTS
+                        if hasattr(fn, n))
+                 for k, fn in counters.items()
+                 if any(hasattr(fn, n) for n in HOPPER_COUNTS)}
+    on_wide = {k: fn.wide_launches for k, fn in counters.items()
+               if hasattr(fn, "wide_launches")}
     log(f"[{tag}] launches {launches}; of them on the Hopper kernels "
-        f"{on_hopper}")
+        f"{on_hopper}, on K3's split kernel {on_wide}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
-    want_hopper = {k: (hopper.get(k, launches[k]) if isinstance(hopper, dict)
-                       else launches[k] if hopper else 0) for k in on_hopper}
-    if on_hopper != want_hopper:
+    want_hopper = {k: launches[k] if hopper else 0 for k in on_hopper}
+    want_wide = {k: (wide or {}).get(k, 0) for k in on_wide}
+    if on_hopper != want_hopper or on_wide != want_wide:
         raise SystemExit(f"{tag}: a launch took the wrong one of its "
-                         f"wrapper's two kernels: {on_hopper} of {launches}, "
-                         f"expected {want_hopper}")
+                         f"wrapper's kernels: {on_hopper} (split {on_wide}) "
+                         f"of {launches}, expected {want_hopper} (split "
+                         f"{want_wide})")
     by_entry = dict(launches)
     mma = "K3 (f32)" if hopper is False else "K3 (mma.sync)"
     for k, hopper_entry, other in (
             ("K2", "K2 (hopper)", "K2"),
             ("K2 wgrad", "K2 wgrad (hopper)", "K2 wgrad"),
             ("K3", "K3", mma), ("K3 train", "K3 train", "K3 train (mma.sync)")):
-        by_entry[hopper_entry] = on_hopper[k]
+        split = on_wide.get(k, 0)
+        by_entry[hopper_entry] = on_hopper[k] - split
         by_entry[other] = launches[k] - on_hopper[k]
+        if k in on_wide:
+            by_entry[f"{k} (wide)"] = split
     return by_entry
+
+
+def k3_stock_chain(torch, xs, y, p):
+    """The stock bf16 chain LN → ``F.linear`` → GELU → ``F.linear`` → γ,
+    residual on K3's inputs (a yardstick, not one call)."""
+    import torch.nn.functional as F
+
+    C = xs.shape[-1]
+    w1t = p["w1"].t().contiguous().to(torch.bfloat16)
+    w2t = p["w2"].t().contiguous().to(torch.bfloat16)
+    b1, b2 = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
+    gam = p["gamma"].to(torch.bfloat16)
+
+    def stock():
+        t = F.layer_norm(y.float(), (C,), p["ln_w"], p["ln_b"],
+                         1e-6).to(torch.bfloat16)
+        h = F.gelu(F.linear(t, w1t, b1), approximate="tanh")
+        return xs + F.linear(h, w2t, b2) * gam
+    return stock
 
 
 GRAD_FLOOR = 1e-3              # of the global gradient norm; see rel_grad_errs
@@ -1624,8 +1710,8 @@ def training_step(torch, dev, cfg=None, tag="train", fall=True):
     metrics, grads = run(TRAIN_SEED)
     first_s = time.perf_counter() - t0
     log(f"[{tag}] first step {first_s:.2f} s, metrics {metrics}")
-    blocks, on_wgmma = block_launches(torch, model)
-    launches = expect_launches(tag, counters, hopper={"K3 train": on_wgmma},
+    blocks, on_wide = block_launches(torch, model)
+    launches = expect_launches(tag, counters, wide={"K3 train": on_wide},
                                K2=2 * blocks, K2_wgrad=blocks,
                                K3_train=blocks)
     if not math.isfinite(metrics["loss"]):
@@ -2516,8 +2602,6 @@ def profile_device(torch, tag, run, n, groups):
 # ---- 4. timing ---------------------------------------------------------
 
 def time_kernels(torch, dev, inputs):
-    import torch.nn.functional as F
-
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
         convnext_mlp, convnext_mlp_plain, convnext_mlp_train,
@@ -2565,18 +2649,7 @@ def time_kernels(torch, dev, inputs):
         M = n // C
         b, by = bound_ms(3 * n * 2 + 8 * C * C * 2, 16 * M * C * C,
                          BF16_FLOPS)
-        w1t = p["w1"].t().contiguous().to(torch.bfloat16)
-        w2t = p["w2"].t().contiguous().to(torch.bfloat16)
-        b1, b2 = p["b1"].to(torch.bfloat16), p["b2"].to(torch.bfloat16)
-        gam = p["gamma"].to(torch.bfloat16)
-
-        def stock():
-            t = F.layer_norm(y.float(), (C,), p["ln_w"], p["ln_b"],
-                             1e-6).to(torch.bfloat16)
-            h = F.gelu(F.linear(t, w1t, b1), approximate="tanh")
-            return xs + F.linear(h, w2t, b2) * gam
-
-        stock_ms = median_ms(torch, stock)
+        stock_ms = median_ms(torch, k3_stock_chain(torch, xs, y, p))
         with swapped((k3, "route", lambda dtype, C: "mma")):
             mma_ms = {"K3": median_ms(torch, lambda: convnext_mlp(
                 xs, y, approximate=True, **p)),
@@ -5742,8 +5815,10 @@ def big_stage_kernels(torch, dev, name, model, g, record, faults, failed):
     eval and train variants on the kernel ``convnext_mlp.route`` takes
     (both GELU forms; train's out bit-equal to eval's; K3's faults
     outside). Then each timed per launch beside its bound, K3 on the
-    mma.sync kernel (C = 1024, 1536) beside its plain version too. →
-    timing rows (``per_forward``: the stage's blocks)."""
+    split kernel (C = 1024, 1536) beside its plain version, the stock
+    chain and ``convnext_mlp.cu`` on the same inputs (the route forced,
+    ``mma_sync_ms``) too. → timing rows (``per_forward``: the stage's
+    blocks)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
 
@@ -5778,9 +5853,19 @@ def big_stage_kernels(torch, dev, name, model, g, record, faults, failed):
         y = torch.randn(M, C, generator=g, device=g.device).to(
             dev, torch.bfloat16)
         p = k3_params(torch, C, g, dev)
-        mma = k3.route(torch.bfloat16, C) == "mma"
+        # W1 and W2 as a block hands them over: transposed views of
+        # nn.Linear's float32 storage
+        p.update(w1=p["w1"].t().contiguous().t(),
+                 w2=p["w2"].t().contiguous().t())
+        wide = k3.route(torch.bfloat16, C) == "wide"
         eval_entry, train_entry = k3_entries(torch, C)
-        for entry, fn, plain, bound in (
+        if wide:
+            stock_ms = median_ms(torch, k3_stock_chain(torch, xs, y, p))
+            with swapped((k3, "route", lambda dtype, C_: "mma")):
+                mma_ms = [median_ms(torch, lambda: fn(
+                    xs, y, approximate=True, **p))
+                    for fn in (k3.convnext_mlp, k3.convnext_mlp_train)]
+        for i, (entry, fn, plain, bound) in enumerate((
                 (eval_entry, k3.convnext_mlp, k3.convnext_mlp_plain,
                  bound_ms(3 * n * 2 + 8 * C * C * 2, 16 * M * C * C,
                           BF16_FLOPS)),
@@ -5788,17 +5873,21 @@ def big_stage_kernels(torch, dev, name, model, g, record, faults, failed):
                 (train_entry, k3.convnext_mlp_train,
                  k3.convnext_mlp_train_plain,
                  bound_ms(18 * n + 8 * C * C * 2, 16 * M * C * C,
-                          BF16_FLOPS))):
+                          BF16_FLOPS)))):
             row(entry, median_ms(torch, lambda: fn(xs, y, approximate=True,
                                                    **p)), bound,
                 median_ms(torch, lambda: plain(xs, y, approximate=True, **p),
-                          warmup=1, iters=3) if mma else None)
+                          warmup=1, iters=3) if wide else None)
+            if wide:
+                rows[-1].update(mma_sync_ms=mma_ms[i], stock_chain_ms=stock_ms)
         del xs, y, p
     for r in rows:
-        plain = "" if r["plain_ms"] is None else f"; plain {r['plain_ms']:.4f}"
+        more = "".join(f"; {k[:-3]} {r[k]:.4f}" for k in (
+            "plain_ms", "mma_sync_ms", "stock_chain_ms")
+            if r.get(k) is not None)
         log(f"[{name} time] {r['kernel']} {r['shape']} x{r['per_forward']}: "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']}{plain})")
+            f"{r['bound_by']}{more})")
     return rows
 
 
@@ -5808,12 +5897,13 @@ def big_convnext_phase(torch, dev):
     thinning, bf16). For each: ``create_train_state`` and one
     ``make_train_step`` on uint8 [8, 50, 126, 224, 3] (``training_step``:
     K2 72, K2 wgrad 36, K3 train 36, 33 of them on the wgmma kernel and
-    the last stage's 3 on ``convnext_mlp.cu``; against the plain step, a
+    the last stage's 3 on the split kernel; against the plain step, a
     1% dγ and a dropped K2 db outside), the step timed with its peak
     memory; the same model, its weights redrawn, served by
     ``CollisionPredictor._make_forward(folded_stride=True)`` on uint8
     [8, 25, 126, 224, 3] (``serving_forward``: K1 1, K2 36, K3 36, 33 on
-    the wgmma kernel; against plain versions, a dropped K2 or K3 bias
+    the wgmma kernel, 3 on the split one; against plain versions, a
+    dropped K2 or K3 bias
     outside), timed with its peak memory; then each stage's K2 and K3
     calls against their plain versions and timed
     (``big_stage_kernels``)."""
@@ -5885,11 +5975,13 @@ def kernel_line(compare_rows, launches, timing):
     plain_ms, bound_ms and library_ms cover one pass over the stages (K1:
     one launch; K2 and K3: the 18 launches of one pass through the
     flagship's ConvNeXt blocks; K4: the 8 launches of one pass through the
-    spatial blocks; ``K3 (mma.sync)`` and ``K3 train (mma.sync)``, bf16 on
-    ``convnext_mlp.cu``: the 3 launches of base's last stage at C = 1024
-    and the 3 of large's at 1536). ``K2`` (``dwconv.cu``) and ``K3 (f32)``
-    (``convnext_mlp.cu``) are timed on float32 activations, their main
-    path's (``K3 (f32)``: the reference checkpoint with ``fused_mlp=True``);
+    spatial blocks; ``K3 (wide)`` and ``K3 train (wide)``, bf16 on
+    ``convnext_mlp_wide.cu``: the 3 launches of base's last stage at C =
+    1024 and the 3 of large's at 1536, with ``convnext_mlp.cu`` on the same
+    inputs as ``mma_sync_ms`` and the stock chain as ``stock_chain_ms``).
+    ``K2`` (``dwconv.cu``) and ``K3 (f32)`` (``convnext_mlp.cu``) are
+    timed on float32 activations, their main path's (``K3 (f32)``: the
+    reference checkpoint with ``fused_mlp=True``);
     ``dwconv.cu`` also on the Hopper kernel's bf16 inputs
     (``bf16_inputs_ms``). Both K4 backward kernels carry the
     library's whole backward as library_ms: it is one call. ``K4 bwd di``
@@ -5916,11 +6008,11 @@ def kernel_line(compare_rows, launches, timing):
                      tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
-        "K3 (mma.sync)": ("convnext_mlp_mma_sync", csrc + "convnext_mlp.cu",
-                          tpu + "convnext_mlp_pallas.py:160"),
-        "K3 train (mma.sync)": ("convnext_mlp_train_mma_sync",
-                                csrc + "convnext_mlp.cu",
-                                tpu + "convnext_mlp_pallas.py:160"),
+        "K3 (wide)": ("convnext_mlp_wide", csrc + "convnext_mlp_wide.cu",
+                      tpu + "convnext_mlp_pallas.py:160"),
+        "K3 train (wide)": ("convnext_mlp_train_wide",
+                            csrc + "convnext_mlp_wide.cu",
+                            tpu + "convnext_mlp_pallas.py:160"),
         "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention_fwd_wgmma.cu",
                    tpu + "flash_attention.py:96" + lib + "758)"),
         "K4 bwd dKdV": ("flash_mha_bwd_dkv",
@@ -5957,8 +6049,10 @@ def kernel_line(compare_rows, launches, timing):
         # timed on the same inputs
         if total("mma_sync_ms") is not None:
             entry["mma_sync_ms"] = total("mma_sync_ms")
-        # K3 on float32: the stock float32 chain on the same inputs
-        if total("stock_chain_ms") is not None and k == "K3 (f32)":
+        # K3 on float32 and on the split kernel: the stock chain on the
+        # same inputs
+        if total("stock_chain_ms") is not None and k in (
+                "K3 (f32)", "K3 (wide)", "K3 train (wide)"):
             entry["stock_chain_ms"] = total("stock_chain_ms")
         # dwconv.cu, timed on float32 (its main path's), also on the bf16
         # inputs of its Hopper sibling

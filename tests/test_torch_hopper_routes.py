@@ -2,16 +2,18 @@
 K4's forward takes, how K3's weights reach it, and what K1's wrapper hands
 its kernel, checked on the CPU.
 
-K3 and K4's forward each have two CUDA kernels: a Hopper one (wgmma, TMA)
-for the main paths' dtype and widths, and the mma.sync one for the rest;
+K3 and K4's forward each have a Hopper kernel (wgmma, TMA) for the main
+paths' dtype and widths and the mma.sync one for the rest; K3 has a second
+Hopper kernel, split into a LayerNorm and two GEMMs, for bf16 at 1024 and
+1536;
 K2's forward has the CUDA-core stencil of ``dwconv_hopper.cu`` for bf16
 at widths that divide by 32 and ``dwconv.cu`` for the rest, and K2's
 weight gradient the CUDA-core reduction of ``dwconv_wgrad_hopper.cu``
 under the same rule and ``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
 ``dwconv.wgrad_route``, ``convnext_mlp.route``,
-``flash_attention.fwd_route``), and the Hopper K3
-reads W1 and W2 in
+``flash_attention.fwd_route``), and both Hopper K3 kernels
+read W1 and W2 in
 nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
 it the weight's storage with no copy. The launches are held here with the
 C library swapped for a recorder (the kernels run only on a card, where
@@ -42,8 +44,10 @@ K3_NAMES = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
 @pytest.mark.parametrize("C", k3.KERNEL_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k3_route_rule(C, dtype):
-    want = ("wgmma" if dtype == torch.bfloat16 and C not in (1024, 1536)
-            else "mma")
+    """bf16 takes the Hopper kernel up to 768 and the split wgmma kernel at
+    1024 and 1536; float32 takes the mma.sync kernel at every width."""
+    want = ("mma" if dtype == torch.float32 else
+            "wide" if C in (1024, 1536) else "wgmma")
     assert k3.route(dtype, C) == want
 
 
@@ -84,17 +88,21 @@ def _linears(C, dtype, seed=0):
 
 @pytest.mark.parametrize("weight_dtype", [torch.bfloat16, torch.float32])
 def test_kernel_weights_take_linear_storage(weight_dtype):
+    """Both Hopper routes read nn.Linear's storage; the mma.sync route gets
+    flax-layout copies."""
     lin1, lin2 = _linears(96, weight_dtype)
-    w1, w2 = k3.kernel_weights(lin1.weight.t(), lin2.weight.t(), "wgmma")
-    assert w1.shape == (384, 96) and w2.shape == (96, 384)
-    assert w1.is_contiguous() and w2.is_contiguous()
-    assert w1.dtype == w2.dtype == torch.bfloat16
-    assert torch.equal(w1, lin1.weight.to(torch.bfloat16))
-    assert torch.equal(w2, lin2.weight.to(torch.bfloat16))
-    if weight_dtype == torch.bfloat16:
-        # the view's own storage, not a copy
-        assert w1.data_ptr() == lin1.weight.data_ptr()
-        assert w2.data_ptr() == lin2.weight.data_ptr()
+    for kernel_route in ("wgmma", "wide"):
+        w1, w2 = k3.kernel_weights(lin1.weight.t(), lin2.weight.t(),
+                                   kernel_route)
+        assert w1.shape == (384, 96) and w2.shape == (96, 384)
+        assert w1.is_contiguous() and w2.is_contiguous()
+        assert w1.dtype == w2.dtype == torch.bfloat16
+        assert torch.equal(w1, lin1.weight.to(torch.bfloat16))
+        assert torch.equal(w2, lin2.weight.to(torch.bfloat16))
+        if weight_dtype == torch.bfloat16:
+            # the view's own storage, not a copy
+            assert w1.data_ptr() == lin1.weight.data_ptr()
+            assert w2.data_ptr() == lin2.weight.data_ptr()
     f1, f2 = k3.kernel_weights(lin1.weight.t(), lin2.weight.t(), "mma")
     assert f1.shape == (96, 384) and f1.is_contiguous()
     assert torch.equal(f1, lin1.weight.t().to(torch.bfloat16))
@@ -138,30 +146,68 @@ def _k3_args(C, dtype, weight_dtype=torch.bfloat16, M=5):
 @pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("C", [96, 384, 768, 1024])
 def test_k3_launch_takes_the_routed_entry_and_weights(recorder, C, train):
-    """A bf16 call at a Hopper width launches ``vcd_convnext_mlp_wgmma``
-    with the Linear weights' own storage and counts it; another width
-    launches the mma.sync entry with flax-layout copies."""
+    """A bf16 call launches the entry of its route, ``vcd_convnext_mlp_wgmma``
+    up to 768 and ``vcd_convnext_mlp_wide`` at 1024, with the Linear
+    weights' own storage, and counts it under that route."""
     x, y, p, lin1, lin2 = _k3_args(C, torch.bfloat16)
     counter = k3.convnext_mlp_train if train else k3.convnext_mlp
-    before, before_w = counter.launches, counter.wgmma_launches
+    before = (counter.launches, counter.wgmma_launches, counter.wide_launches)
     launch = k3._launch_train if train else k3._launch_eval
     launch(x, y, approximate=True, **p)
     (name, args), = recorder.calls
-    hopper = C in k3.WGMMA_DIMS
-    assert name == ("vcd_convnext_mlp_wgmma" if hopper else
-                    "vcd_convnext_mlp_train" if train else "vcd_convnext_mlp")
-    assert counter.launches == before + 1
-    assert counter.wgmma_launches == before_w + hopper
+    wide = C == 1024
+    assert name == ("vcd_convnext_mlp_wide" if wide else
+                    "vcd_convnext_mlp_wgmma")
+    assert (counter.launches, counter.wgmma_launches,
+            counter.wide_launches) == (before[0] + 1, before[1] + (not wide),
+                                       before[2] + wide)
     w1_ptr, w2_ptr = args[4], args[6]
-    if hopper:
-        assert (w1_ptr, w2_ptr) == (lin1.weight.data_ptr(),
-                                    lin2.weight.data_ptr())
-        # eval: t, h_pre and m null; train: all three given
-        saved = args[10:13]
-        assert all(s is not None for s in saved) == train
-        assert all(s is None for s in saved) == (not train)
+    assert (w1_ptr, w2_ptr) == (lin1.weight.data_ptr(),
+                                lin2.weight.data_ptr())
+    # eval: h_pre and m (and the wgmma kernel's t) null; train: given
+    saved = args[12:14] if wide else args[10:13]
+    assert all(s is not None for s in saved) == train
+    assert all(s is None for s in saved) == (not train)
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("C", [1024, 1536])
+def test_k3_wide_launch_hands_its_entry_storage_and_scratch(recorder, C,
+                                                            train):
+    """``vcd_convnext_mlp_wide`` gets the Linear weights' own storage, its
+    scratch t [M, C] and h [M, 4C] (t is the train variant's saved t),
+    h_pre and m exactly when training, and all of its stages; its counter
+    goes up by one."""
+    M = 5
+    x, y, p, lin1, lin2 = _k3_args(C, torch.bfloat16, M=M)
+    counter = k3.convnext_mlp_train if train else k3.convnext_mlp
+    before = counter.wide_launches
+    got = (k3._launch_train if train else k3._launch_eval)(
+        x, y, approximate=False, **p)
+    (name, args), = recorder.calls
+    assert name == "vcd_convnext_mlp_wide" and len(args) == 19
+    assert counter.wide_launches == before + 1
+    assert (args[4], args[6]) == (lin1.weight.data_ptr(),
+                                  lin2.weight.data_ptr())
+    out, t, h, h_pre, m = args[9:14]
+    assert None not in (out, t, h) and t != h
+    assert (h_pre is not None, m is not None) == (train, train)
+    assert args[14:18] == (M, C, 0, k3.WIDE_ALL)
+    if train:
+        out_t, t_t, h_pre_t, m_t = got
+        assert (out, t, h_pre, m) == tuple(a.data_ptr() for a in got)
+        assert t_t.shape == (M, C) and h_pre_t.shape == (M, 4 * C)
+        assert m_t.shape == (M, C)
     else:
-        assert w1_ptr != lin1.weight.data_ptr()
+        assert out == got.data_ptr()
+
+
+@pytest.mark.parametrize("C", [1024, 1536])
+def test_k3_float32_at_wide_widths_takes_the_mma_entry(recorder, C):
+    x, y, p, _, _ = _k3_args(C, torch.float32)
+    k3._launch_eval(x, y, approximate=True, **p)
+    (name, args), = recorder.calls
+    assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
 
 
 def test_k3_float32_activations_take_the_mma_entry(recorder):

@@ -167,9 +167,9 @@ def test_k2_rejects_bad_weight_shape():
         k2.dwconv7x7(x, torch.zeros(7, 7, 16), torch.zeros(16))
 
 
-def _k3_inputs(C, rng):
-    x = rng.normal(size=(2, 5, 6, C)).astype(np.float32)
-    y = rng.normal(size=(2, 5, 6, C)).astype(np.float32)
+def _k3_inputs(C, rng, rows=(2, 5, 6)):
+    x = rng.normal(size=(*rows, C)).astype(np.float32)
+    y = rng.normal(size=(*rows, C)).astype(np.float32)
     params = dict(
         ln_w=1 + 0.1 * rng.normal(size=C), ln_b=0.1 * rng.normal(size=C),
         w1=rng.normal(0, C ** -0.5, (C, 4 * C)),
@@ -180,10 +180,12 @@ def _k3_inputs(C, rng):
 
 
 @pytest.mark.parametrize("approximate", [True, False])
-@pytest.mark.parametrize("C", [16, 32])
+@pytest.mark.parametrize("C", [16, 32, 1024, 1536])
 def test_k3_plain_matches_pallas(C, approximate):
+    """At small widths and at ConvNeXt base's and large's last stage (the
+    split kernel's widths, a few rows)."""
     rng = np.random.default_rng(3 + C)
-    x, y, p = _k3_inputs(C, rng)
+    x, y, p = _k3_inputs(C, rng, rows=(2, 5, 6) if C < 1024 else (1, 2, 3))
     xb, yb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16)
     ref = np.asarray(convnext_mlp_block(
         xb, yb, *(jnp.asarray(p[k]) for k in
@@ -200,6 +202,31 @@ def test_k3_plain_matches_pallas(C, approximate):
     got = _np(got)
     bound = 2 * bf16_ulp(ref) + 2 * bf16_ulp(np.abs(ref).max())
     assert np.all(np.abs(got - ref) <= bound), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_k3_wide_stages_compose_into_plain_parts(approximate, train):
+    """The split kernel's three stages, through their wrappers (plain on the
+    CPU), give ``_plain_parts``' out bit for bit, and in the train variant
+    its t, h_pre and m (rounded to bf16, as the train variant saves it)
+    too."""
+    C = 1024
+    rng = np.random.default_rng(11)
+    x, y, p = _k3_inputs(C, rng, rows=(1, 2, 3))
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    ty = torch.from_numpy(y).to(torch.bfloat16)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    want = k3._plain_parts(tx, ty, approximate=approximate, **tp)
+    t = k3.ln_stage(ty, tp["ln_w"], tp["ln_b"])
+    h_pre, h = k3.up_stage(t, tp["w1"], tp["b1"], approximate)
+    out, m = k3.down_stage(h, tx, tp["w2"], tp["b2"], tp["gamma"])
+    assert out.shape == tx.shape and torch.equal(out, want[0])
+    if train:
+        assert torch.equal(t, want[1]) and torch.equal(h_pre, want[2])
+        assert torch.equal(m, want[3].to(torch.bfloat16))
+        assert torch.equal(k3.convnext_mlp_train(
+            tx, ty, approximate=approximate, **tp)[3], m)
 
 
 def test_k3_plain_float32_residual_dtype():

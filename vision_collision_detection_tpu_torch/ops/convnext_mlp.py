@@ -5,14 +5,19 @@ Replaces the TPU kernels of
 ``vision_collision_detection_tpu/ops/convnext_mlp_pallas.py``
 ``convnext_mlp_block`` (math ``_ln_mlp``), wired into ``jax.custom_vjp``
 there and into the ``torch.autograd.Function`` ``_ConvNeXtMLP`` here. Both
-variants are one template, in two kernels chosen by ``route``: bf16
-activations at the widths ``WGMMA_DIMS`` (every convnext tiny, base and
-large width but 1024 and 1536) take the Hopper kernel
-``ops/csrc/convnext_mlp_wgmma.cu`` (wgmma, TMA-fed weight tiles in
-nn.Linear's own layout, a persistent block of 128 rows up to C = 256 and
-of 64 rows shared by two warpgroups above); float32 activations
-and the other widths take the ``mma.sync`` kernel
-``ops/csrc/convnext_mlp.cu``, which reads the weights in the flax layout.
+variants share each kernel, and ``route`` picks one of three: bf16
+activations at the widths ``WGMMA_DIMS`` (convnext tiny's, base's and
+large's up to 768) take the Hopper kernel ``ops/csrc/convnext_mlp_wgmma.cu``
+(wgmma, TMA-fed weight tiles in nn.Linear's own layout, a persistent block
+of 128 rows up to C = 256 and of 64 rows shared by two warpgroups above);
+bf16 at ``WIDE_DIMS`` (base's and large's last stage, 1024 and 1536) take
+``ops/csrc/convnext_mlp_wide.cu``, the chain split into three launches (a
+LayerNorm row kernel, then the two products as persistent wgmma/TMA GEMMs
+with the bias, GELU and residual in their epilogues; t and h through
+scratch) that read the weights in nn.Linear's layout too; float32
+activations take the ``mma.sync`` kernel ``ops/csrc/convnext_mlp.cu``,
+which reads the weights in the flax layout (its bf16 instantiations stay
+compiled, as the yardstick the card's checks time).
 
 - **eval** (``_eval_kernel``): out only. Its bound on the H100 is
   operations: 16·M·C² flops per launch, ≈ 92 GFLOP per launch on the
@@ -38,7 +43,11 @@ with eps 1e-6 and float32 two-pass statistics; t = LN(y) rounded to bf16;
 products on bf16 with float32 accumulation; h_pre = t·W1 + b1 rounded to
 bf16; GELU (tanh or erf) in float32, rounded to bf16; the residual added
 in float32 and cast to x's dtype. W1 [C, 4C] and W2 [4C, C] are in the flax
-(in, out) layout.
+(in, out) layout. The wide kernel's three stages each have a plain version
+(``ln_stage_plain``, ``up_stage_plain``, ``down_stage_plain``, which
+compose into the whole) and a wrapper that launches that stage alone
+(``ln_stage``, ``up_stage``, ``down_stage``), so that the card's checks
+can hold each launch against its own plain version.
 """
 
 from __future__ import annotations
@@ -56,6 +65,12 @@ LN_EPS = 1e-6
 KERNEL_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
 # The widths of the Hopper kernel (bf16 activations only).
 WGMMA_DIMS = (96, 128, 192, 256, 384, 512, 768)
+# The widths of the split wgmma kernel (bf16 activations only).
+WIDE_DIMS = (1024, 1536)
+# ``vcd_convnext_mlp_wide``'s stages, as bits: LN, the first product with
+# its epilogue, the second with its epilogue.
+WIDE_LN, WIDE_UP, WIDE_DOWN = 1, 2, 4
+WIDE_ALL = WIDE_LN | WIDE_UP | WIDE_DOWN
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -132,20 +147,49 @@ def convnext_mlp_train_plain(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
     return out, t, h_pre, m.to(torch.bfloat16)
 
 
+def ln_stage_plain(y, ln_w, ln_b):
+    """The wide kernel's first stage: t = LN(y) rounded to bf16, [M, C]."""
+    C = y.shape[-1]
+    yf = y.reshape(-1, C).to(torch.float32)
+    mu, rstd = _ln_stats(yf)
+    return ((yf - mu) * rstd * ln_w.float() + ln_b.float()).to(torch.bfloat16)
+
+
+def up_stage_plain(t, w1, b1, approximate: bool):
+    """Its second: (h_pre, h) [M, 4C] bf16 from t [M, C] and W1 [C, 4C]."""
+    acc1 = torch.matmul(t.float(), w1.to(torch.bfloat16).float())
+    h_pre = (acc1 + b1.float()).to(torch.bfloat16)
+    return h_pre, gelu_f32(h_pre.float(), approximate).to(torch.bfloat16)
+
+
+def down_stage_plain(h, x, w2, b2, gamma):
+    """Its third: (out [..., C] in x's dtype, m [M, C] float32) from
+    h [M, 4C], the residual x and W2 [4C, C]."""
+    C = x.shape[-1]
+    m = torch.matmul(h.float(), w2.to(torch.bfloat16).float()) + b2.float()
+    out = x.reshape(-1, C).to(torch.float32) + gamma.float() * m
+    return out.to(x.dtype).reshape(x.shape), m
+
+
 def route(dtype: torch.dtype, C: int) -> str:
     """Which kernel a CUDA call takes: ``"wgmma"`` (the Hopper kernel) for
-    bf16 activations at a width of ``WGMMA_DIMS``, else ``"mma"``."""
-    return "wgmma" if dtype == torch.bfloat16 and C in WGMMA_DIMS else "mma"
+    bf16 activations at a width of ``WGMMA_DIMS``, ``"wide"`` (the split
+    wgmma kernel) for bf16 at ``WIDE_DIMS``, else ``"mma"``."""
+    if dtype == torch.bfloat16 and C in WGMMA_DIMS:
+        return "wgmma"
+    if dtype == torch.bfloat16 and C in WIDE_DIMS:
+        return "wide"
+    return "mma"
 
 
 def kernel_weights(w1: torch.Tensor, w2: torch.Tensor, kernel_route: str):
     """W1 [C, 4C] and W2 [4C, C] (the flax layout, as the public functions
     take them) as the kernel of ``kernel_route`` reads them, contiguous
-    bf16: ``"wgmma"`` in nn.Linear's layout, W1 as [4C, C] and W2 as
-    [C, 4C]; ``"mma"`` in the flax layout. A block passes
-    ``pwconv1.weight.t()``: for the Hopper kernel that view's own storage
+    bf16: ``"wgmma"`` and ``"wide"`` in nn.Linear's layout, W1 as [4C, C]
+    and W2 as [C, 4C]; ``"mma"`` in the flax layout. A block passes
+    ``pwconv1.weight.t()``: for the Hopper kernels that view's own storage
     is the layout, so only a dtype cast (none for bf16 weights) is made."""
-    if kernel_route == "wgmma":
+    if kernel_route in ("wgmma", "wide"):
         w1, w2 = w1.t(), w2.t()
     return (w1.to(torch.bfloat16).contiguous(),
             w2.to(torch.bfloat16).contiguous())
@@ -183,12 +227,19 @@ def _launch_eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
                                          gamma)
     out = torch.empty_like(x)
     stream = _build.stream_ptr(x.device)
-    if route(x.dtype, C) == "wgmma":
+    kernel_route = route(x.dtype, C)
+    if kernel_route == "wgmma":
         err = _build.lib().vcd_convnext_mlp_wgmma(
             *ptrs, out.data_ptr(), None, None, None, M, C,
             int(bool(approximate)), stream)
         _build.check(err, "vcd_convnext_mlp_wgmma")
         convnext_mlp.wgmma_launches += 1
+    elif kernel_route == "wide":
+        # t and h are scratch, from the caching allocator
+        bf = dict(dtype=torch.bfloat16, device=x.device)
+        t, h = torch.empty(M, C, **bf), torch.empty(M, 4 * C, **bf)
+        _wide(ptrs, out, t, h, None, None, M, C, approximate, WIDE_ALL)
+        convnext_mlp.wide_launches += 1
     else:
         err = _build.lib().vcd_convnext_mlp(
             *ptrs, out.data_ptr(), M, C, int(bool(approximate)),
@@ -208,11 +259,17 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     h_pre = torch.empty(M, 4 * C, **bf)
     saved = (out.data_ptr(), t.data_ptr(), h_pre.data_ptr(), m.data_ptr())
     stream = _build.stream_ptr(x.device)
-    if route(x.dtype, C) == "wgmma":
+    kernel_route = route(x.dtype, C)
+    if kernel_route == "wgmma":
         err = _build.lib().vcd_convnext_mlp_wgmma(
             *ptrs, *saved, M, C, int(bool(approximate)), stream)
         _build.check(err, "vcd_convnext_mlp_wgmma")
         convnext_mlp_train.wgmma_launches += 1
+    elif kernel_route == "wide":
+        # h is scratch; t is the saved t
+        h = torch.empty(M, 4 * C, **bf)
+        _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, WIDE_ALL)
+        convnext_mlp_train.wide_launches += 1
     else:
         err = _build.lib().vcd_convnext_mlp_train(
             *ptrs, *saved, M, C, int(bool(approximate)),
@@ -220,6 +277,86 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
         _build.check(err, "vcd_convnext_mlp_train")
     convnext_mlp_train.launches += 1
     return out, t, h_pre, m
+
+
+def _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, stages):
+    """One call of ``vcd_convnext_mlp_wide``: ``ptrs`` are x, y, ln_w, ln_b,
+    W1, b1, W2, b2, γ (0 for what ``stages`` does not read); out, t, h,
+    h_pre and m are the caller's fresh tensors or None."""
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+
+    err = _build.lib().vcd_convnext_mlp_wide(
+        *ptrs, ptr(out), ptr(t), ptr(h), ptr(h_pre), ptr(m), M, C,
+        int(bool(approximate)), stages,
+        _build.stream_ptr((t if h is None else h).device))
+    _build.check(err, "vcd_convnext_mlp_wide")
+
+
+def _stage_operands(*named):
+    """(name, tensor, dtype) → the tensors cast to the kernel's types and
+    checked, for a wide stage alone (bf16 activations 16-byte aligned)."""
+    cast = []
+    for name, a, dtype in named:
+        a = a.to(dtype).contiguous()
+        _build.require_cuda(a, name, align=16 if dtype == torch.bfloat16
+                            else 1)
+        cast.append(a)
+    return cast
+
+
+def ln_stage(y, ln_w, ln_b):
+    """The wide kernel's LayerNorm stage alone: t [M, C] bf16. A CPU tensor
+    takes ``ln_stage_plain``."""
+    if y.device.type == "cpu":
+        return ln_stage_plain(y, ln_w, ln_b)
+    C = y.shape[-1]
+    y, ln_w, ln_b = _stage_operands(("y", y, torch.bfloat16),
+                                    ("ln_w", ln_w, torch.float32),
+                                    ("ln_b", ln_b, torch.float32))
+    M = y.numel() // C
+    t = torch.empty(M, C, dtype=torch.bfloat16, device=y.device)
+    _wide([0, y.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr()] + [0] * 5,
+          None, t, None, None, None, M, C, False, WIDE_LN)
+    return t
+
+
+def up_stage(t, w1, b1, approximate: bool):
+    """The wide kernel's first product alone: (h_pre, h) [M, 4C] bf16 from
+    t [M, C] bf16 and W1 [C, 4C] (read as nn.Linear's storage). A CPU
+    tensor takes ``up_stage_plain``."""
+    if t.device.type == "cpu":
+        return up_stage_plain(t, w1, b1, approximate)
+    M, C = t.shape
+    t, w1t, b1 = _stage_operands(("t", t, torch.bfloat16),
+                                 ("w1", w1.t(), torch.bfloat16),
+                                 ("b1", b1, torch.float32))
+    h_pre, h = (torch.empty(M, 4 * C, dtype=torch.bfloat16, device=t.device)
+                for _ in range(2))
+    _wide([0, 0, 0, 0, w1t.data_ptr(), b1.data_ptr(), 0, 0, 0], None, t, h,
+          h_pre, None, M, C, approximate, WIDE_UP)
+    return h_pre, h
+
+
+def down_stage(h, x, w2, b2, gamma):
+    """The wide kernel's second product alone: (out [..., C] bf16, m [M, C]
+    bf16) from h [M, 4C] bf16, the residual x (bf16) and W2 [4C, C] (read
+    as nn.Linear's storage). A CPU tensor takes ``down_stage_plain``, its m
+    rounded to bf16 as the kernel saves it."""
+    if h.device.type == "cpu":
+        out, m = down_stage_plain(h, x, w2, b2, gamma)
+        return out, m.to(torch.bfloat16)
+    C = x.shape[-1]
+    M = h.shape[0]
+    h, xb, w2t, b2, gamma = _stage_operands(
+        ("h", h, torch.bfloat16), ("x", x, torch.bfloat16),
+        ("w2", w2.t(), torch.bfloat16), ("b2", b2, torch.float32),
+        ("gamma", gamma, torch.float32))
+    out = torch.empty_like(xb)
+    m = torch.empty(M, C, dtype=torch.bfloat16, device=h.device)
+    _wide([xb.data_ptr(), 0, 0, 0, 0, 0, w2t.data_ptr(), b2.data_ptr(),
+           gamma.data_ptr()], out, None, h, None, m, M, C, False, WIDE_DOWN)
+    return out, m
 
 
 def convnext_mlp_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
@@ -234,8 +371,10 @@ def convnext_mlp_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
 
 
 convnext_mlp_train.launches = 0
-# the launches among them that took the Hopper kernel (``route``)
+# the launches among them that took the Hopper kernel and the split wgmma
+# kernel (``route``)
 convnext_mlp_train.wgmma_launches = 0
+convnext_mlp_train.wide_launches = 0
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -341,5 +480,7 @@ def _eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
 
 
 convnext_mlp.launches = 0
-# the launches among them that took the Hopper kernel (``route``)
+# the launches among them that took the Hopper kernel and the split wgmma
+# kernel (``route``)
 convnext_mlp.wgmma_launches = 0
+convnext_mlp.wide_launches = 0

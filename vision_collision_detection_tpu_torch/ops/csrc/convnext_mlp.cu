@@ -20,9 +20,11 @@
 // at 8*C), 0.9*C flops/byte: bytes at C <= 192, operations above; over the
 // flagship's 18 blocks the bytes dominate.
 //
-// For bf16 activations at the widths of convnext_mlp_wgmma.cu (the Python
-// wrapper's `route`) the Hopper kernel there takes the call; this one
-// serves float32 activations and the widths 1024 and 1536.
+// For bf16 activations the Hopper kernels take the call (the Python
+// wrapper's `route`): convnext_mlp_wgmma.cu up to C = 768,
+// convnext_mlp_wide.cu at 1024 and 1536. This one serves float32
+// activations; its bf16 instantiations stay compiled, as the yardstick the
+// card's checks time beside the Hopper kernels.
 //
 // Design. One block of 8 to 16 warps takes BM rows (64 up to C=384, 48 at
 // C=768, 32 or 16 above), so the float32 [BM, C] product of the second
