@@ -30,10 +30,13 @@ failure:
    staged whole. K3 in bf16 at 1024 and 1536 runs on its split kernel
    (``convnext_mlp_wide.cu``: a LayerNorm and two wgmma GEMMs), held the
    same way at 100, 2,000 and 9,800 rows, two calls bit-equal, and each of
-   its three launches against its own plain stage. Then what stays on the
-   mma.sync kernel, off the main paths (K3 in bf16 at 1024 and 1536, the
-   route forced; K2 and K3 on float32 activations), at small shapes; the
-   launch counters show which kernel each call took.
+   its three launches against its own plain stage. K3 on float32
+   activations at 96 to 768 takes the wgmma kernel too: held the same way
+   at each of those widths, at 100 and 2,000 rows. Then what stays on the mma.sync
+   kernel, off the main paths (K3 in bf16 at 1024 and 1536 and on float32
+   at 96, the route forced; on float32 at 1024 and 1536, its route), at
+   2,000 rows, and K2 on float32 on the Hopper kernel, bit-equal to
+   ``dwconv.cu``; the launch counters show which kernel each call took.
    Then the training path's kernels at the same shapes: K2 wgrad on its
    Hopper kernel (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
    (the route forced) against its plain version relative to Σ|x·g| and
@@ -189,16 +192,21 @@ failure:
     in float32 on the card; ``_make_forward(folded_stride=True)`` on seeded
     uint8 clips [8, 25, 126, 224, 3] of distinct content. On default
     switches (K3 only on bf16 activations): launches K1 1, K2 18 on
-    ``dwconv.cu``, no K3; against the same forward on plain versions and
-    the reference module in float64 (1e-4 each); the stock float32 blocks
-    against float64 (1e-4) and bit-equal under torch's default cuDNN
-    flags; faults (the classifier BatchNorm's running variance set to 1,
-    the GRU's r and z gates swapped) must land outside. With
-    ``fused_mlp=True``: K1 1, K2 18, K3 18 on ``convnext_mlp.cu``, against
-    plain versions (2e-2) and float64 (5e-2: K3's bf16 rounding). K2 and
-    K3 on float32 at the stage shapes against their plain versions and
-    timed (cuDNN, the stock float32 chain); both legs against stock blocks
-    and the bf16 model (its launches on the Hopper kernels), in turns.
+    ``dwconv_hopper.cu``'s float32 route, no K3; against the same forward
+    on plain versions and the reference module in float64 (1e-4 each);
+    the stock float32 blocks against float64 (1e-4) and bit-equal under
+    torch's default cuDNN flags; faults (the classifier BatchNorm's
+    running variance set to 1, the GRU's r and z gates swapped) must land
+    outside. With ``fused_mlp=True``: K1 1, K2 18, K3 18 on
+    ``convnext_mlp_wgmma.cu``'s float32 route, against plain versions
+    (2e-2) and float64 (5e-2: K3's bf16 rounding). K2 and K3 on float32
+    at the stage shapes (``f32_kernels``): K2's Hopper route bit-equal to
+    ``dwconv.cu`` and within 2^-16 of its plain version, K3's eval and
+    train by K3's rule on the Hopper kernel and on ``convnext_mlp.cu``
+    (the route forced), with faults; each timed in turns with the kernel
+    it replaced, beside cuDNN or the stock float32 chain and the plain
+    version; both legs against stock blocks and the bf16 model, in
+    turns.
 18. The seven BatchNorm backbones with the flagship head in bf16, served
     (K1 once, nothing else launched), timed, peak memory; one training step
     of resnet50 + the conv head on a uint8 batch [8, 50, 126, 224, 3]:
@@ -371,6 +379,13 @@ def median_ms(torch, fn, warmup=3, iters=10, queued=True):
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def in_turns_ms(torch, new, old):
+    """ms per call of ``new`` and ``old`` (each a no-argument call), timed
+    in turns (new, old, old, new): the mean of each one's two medians."""
+    n1, o1, o2, n2 = (median_ms(torch, fn) for fn in (new, old, old, new))
+    return (n1 + n2) / 2, (o1 + o2) / 2
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
@@ -604,6 +619,14 @@ def swapped(*swaps):
             setattr(obj, name, value)
 
 
+def old_route(module):
+    """The swap that sends K2 (``dwconv``) or K3 (``convnext_mlp``) to its
+    older kernel, ``dwconv.cu`` or ``convnext_mlp.cu`` (the float32 routes'
+    kernels before the Hopper kernels took them)."""
+    return (module, "route", lambda dtype, C_: "tile"
+            if module.__name__.endswith("dwconv") else "mma")
+
+
 # Faults a K3 could have, written as changes to what its plain version is
 # given: (parameters, approximate) → (parameters, approximate). A check has
 # power where the fault lands outside its tolerance and the kernel inside.
@@ -616,16 +639,20 @@ K3_FAULTS = {
 }
 
 
-def k3_entries(torch, C):
-    """The kernels-line entries (eval, train) of K3 in bf16 at width C, by
-    the kernel ``convnext_mlp.route`` sends it to: the Hopper kernel's, the
-    split kernel's, or (the route forced) the mma.sync kernel's, which is
-    off the main paths in bf16 and has no entry of its own."""
+def k3_entries(torch, C, dtype):
+    """The kernels-line entries (eval, train) of K3 at width C on ``dtype``
+    activations, by the kernel ``convnext_mlp.route`` sends it to: the
+    Hopper kernel's (its float32 route has entries of its own), the split
+    kernel's, or the mma.sync kernel's, whose float32 eval is ``K3 (f32)``
+    and which has no other entry (it is off the main paths)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
-    return {"wgmma": ("K3", "K3 train"),
+    f32 = dtype == torch.float32
+    return {"wgmma": (("K3 (wgmma f32)", "K3 train (wgmma f32)") if f32
+                      else ("K3", "K3 train")),
             "wide": ("K3 (wide)", "K3 train (wide)")}.get(
-        k3.route(torch.bfloat16, C), ("K3 (mma.sync)", "K3 train (mma.sync)"))
+        k3.route(dtype, C),
+        ("K3 (f32)" if f32 else "K3 (mma.sync)", "K3 train (mma.sync)"))
 
 
 def check_k3_wide(torch, dev, g, C, M, record, failed):
@@ -672,18 +699,19 @@ def check_k3_wide(torch, dev, g, C, M, record, failed):
                float(r.float().abs().mean()) * 2 ** -12, entry="K3 (wide)")
 
 
-def check_k3_small(torch, dev, g, C, M, record, faults, failed):
+def check_k3_small(torch, dev, g, C, M, record, faults, failed,
+                   dtype=None):
     """K3's eval and train variants against their plain version at [M, C]
-    bf16, both GELU forms (K3's rule; the train variant's out bit-equal to
-    the eval variant's), and K3's faults in the plain version, which must
-    land outside. ``g`` may be a CUDA generator (the inputs are drawn
-    there)."""
+    in ``dtype`` (default bf16), both GELU forms (K3's rule; the train
+    variant's out bit-equal to the eval variant's), and K3's faults in the
+    plain version, which must land outside. ``g`` may be a CUDA generator
+    (the inputs are drawn there)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
-    eval_entry, train_entry = k3_entries(torch, C)
-    xs = torch.randn(M, C, generator=g, device=g.device).to(dev,
-                                                            torch.bfloat16)
-    y = torch.randn(M, C, generator=g, device=g.device).to(dev, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    eval_entry, train_entry = k3_entries(torch, C, dtype)
+    xs = torch.randn(M, C, generator=g, device=g.device).to(dev, dtype)
+    y = torch.randn(M, C, generator=g, device=g.device).to(dev, dtype)
     p = k3_params(torch, C, g, dev)
     for approximate in (True, False):
         with torch.no_grad():
@@ -696,18 +724,21 @@ def check_k3_small(torch, dev, g, C, M, record, faults, failed):
                               ref):
             tols[name] = (float(r.float().abs().max()) * 2 ** -6,
                           float(r.float().abs().mean()) * 2 ** -12)
-            record(f"K3 {name} width {C} approximate={approximate}", [M, C],
+            record(f"K3 {name} width {C} {str(dtype)[6:]} "
+                   f"approximate={approximate}", [M, C],
                    max_err(torch, v, r), tols[name][0],
                    mean_err(torch, v, r), tols[name][1],
                    entry=eval_entry if name == "out" else train_entry)
-        record(f"K3 train out vs eval width {C} (bit-equal)", [M, C],
+        record(f"K3 train out vs eval width {C} {str(dtype)[6:]} "
+               "(bit-equal)", [M, C],
                max_err(torch, train[0], got), 0.0, entry=train_entry)
     # got, ref and tols are those of approximate=False
     for fault, change in K3_FAULTS.items():
         fp, fap = change(p, False)
         bad = k3.convnext_mlp_plain(xs, y, approximate=fap, **fp)
         err, mean = max_err(torch, bad, ref[0]), mean_err(torch, bad, ref[0])
-        fault_seen(faults, failed, f"K3 {fault} width {C}", [M, C],
+        fault_seen(faults, failed, f"K3 {fault} width {C} {str(dtype)[6:]}",
+                   [M, C],
                    err > tols["out"][0] or mean > tols["out"][1],
                    max_abs_err=err, mean_abs_err=mean)
 
@@ -720,16 +751,14 @@ K2_ODD_SHAPES = ((N_FRAMES, 4, 4, 768), (64, 2, 2, 768), (64, 3, 5, 384),
                  (64, 10, 6, 96), (64, 16, 64, 96))
 
 
-def k2_inputs(torch, dev, g, shape):
-    """Seeded bf16 x [N, H, W, C], w [49, C] (taps of order 1/7) and b [C],
-    drawn on ``g``'s device."""
+def k2_inputs(torch, dev, g, shape, dtype=None):
+    """Seeded x [N, H, W, C], w [49, C] (taps of order 1/7) and b [C] in
+    ``dtype`` (default bf16), drawn on ``g``'s device."""
     N, H, W, C = shape
-    x = torch.randn(N, H, W, C, generator=g, device=g.device).to(
-        dev, torch.bfloat16)
-    w = (torch.randn(49, C, generator=g, device=g.device) / 7).to(
-        dev, torch.bfloat16)
-    b = (torch.randn(C, generator=g, device=g.device) * 0.1).to(
-        dev, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    x = torch.randn(N, H, W, C, generator=g, device=g.device).to(dev, dtype)
+    w = (torch.randn(49, C, generator=g, device=g.device) / 7).to(dev, dtype)
+    b = (torch.randn(C, generator=g, device=g.device) * 0.1).to(dev, dtype)
     return x, w, b
 
 
@@ -802,20 +831,17 @@ def time_k2(torch, x, w, b):
 
     C, n = x.shape[-1], x.numel()
 
-    def hopper():
-        return median_ms(torch, lambda: k2.dwconv7x7(x, w, b))
-
     def tile():
-        with swapped((k2, "route", lambda dtype, C_: "tile")):
-            return median_ms(torch, lambda: k2.dwconv7x7(x, w, b))
+        with swapped(old_route(k2)):
+            return k2.dwconv7x7(x, w, b)
 
-    h1, t1, t2, h2 = hopper(), tile(), tile(), hopper()
+    hopper, tile = in_turns_ms(torch, lambda: k2.dwconv7x7(x, w, b), tile)
     w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
     x_cl = x.permute(0, 3, 1, 2)  # channels_last view, no copy
     cudnn = median_ms(torch, lambda: F.conv2d(x_cl, w_cudnn, b, padding=3,
                                               groups=C))
     bound, by = bound_ms(2 * n * 2 + 50 * C * 2, 98 * n, F32_FLOPS)
-    return {"hopper": (h1 + h2) / 2, "tile": (t1 + t2) / 2, "cudnn": cudnn,
+    return {"hopper": hopper, "tile": tile, "cudnn": cudnn,
             "bound": bound}, by
 
 
@@ -830,21 +856,19 @@ def time_k2_wgrad(torch, x, gy):
 
     C, n = x.shape[-1], x.numel()
 
-    def hopper():
-        return median_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy))
-
     def tile():
         with swapped((k2, "wgrad_route", lambda dtype, C_: "tile")):
-            return median_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy))
+            return k2.dwconv7x7_wgrad(x, gy)
 
-    h1, t1, t2, h2 = hopper(), tile(), tile(), hopper()
+    hopper, tile = in_turns_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy),
+                               tile)
     x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
     w_cudnn = torch.zeros(C, 1, 7, 7, dtype=x.dtype, device=x.device)
     cudnn = median_ms(torch, lambda: torch.ops.aten.convolution_backward(
         gy_cl, x_cl, w_cudnn, [C], [1, 1], [3, 3], [1, 1], False, [0, 0], C,
         [False, True, True]))
     bound, by = bound_ms(2 * n * 2 + 49 * C * 4, 98 * n, F32_FLOPS)
-    return {"hopper": (h1 + h2) / 2, "tile": (t1 + t2) / 2, "cudnn": cudnn,
+    return {"hopper": hopper, "tile": tile, "cudnn": cudnn,
             "bound": bound}, by
 
 
@@ -855,8 +879,6 @@ def compare_kernels(torch, dev):
     from vision_collision_detection_tpu_torch.ops.dequant_pad import (
         dequant_normalize_pad, dequant_normalize_pad_plain)
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
-    from vision_collision_detection_tpu_torch.ops.dwconv import (
-        dwconv7x7, dwconv7x7_plain)
 
     g = torch.Generator().manual_seed(1)
     rows, faults, failed = [], [], []
@@ -966,41 +988,43 @@ def compare_kernels(torch, dev):
                        failed)
         check_k3_wide(torch, dev, g, C, N_FRAMES * 7 * 7, record, failed)
         torch.cuda.empty_cache()
+    # K3 on float32 activations takes the same Hopper kernel at the same
+    # widths: each of them at 100 and 2,000 rows, the stage shapes being
+    # phase 17's
+    for C in k3.WGMMA_DIMS:
+        for M in (100, 2000):
+            check_k3_small(torch, dev, g, C, M, record, faults, failed,
+                           torch.float32)
     k3_routed = (k3.convnext_mlp.wgmma_launches,
                  k3.convnext_mlp.wide_launches)
     # The other compiled variants, off the main paths, on the mma.sync
-    # kernel (``convnext_mlp.cu``): K3 in bf16 at 1024 and 1536 with the
-    # route forced (the yardstick phase 24 times beside the split kernel),
-    # and K2 and K3 on float32 activations. A row count that is no
-    # multiple of any block's rows exercises the tail.
+    # kernel (``convnext_mlp.cu``): K3 in bf16 at 1024 and 1536 and on
+    # float32 at 96 with the route forced (the yardsticks phases 17 and 24
+    # time beside the Hopper kernels), and on float32 at 1024 and 1536
+    # (its route). A row count that is no multiple of any block's rows
+    # exercises the tail.
     rows_off = 2000
     with swapped((k3, "route", lambda dtype, C_: "mma")):
         for C in k3.WIDE_DIMS:
             check_k3_small(torch, dev, g, C, rows_off, record, faults, failed)
-    xs = torch.randn(rows_off, 96, generator=g).to(dev)
-    y = torch.randn(rows_off, 96, generator=g).to(dev)
-    p = k3_params(torch, 96, g, dev)
-    for approximate in (True, False):
-        got = convnext_mlp(xs, y, approximate=approximate, **p)
-        ref = convnext_mlp_plain(xs, y, approximate=approximate, **p)
-        torch.cuda.synchronize()
-        # float32 residual: the bf16 roundings of t, h_pre and h still flip
-        record(f"K3 float32 approximate={approximate}", [rows_off, 96],
-               max_err(torch, got, ref), float(ref.abs().max()) * 2 ** -6)
+        check_k3_small(torch, dev, g, 96, rows_off, record, faults, failed,
+                       torch.float32)
+    for C in k3.WIDE_DIMS:
+        check_k3_small(torch, dev, g, C, rows_off, record, faults, failed,
+                       torch.float32)
+    # K2 on float32 on the Hopper kernel, bit-equal to dwconv.cu (the
+    # route forced), at a frame of 56² (phase 17 holds the stage shapes)
     x = torch.randn(8, 56, 56, 96, generator=g).to(dev)
     w = (torch.randn(49, 96, generator=g) / 7).to(dev)
     b = (torch.randn(96, generator=g) * 0.1).to(dev)
-    got = dwconv7x7(x, w, b)
-    ref = dwconv7x7_plain(x, w, b)
-    torch.cuda.synchronize()
-    # float32 sums of 49 taps in another order
-    record("K2 float32", [8, 56, 56, 96], max_err(torch, got, ref),
-           float(ref.abs().max()) * 2 ** -16)
+    gy = torch.randn(8, 56, 56, 96, generator=g).to(dev)
+    check_k2_f32(torch, x, w, b, gy, record, faults, failed)
     # the route by dtype and width: the four stage shapes (two GELU forms
-    # each) and the small checks took the Hopper kernel; the split
-    # kernel's widths at three row counts (two forms each) and twice more
-    # in ``check_k3_wide`` took the split kernel; the rest neither
-    want = (4 * 2 + len(k3.WGMMA_DIMS) * 2 * 2,
+    # each) and the small checks in bf16 and float32 took the Hopper
+    # kernel; the split kernel's widths at three row counts (two forms
+    # each) and twice more in ``check_k3_wide`` took the split kernel; the
+    # rest neither
+    want = (4 * 2 + len(k3.WGMMA_DIMS) * 2 * 2 * 2,
             len(k3.WIDE_DIMS) * (3 * 2 + 2))
     after = (k3.convnext_mlp.wgmma_launches, k3.convnext_mlp.wide_launches)
     log(f"[compare] K3 launches on the Hopper and split kernels {k3_routed} "
@@ -1428,8 +1452,8 @@ def block_launches(torch, model):
 
     dims = [m.dim for m in model.modules()
             if isinstance(m, convnext.ConvNeXtBlock)]
-    return len(dims), sum(k3_entries(torch, C)[0] == "K3 (wide)"
-                          for C in dims)
+    return len(dims), sum(
+        k3_entries(torch, C, torch.bfloat16)[0] == "K3 (wide)" for C in dims)
 
 
 def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
@@ -1578,19 +1602,20 @@ def zero_counters():
 HOPPER_COUNTS = ("wgmma_launches", "hopper_launches", "wide_launches")
 
 
-def expect_launches(tag, counters, hopper=True, wide=None, **expected):
+def expect_launches(tag, counters, f32=False, wide=None, **expected):
     """Every counter must read what ``expected`` says, 0 where it is silent;
     and where a wrapper has several kernels (K2, K2 wgrad, K3, K3 train, K4
-    fwd), every launch must have taken a Hopper one, or with ``hopper``
-    False (a float32 path) none of them; ``wide`` maps K3's counters to
-    the launches expected on its split kernel (ConvNeXt base's and large's
-    last stage), 0 where it is silent. Returns the launches by
+    fwd), every launch must have taken a Hopper one; ``wide`` maps K3's
+    counters to the launches expected on its split kernel (ConvNeXt base's
+    and large's last stage), 0 where it is silent. Returns the launches by
     kernels-line entry: K2's split into ``K2`` (``dwconv.cu``) and ``K2
     (hopper)``, K2 wgrad's into ``K2 wgrad`` (``dwconv_wgrad.cu``) and
     ``K2 wgrad (hopper)``, K3's into ``K3`` (``convnext_mlp_wgmma.cu``),
-    ``K3 (wide)`` (``convnext_mlp_wide.cu``) and ``convnext_mlp.cu``'s
-    ``K3 (f32)`` (float32 paths) or ``K3 (mma.sync)``, K3 train's
-    likewise."""
+    ``K3 (wide)`` (``convnext_mlp_wide.cu``) and ``K3 (mma.sync)``
+    (``convnext_mlp.cu``), K3 train's likewise; with ``f32`` (a float32
+    path) the Hopper launches of K2 and K3 count as ``K2 (hopper f32)``,
+    ``K3 (wgmma f32)`` and ``K3 train (wgmma f32)``, and ``convnext_mlp.cu``'s
+    as ``K3 (f32)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1604,7 +1629,7 @@ def expect_launches(tag, counters, hopper=True, wide=None, **expected):
         f"{on_hopper}, on K3's split kernel {on_wide}")
     if {k.replace(" ", "_"): v for k, v in launches.items()} != want:
         raise SystemExit(f"{tag} launches {launches}, expected {want}")
-    want_hopper = {k: launches[k] if hopper else 0 for k in on_hopper}
+    want_hopper = {k: launches[k] for k in on_hopper}
     want_wide = {k: (wide or {}).get(k, 0) for k in on_wide}
     if on_hopper != want_hopper or on_wide != want_wide:
         raise SystemExit(f"{tag}: a launch took the wrong one of its "
@@ -1612,12 +1637,16 @@ def expect_launches(tag, counters, hopper=True, wide=None, **expected):
                          f"of {launches}, expected {want_hopper} (split "
                          f"{want_wide})")
     by_entry = dict(launches)
-    mma = "K3 (f32)" if hopper is False else "K3 (mma.sync)"
+    tag32 = " f32" if f32 else ""
     for k, hopper_entry, other in (
-            ("K2", "K2 (hopper)", "K2"),
+            ("K2", "K2 (hopper" + tag32 + ")", "K2"),
             ("K2 wgrad", "K2 wgrad (hopper)", "K2 wgrad"),
-            ("K3", "K3", mma), ("K3 train", "K3 train", "K3 train (mma.sync)")):
+            ("K3", "K3 (wgmma f32)" if f32 else "K3",
+             "K3 (f32)" if f32 else "K3 (mma.sync)"),
+            ("K3 train", "K3 train (wgmma f32)" if f32 else "K3 train",
+             "K3 train (mma.sync)")):
         split = on_wide.get(k, 0)
+        del by_entry[k]  # the wrapper's count, split into its kernels
         by_entry[hopper_entry] = on_hopper[k] - split
         by_entry[other] = launches[k] - on_hopper[k]
         if k in on_wide:
@@ -3891,16 +3920,17 @@ def reference_phase(torch, dev, frames):
     ``_make_forward(folded_stride=True)`` on seeded uint8 clips of the
     shape of phase 3's batch (50-frame clips decoded at stride 2:
     [8, 25, 126, 224, 3]; ``reference_clips``). Default switches: launches
-    K1 1, K2 18 on ``dwconv.cu``, no K3 (float32 takes the stock MLP, as
-    the JAX package's default does); against the same forward on plain
-    versions and against the reference module in float64 on K1's output,
-    both within REF_F64_TOL; the stock blocks against float64 under torch's
-    default cuDNN flags and under the switch; two faults (the classifier
-    BatchNorm's running variance set to 1, the GRU's r and z gates
-    swapped). ``fused_mlp=True``: K1 1, K2 18, K3 18 on
-    ``convnext_mlp.cu``, against plain versions and float64 by K3's rule.
-    K2 and K3 on float32 at the stage shapes; times of both legs against
-    stock blocks and the bfloat16 model, in turns."""
+    K1 1, K2 18 on ``dwconv_hopper.cu``'s float32 route, no K3 (float32
+    takes the stock MLP, as the JAX package's default does); against the
+    same forward on plain versions and against the reference module in
+    float64 on K1's output, both within REF_F64_TOL; the stock blocks
+    against float64 under torch's default cuDNN flags and under the
+    switch; two faults (the classifier BatchNorm's running variance set to
+    1, the GRU's r and z gates swapped). ``fused_mlp=True``: K1 1, K2 18,
+    K3 18 on ``convnext_mlp_wgmma.cu``'s float32 route, against plain
+    versions and float64 by K3's rule. K2 and K3 on float32 at the stage
+    shapes (``f32_kernels``); times of both legs against stock blocks and
+    the bfloat16 model, in turns."""
     import shutil
     import tempfile
 
@@ -3948,7 +3978,7 @@ def reference_phase(torch, dev, frames):
         counters = zero_counters()
         probs = forward(frames)
         torch.cuda.synchronize()
-        launches = expect_launches("reference", counters, hopper=False,
+        launches = expect_launches("reference", counters, f32=True,
                                    K1=1, K2=18)
         if tuple(probs.shape) != (frames.shape[0], 3) or not bool(
                 torch.isfinite(probs).all()):
@@ -3975,7 +4005,7 @@ def reference_phase(torch, dev, frames):
         probs_fused = fused_fwd(frames)
         torch.cuda.synchronize()
         launches_fused = expect_launches("reference fused_mlp=True", counters,
-                                         hopper=False, K1=1, K2=18, K3=18)
+                                         f32=True, K1=1, K2=18, K3=18)
         with swapped(*plain_swaps):
             plain = fused._make_forward(True)(frames)
         errs["fused_vs_plain"] = max_err(torch, probs_fused, plain)
@@ -4059,7 +4089,7 @@ def reference_phase(torch, dev, frames):
     if not bool(torch.isfinite(probs16).all()):
         raise SystemExit("reference: non-finite bf16 probabilities")
 
-    compare_rows, timing = f32_kernels(torch, dev)
+    compare_rows, f32_faults, timing = f32_kernels(torch, dev)
     out["timing"] = in_turns(
         torch, "reference forward",
         {"kernels": lambda: forward(frames),
@@ -4073,28 +4103,204 @@ def reference_phase(torch, dev, frames):
                 "f64_tol": REF_F64_TOL,
                 "defaults_bit_equal": bit_equal, "faults": seen,
                 "spread": spread, "compare_rows": compare_rows,
+                "compare_faults": f32_faults,
                 "kernel_timing": timing,
                 "served": {"pth": kept, "frames": frames, "probs": probs}})
     return out
 
 
-def f32_kernels(torch, dev):
-    """K2 (``dwconv.cu``) and K3 (``convnext_mlp.cu``) on float32
-    activations at the four stage shapes of the reference ConvNeXt's
-    serving forward: each against its plain version (K2 to one float32
-    rounding of its 49-tap sum, K3 by its rule: 2 bf16 ulps at the largest
-    output and a mean under 2^-12 of the mean |output|), then timed beside
-    its plain version, cuDNN's depthwise conv (K2) and the stock float32
-    LN→Linear→GELU→Linear chain (K3)."""
+def check_k2_f32(torch, x, w, b, gy, record, faults, failed):
+    """K2 on float32 [N, H, W, C] with C a multiple of 32: the Hopper
+    kernel bit-equal to ``dwconv.cu`` (the same sum order) and to itself
+    over two runs, both within one float32 rounding of the 49-tap sum
+    (2^-16 of the largest |output|) of the plain version, and dx (through
+    the autograd Function) bit-equal on the two; one channel pair's taps
+    swapped in the plain version must land outside. The calls without the
+    route forced must take the Hopper kernel."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    shape = list(x.shape)
+    before = k2.dwconv7x7.hopper_launches
+    got, again = k2.dwconv7x7(x, w, b), k2.dwconv7x7(x, w, b)
+    with swapped(old_route(k2)):
+        old = k2.dwconv7x7(x, w, b)
+    ref = k2.dwconv7x7_plain(x, w, b)
+    torch.cuda.synchronize()
+    # float32 sums of 49 taps in another order than cuDNN's
+    tol = float(ref.abs().max()) * 2 ** -16
+    record("K2 (hopper f32)", shape, max_err(torch, got, ref), tol)
+    record("K2 (hopper f32) vs dwconv.cu (bit-equal)", shape,
+           max_err(torch, got, old), 0.0, entry="K2 (hopper f32)")
+    record("K2 (hopper f32) twice (bit-equal)", shape,
+           max_err(torch, got, again), 0.0, entry="K2 (hopper f32)")
+    record("K2 float32", shape, max_err(torch, old, ref), tol, entry="K2")
+    # channels 0 and 1 take each other's taps
+    w_bad = w.clone()
+    w_bad[:, [0, 1]] = w[:, [1, 0]]
+    err = max_err(torch, k2.dwconv7x7_plain(x, w_bad, b), got)
+    fault_seen(faults, failed, "K2 (hopper f32) channel pair's taps "
+               "swapped", shape, err > tol, max_abs_err=err)
+    del got, again, old, ref
+    xr = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(k2.dwconv7x7(xr, w, b), xr, gy)
+    with swapped(old_route(k2)):
+        (dx_old,) = torch.autograd.grad(k2.dwconv7x7(xr, w, b), xr, gy)
+    torch.cuda.synchronize()
+    record("K2 (hopper f32) dx vs dwconv.cu (bit-equal)", shape,
+           max_err(torch, dx, dx_old), 0.0, entry="K2 (hopper f32)")
+    if k2.dwconv7x7.hopper_launches - before != 4:  # twice, forward, dx
+        failed.append(f"K2 float32 {shape} did not take the Hopper kernel")
+
+
+def time_k2_f32(torch, x, w, b):
+    """One stage's timing rows of K2 on float32: ``K2 (hopper f32)`` and
+    ``K2`` (``dwconv.cu`` on the same inputs, the route forced) in turns,
+    beside cuDNN's depthwise ``conv2d``, the plain version and the bound
+    (x read and out written once in float32: bytes)."""
     import torch.nn.functional as F
 
-    from vision_collision_detection_tpu_torch.ops.convnext_mlp import (
-        convnext_mlp, convnext_mlp_plain)
-    from vision_collision_detection_tpu_torch.ops.dwconv import (
-        dwconv7x7, dwconv7x7_plain)
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
 
+    C, n = x.shape[-1], x.numel()
+
+    def old_call():
+        with swapped(old_route(k2)):
+            return k2.dwconv7x7(x, w, b)
+
+    new_ms, old_ms = in_turns_ms(torch, lambda: k2.dwconv7x7(x, w, b),
+                                 old_call)
+    w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
+    x_cl = x.permute(0, 3, 1, 2)
+    bound, by = bound_ms(2 * n * 4 + 50 * C * 4, 98 * n, F32_FLOPS)
+    common = {"shape": list(x.shape), "bound_ms": bound, "bound_by": by,
+              "plain_ms": median_ms(torch, lambda: k2.dwconv7x7_plain(
+                  x, w, b)),
+              "library_ms": median_ms(torch, lambda: F.conv2d(
+                  x_cl, w_cudnn, b, padding=3, groups=C))}
+    return [{"kernel": "K2 (hopper f32)", "ms": new_ms,
+             "dwconv_cu_ms": old_ms, **common},
+            {"kernel": "K2", "ms": old_ms, **common}]
+
+
+def check_k3_f32(torch, xs, y, p, record, faults, failed):
+    """K3 on float32 [..., C] (erf GELU, the reference's) on its Hopper
+    kernel and on ``convnext_mlp.cu`` (the route forced): the eval and
+    train variants by K3's rule (2 bf16 ulps at the largest value and a
+    mean under 2^-12 of the mean |value|: out, and the train variant's t,
+    h_pre and m), train's out bit-equal to eval's; b2 dropped in the plain
+    version (out and m) must land outside. The calls without the route
+    forced must take the Hopper kernel."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+
+    shape = list(xs.shape)
+    before = (k3.convnext_mlp.wgmma_launches,
+              k3.convnext_mlp_train.wgmma_launches)
+    with torch.no_grad():
+        got = k3.convnext_mlp(xs, y, approximate=False, **p)
+    train = k3.convnext_mlp_train(xs, y, approximate=False, **p)
+    with swapped(old_route(k3)), torch.no_grad():
+        old = k3.convnext_mlp(xs, y, approximate=False, **p)
+    ref = k3.convnext_mlp_train_plain(xs, y, approximate=False, **p)
+    torch.cuda.synchronize()
+    tols = {}
+    for name, v, r in zip(("out", "t", "h_pre", "m"), (got, *train[1:]),
+                          ref):
+        tols[name] = (float(r.float().abs().max()) * 2 ** -6,
+                      float(r.float().abs().mean()) * 2 ** -12)
+        record(f"K3 float32 {name}", shape, max_err(torch, v, r),
+               tols[name][0], mean_err(torch, v, r), tols[name][1],
+               entry="K3 (wgmma f32)" if name == "out"
+               else "K3 train (wgmma f32)")
+    record("K3 float32 train out vs eval (bit-equal)", shape,
+           max_err(torch, train[0], got), 0.0, entry="K3 train (wgmma f32)")
+    record("K3 float32 on convnext_mlp.cu", shape,
+           max_err(torch, old, ref[0]), tols["out"][0],
+           mean_err(torch, old, ref[0]), tols["out"][1], entry="K3 (f32)")
+    fp, _ = K3_FAULTS["b2_dropped"](p, False)
+    bad = k3.convnext_mlp_train_plain(xs, y, approximate=False, **fp)
+    for name, v, r in (("out", got, bad[0]), ("m", train[3], bad[3])):
+        err, mean = max_err(torch, v, r), mean_err(torch, v, r)
+        fault_seen(faults, failed, f"K3 float32 b2 dropped ({name})", shape,
+                   err > tols[name][0] or mean > tols[name][1],
+                   max_abs_err=err, mean_abs_err=mean)
+    after = (k3.convnext_mlp.wgmma_launches,
+             k3.convnext_mlp_train.wgmma_launches)
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        failed.append(f"K3 float32 {shape} did not take the Hopper kernel")
+
+
+def time_k3_f32(torch, xs, y, p):
+    """One stage's timing rows of K3 on float32 (erf GELU): ``K3 (wgmma
+    f32)`` and ``K3 train (wgmma f32)``, each in turns with
+    ``convnext_mlp.cu`` on the same inputs (the route forced; that eval is
+    also the row of ``K3 (f32)``), beside the plain versions, the stock
+    float32 LN→Linear→GELU→Linear chain and the bounds: x, y read and out
+    written in float32 (the train variant also t and m in bf16 and h_pre
+    in bf16 at 4C), W1 and W2 in bf16 once; the products take bf16
+    operands (K3's rule), at the bf16 peak."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+
+    C, n = xs.shape[-1], xs.numel()
+    M = n // C
+    flops = 16 * M * C * C
+    kb, kby = bound_ms(3 * n * 4 + 8 * C * C * 2, flops, BF16_FLOPS)
+    kb_t, kby_t = bound_ms(3 * n * 4 + 12 * n + 8 * C * C * 2, flops,
+                           BF16_FLOPS)
+    w1t, w2t = p["w1"].t().contiguous(), p["w2"].t().contiguous()
+
+    def stock():
+        t = F.layer_norm(y, (C,), p["ln_w"], p["ln_b"], 1e-6)
+        h = F.gelu(F.linear(t, w1t, p["b1"]))
+        return xs + F.linear(h, w2t, p["b2"]) * p["gamma"]
+
+    def call(fn, *route):
+        def run():
+            with swapped(*route), torch.no_grad():
+                return fn(xs, y, approximate=False, **p)
+        return run
+
+    new_ms, old_ms = in_turns_ms(torch, call(k3.convnext_mlp),
+                                 call(k3.convnext_mlp, old_route(k3)))
+    new_t, old_t = in_turns_ms(torch, call(k3.convnext_mlp_train),
+                               call(k3.convnext_mlp_train, old_route(k3)))
+    stock_ms = median_ms(torch, stock)
+    plain = median_ms(torch, call(k3.convnext_mlp_plain))
+    plain_t = median_ms(torch, call(k3.convnext_mlp_train_plain))
+    common = {"shape": list(xs.shape), "library_ms": None}
+    return [{"kernel": "K3 (wgmma f32)", "ms": new_ms, "mma_sync_ms": old_ms,
+             "plain_ms": plain, "stock_chain_ms": stock_ms, "bound_ms": kb,
+             "bound_by": kby, **common},
+            {"kernel": "K3 (f32)", "ms": old_ms, "plain_ms": plain,
+             "stock_chain_ms": stock_ms, "bound_ms": kb, "bound_by": kby,
+             **common},
+            {"kernel": "K3 train (wgmma f32)", "ms": new_t,
+             "mma_sync_ms": old_t, "plain_ms": plain_t, "bound_ms": kb_t,
+             "bound_by": kby_t, **common}]
+
+
+def log_f32_timing(timing):
+    for r in timing:
+        extra = {k: r[k] for k in ("dwconv_cu_ms", "mma_sync_ms",
+                                   "stock_chain_ms") if k in r}
+        log(f"[time f32] {r['kernel']} {r['shape']} "
+            f"x{r.get('per_forward', 1)}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}; plain "
+            f"{r['plain_ms']:.4f}; library {r['library_ms']}; {extra})")
+
+
+def f32_kernels(torch, dev):
+    """K2 and K3 on float32 activations at the four stage shapes of the
+    reference ConvNeXt's serving forward, on their Hopper routes
+    (``dwconv_hopper.cu``, ``convnext_mlp_wgmma.cu``) and on the kernels
+    they replaced on that path (``dwconv.cu``, ``convnext_mlp.cu``, the
+    route forced): ``check_k2_f32`` and ``check_k3_f32``, then each kernel
+    timed in turns with the one it replaced on the same inputs (new, old,
+    old, new), beside its plain version, cuDNN's depthwise conv (K2) and
+    the stock float32 chain (K3): ``time_k2_f32``, ``time_k3_f32``."""
     g = torch.Generator().manual_seed(19)
-    rows, failed = [], []
+    rows, faults, failed = [], [], []
     record = recorder(rows, failed)
     timing = []
     for H, C, blocks in STAGES:
@@ -4102,59 +4308,21 @@ def f32_kernels(torch, dev):
         x = torch.randn(shape, generator=g).to(dev)
         w = (torch.randn(49, C, generator=g) / 7).to(dev)
         b = (torch.randn(C, generator=g) * 0.1).to(dev)
-        got, ref = dwconv7x7(x, w, b), dwconv7x7_plain(x, w, b)
-        torch.cuda.synchronize()
-        record("K2 float32", list(shape), max_err(torch, got, ref),
-               float(ref.abs().max()) * 2 ** -16, entry="K2")
-        n = x.numel()
-        kb, kby = bound_ms(2 * n * 4 + 50 * C * 4, 98 * n, F32_FLOPS)
-        w_cudnn = w.t().reshape(C, 1, 7, 7).contiguous()
-        x_cl = x.permute(0, 3, 1, 2)
-        timing.append({
-            "kernel": "K2", "shape": list(shape), "per_forward": blocks,
-            "ms": median_ms(torch, lambda: dwconv7x7(x, w, b)),
-            "plain_ms": median_ms(torch, lambda: dwconv7x7_plain(x, w, b)),
-            "library_ms": median_ms(torch, lambda: F.conv2d(
-                x_cl, w_cudnn, b, padding=3, groups=C)),
-            "bound_ms": kb, "bound_by": kby})
+        gy = torch.randn(shape, generator=g).to(dev)
+        check_k2_f32(torch, x, w, b, gy, record, faults, failed)
+        del gy
+        stage = time_k2_f32(torch, x, w, b)
         xs = torch.randn(shape, generator=g).to(dev)
         p = k3_params(torch, C, g, dev)
-        got = convnext_mlp(xs, x, approximate=False, **p)
-        ref = convnext_mlp_plain(xs, x, approximate=False, **p)
-        torch.cuda.synchronize()
-        record("K3 float32", list(shape), max_err(torch, got, ref),
-               float(ref.abs().max()) * 2 ** -6, mean_err(torch, got, ref),
-               float(ref.abs().mean()) * 2 ** -12, entry="K3 (f32)")
-        M = n // C
-        # x, y read and out written in float32, W1 and W2 in bf16 once; the
-        # products take bf16 operands (K3's rule), at the bf16 peak
-        kb, kby = bound_ms(3 * n * 4 + 8 * C * C * 2, 16 * M * C * C,
-                           BF16_FLOPS)
-        w1t, w2t = p["w1"].t().contiguous(), p["w2"].t().contiguous()
-
-        def stock():
-            t = F.layer_norm(x, (C,), p["ln_w"], p["ln_b"], 1e-6)
-            h = F.gelu(F.linear(t, w1t, p["b1"]))
-            return xs + F.linear(h, w2t, p["b2"]) * p["gamma"]
-
-        timing.append({
-            "kernel": "K3 (f32)", "shape": list(shape),
-            "per_forward": blocks,
-            "ms": median_ms(torch, lambda: convnext_mlp(
-                xs, x, approximate=False, **p)),
-            "plain_ms": median_ms(torch, lambda: convnext_mlp_plain(
-                xs, x, approximate=False, **p)),
-            "library_ms": None, "stock_chain_ms": median_ms(torch, stock),
-            "bound_ms": kb, "bound_by": kby})
-        del x, xs, got, ref, x_cl
-    for r in timing:
-        log(f"[time f32] {r['kernel']} {r['shape']} x{r['per_forward']}: "
-            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library "
-            f"{r['library_ms']}; stock chain {r.get('stock_chain_ms')})")
+        check_k3_f32(torch, xs, x, p, record, faults, failed)
+        stage += time_k3_f32(torch, xs, x, p)
+        timing += [dict(r, per_forward=blocks) for r in stage]
+        del x, xs
+        torch.cuda.empty_cache()
+    log_f32_timing(timing)
     if failed:
         raise SystemExit(f"float32 kernels disagree: {failed}")
-    return rows, timing
+    return rows, faults, timing
 
 
 # ---- 18. the BatchNorm backbones -------------------------------------------
@@ -5858,7 +6026,7 @@ def big_stage_kernels(torch, dev, name, model, g, record, faults, failed):
         p.update(w1=p["w1"].t().contiguous().t(),
                  w2=p["w2"].t().contiguous().t())
         wide = k3.route(torch.bfloat16, C) == "wide"
-        eval_entry, train_entry = k3_entries(torch, C)
+        eval_entry, train_entry = k3_entries(torch, C, torch.bfloat16)
         if wide:
             stock_ms = median_ms(torch, k3_stock_chain(torch, xs, y, p))
             with swapped((k3, "route", lambda dtype, C_: "mma")):
@@ -5979,11 +6147,13 @@ def kernel_line(compare_rows, launches, timing):
     ``convnext_mlp_wide.cu``: the 3 launches of base's last stage at C =
     1024 and the 3 of large's at 1536, with ``convnext_mlp.cu`` on the same
     inputs as ``mma_sync_ms`` and the stock chain as ``stock_chain_ms``).
-    ``K2`` (``dwconv.cu``) and ``K3 (f32)`` (``convnext_mlp.cu``) are
-    timed on float32 activations, their main path's (``K3 (f32)``: the
-    reference checkpoint with ``fused_mlp=True``);
-    ``dwconv.cu`` also on the Hopper kernel's bf16 inputs
-    (``bf16_inputs_ms``). Both K4 backward kernels carry the
+    ``K2 (hopper f32)``, ``K3 (wgmma f32)`` and ``K3 train (wgmma f32)`` are
+    the Hopper kernels on float32 activations (the reference checkpoint's
+    forward; K3 with ``fused_mlp=True``), each with the kernel it replaced
+    there timed on the same inputs (``dwconv_cu_ms``, ``mma_sync_ms``);
+    ``K2`` (``dwconv.cu``) and ``K3 (f32)`` (``convnext_mlp.cu``) are those
+    kernels, timed on the same float32 inputs, ``dwconv.cu`` also on the
+    Hopper kernel's bf16 inputs (``bf16_inputs_ms``). Both K4 backward kernels carry the
     library's whole backward as library_ms: it is one call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
     two Pallas kernels (the line ``replaces`` names), not a kernel."""
@@ -5997,6 +6167,8 @@ def kernel_line(compare_rows, launches, timing):
         "K2": ("dwconv7x7", csrc + "dwconv.cu", tpu + "dwconv_pallas.py:78"),
         "K2 (hopper)": ("dwconv7x7_hopper", csrc + "dwconv_hopper.cu",
                         tpu + "dwconv_pallas.py:78"),
+        "K2 (hopper f32)": ("dwconv7x7_hopper_f32", csrc + "dwconv_hopper.cu",
+                            tpu + "dwconv_pallas.py:78"),
         "K2 wgrad": ("dwconv7x7_wgrad", csrc + "dwconv_wgrad.cu",
                      tpu + "dwconv_pallas.py:114"),
         "K2 wgrad (hopper)": ("dwconv7x7_wgrad_hopper",
@@ -6008,6 +6180,12 @@ def kernel_line(compare_rows, launches, timing):
                      tpu + "convnext_mlp_pallas.py:160"),
         "K3 train": ("convnext_mlp_train", csrc + "convnext_mlp_wgmma.cu",
                      tpu + "convnext_mlp_pallas.py:160"),
+        "K3 (wgmma f32)": ("convnext_mlp_wgmma_f32",
+                           csrc + "convnext_mlp_wgmma.cu",
+                           tpu + "convnext_mlp_pallas.py:160"),
+        "K3 train (wgmma f32)": ("convnext_mlp_train_wgmma_f32",
+                                 csrc + "convnext_mlp_wgmma.cu",
+                                 tpu + "convnext_mlp_pallas.py:160"),
         "K3 (wide)": ("convnext_mlp_wide", csrc + "convnext_mlp_wide.cu",
                       tpu + "convnext_mlp_pallas.py:160"),
         "K3 train (wide)": ("convnext_mlp_train_wide",
@@ -6045,14 +6223,15 @@ def kernel_line(compare_rows, launches, timing):
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": "operations" if 2 * by_ops > len(rows) else "bytes",
             "library_ms": total("library_ms")}
-        # the mma.sync kernel that still serves the other dtypes and widths,
-        # timed on the same inputs
-        if total("mma_sync_ms") is not None:
-            entry["mma_sync_ms"] = total("mma_sync_ms")
+        # the kernel that still serves the other dtypes and widths, timed on
+        # the same inputs
+        for key in ("mma_sync_ms", "dwconv_cu_ms"):
+            if total(key) is not None:
+                entry[key] = total(key)
         # K3 on float32 and on the split kernel: the stock chain on the
         # same inputs
         if total("stock_chain_ms") is not None and k in (
-                "K3 (f32)", "K3 (wide)", "K3 train (wide)"):
+                "K3 (f32)", "K3 (wgmma f32)", "K3 (wide)", "K3 train (wide)"):
             entry["stock_chain_ms"] = total("stock_chain_ms")
         # dwconv.cu, timed on float32 (its main path's), also on the bf16
         # inputs of its Hopper sibling

@@ -3,7 +3,7 @@
 ``ops/csrc/convnext_mlp_wgmma.cu`` (a minute or two, build included, where
 ``chip_smoke.py`` takes several).
 
-    python3 scripts/check_convnext_mlp.py [--time]
+    python3 scripts/check_convnext_mlp.py [--time] [--float32]
 
 Builds the port's kernels, prints what ``ptxas`` said of K3's sources
 (registers, spills, and any note on ``wgmma``), then holds the eval and
@@ -21,8 +21,10 @@ stage shapes.
 shapes: the Hopper kernel and the ``mma.sync`` kernel of
 ``convnext_mlp.cu`` on the same inputs (the route forced), both variants,
 beside the stock chain LN → ``F.linear`` → GELU → ``F.linear`` → γ,
-residual, and each variant's bound. Imports nothing of JAX. Exits
-non-zero on a mismatch or without a CUDA device.
+residual, and each variant's bound. ``--float32`` does all of this on
+float32 activations (the same kernel's float32 route; the stock chain in
+float32, erf GELU, timed by ``chip_smoke.py``'s ``time_k3_f32``). Imports
+nothing of JAX. Exits non-zero on a mismatch or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     bad = 0
+    f32 = "--float32" in sys.argv
+    dtype = torch.float32 if f32 else torch.bfloat16
 
     def held(got, ref):
         err = float((got.float() - ref.float()).abs().max())
@@ -78,8 +82,8 @@ def main() -> int:
     cases += list(stages.items())
     timed_inputs = {}
     for C, M in cases:
-        x = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
-        y = torch.randn(M, C, generator=g).to(dev, torch.bfloat16)
+        x = torch.randn(M, C, generator=g).to(dev, dtype)
+        y = torch.randn(M, C, generator=g).to(dev, dtype)
         p = cs.k3_params(torch, C, g, dev)
         for approximate in (True, False):
             k3.convnext_mlp.wgmma_launches = 0
@@ -117,7 +121,37 @@ def main() -> int:
             timed_inputs[C] = (x, y, p)
         torch.cuda.empty_cache()
 
-    if "--time" in sys.argv:
+    if "--time" in sys.argv and f32:
+        timing = []
+        for C, (x, y, p) in timed_inputs.items():
+            blocks = dict((c, b) for _, c, b in cs.STAGES)[C]
+            timing += [dict(r, per_forward=blocks)
+                       for r in cs.time_k3_f32(torch, x, y, p)]
+        cs.log_f32_timing(timing)
+        # the float32 route against the bf16 route on the same values, in
+        # turns, and its two launches (LayerNorm pass, kernel) in a profile
+        for C, (x, y, p) in timed_inputs.items():
+            xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+
+            def run(a, b):
+                def call():
+                    with torch.no_grad():
+                        return k3.convnext_mlp(a, b, approximate=False, **p)
+                return call
+
+            f32_ms, bf16_ms = cs.in_turns_ms(torch, run(x, y), run(xb, yb))
+            print(f"   [time] C={C}: float32 {f32_ms:.4f} ms, bf16 "
+                  f"{bf16_ms:.4f} ms (in turns)", flush=True)
+            cs.profile_device(torch, f"float32 C={C}", run(x, y), 5,
+                              {"LN pass": "ln_rows_kernel",
+                               "kernel": "convnext_mlp_wgmma_kernel"})
+        for name in ("K3 (wgmma f32)", "K3 (f32)", "K3 train (wgmma f32)"):
+            rows = [r for r in timing if r["kernel"] == name]
+            print(f"   [time] {name} over the 18 launches: " + ", ".join(
+                f"{k} {sum(r[k] * r['per_forward'] for r in rows):.3f}"
+                for k in ("ms", "mma_sync_ms", "stock_chain_ms", "bound_ms")
+                if k in rows[0]) + " ms", flush=True)
+    elif "--time" in sys.argv:
         import torch.nn.functional as F
         sums = {}
         for C, (x, y, p) in timed_inputs.items():

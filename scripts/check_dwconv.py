@@ -3,7 +3,7 @@
 ``ops/csrc/dwconv_hopper.cu`` (about a minute, build included, where
 ``chip_smoke.py`` takes several).
 
-    python3 scripts/check_dwconv.py [--time]
+    python3 scripts/check_dwconv.py [--time] [--float32]
 
 Builds the port's kernels, prints what ``ptxas`` said of K2's sources
 (registers, shared memory, spills), then holds the forward kernel of
@@ -16,6 +16,12 @@ wider than one column tile (20×130). Each call must take the Hopper kernel
 on taps transposed (dy ↔ dx) must land outside, and dx (the kernel on
 flipped taps, through the autograd Function) must agree with autograd
 through the plain conv. The launch geometry of each shape is printed.
+
+``--float32`` does the same on float32 inputs by ``chip_smoke.py``'s
+``check_k2_f32``: the Hopper kernel bit-equal to ``dwconv.cu`` (the route
+forced) and to itself over two runs, within 2^-16 of the largest output
+of the plain version, dx bit-equal on the two kernels, one channel pair's
+taps swapped in the plain version landing outside.
 
 ``--time`` adds per-stage times (CUDA events, median of 10) at the stage
 shapes: the Hopper kernel, ``dwconv.cu`` on the same inputs (the route
@@ -67,22 +73,35 @@ def main() -> int:
     g = torch.Generator().manual_seed(1)
     rows, faults, failed = [], [], []
     record = cs.recorder(rows, failed)
+    f32 = "--float32" in sys.argv
+    dtype = torch.float32 if f32 else torch.bfloat16
     shapes = [(cs.N_FRAMES, H, H, C) for H, C, _ in cs.STAGES]
     for shape in shapes + list(cs.K2_ODD_SHAPES) + [WIDE]:
-        print(f"{list(shape)}: geometry {k2.hopper_geometry(*shape)}",
-              flush=True)
-        x, w, b = cs.k2_inputs(torch, dev, g, shape)
-        cs.check_k2(torch, x, w, b, record, faults, failed)
-        gy = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
-        cs.check_k2_dx(torch, x, w, b, gy, record, failed)
+        print(f"{list(shape)}: geometry "
+              f"{k2.hopper_geometry(*shape, dtype=dtype)}", flush=True)
+        x, w, b = cs.k2_inputs(torch, dev, g, shape, dtype)
+        gy = torch.randn(shape, generator=g).to(dev, dtype)
+        if f32:
+            cs.check_k2_f32(torch, x, w, b, gy, record, faults, failed)
+        else:
+            cs.check_k2(torch, x, w, b, record, faults, failed)
+            cs.check_k2_dx(torch, x, w, b, gy, record, failed)
         del x, w, b, gy
         torch.cuda.empty_cache()
 
     if "--time" in sys.argv:
         sums = {}
         for H, C, blocks in cs.STAGES:
-            x, w, b = cs.k2_inputs(torch, dev, g, (cs.N_FRAMES, H, H, C))
-            t, by = cs.time_k2(torch, x, w, b)
+            x, w, b = cs.k2_inputs(torch, dev, g, (cs.N_FRAMES, H, H, C),
+                                   dtype)
+            if f32:
+                new, old = cs.time_k2_f32(torch, x, w, b)
+                t = {"hopper": new["ms"], "tile": old["ms"],
+                     "cudnn": new["library_ms"], "bound": new["bound_ms"],
+                     "plain": new["plain_ms"]}
+                by = new["bound_by"]
+            else:
+                t, by = cs.time_k2(torch, x, w, b)
             for k, v in t.items():
                 sums[k] = sums.get(k, 0.0) + v * blocks
             print(f"   [time] [{cs.N_FRAMES}, {H}, {H}, {C}] x{blocks}: "

@@ -3,13 +3,14 @@ K4's forward takes, how K3's weights reach it, and what K1's wrapper hands
 its kernel, checked on the CPU.
 
 K3 and K4's forward each have a Hopper kernel (wgmma, TMA) for the main
-paths' dtype and widths and the mma.sync one for the rest; K3 has a second
-Hopper kernel, split into a LayerNorm and two GEMMs, for bf16 at 1024 and
-1536;
+paths' dtypes and widths (K3: bf16 and float32 up to 768) and the
+mma.sync one for the rest; K3 has a second Hopper kernel, split into a
+LayerNorm and two GEMMs, for bf16 at 1024 and 1536;
 K2's forward has the CUDA-core stencil of ``dwconv_hopper.cu`` for bf16
-at widths that divide by 32 and ``dwconv.cu`` for the rest, and K2's
-weight gradient the CUDA-core reduction of ``dwconv_wgrad_hopper.cu``
-under the same rule and ``dwconv_wgrad.cu`` for the rest.
+and float32 at widths that divide by 32 and ``dwconv.cu`` for the rest,
+and K2's weight gradient the CUDA-core reduction of
+``dwconv_wgrad_hopper.cu`` for bf16 at those widths and
+``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
 ``dwconv.wgrad_route``, ``convnext_mlp.route``,
 ``flash_attention.fwd_route``), and both Hopper K3 kernels
@@ -44,10 +45,10 @@ K3_NAMES = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
 @pytest.mark.parametrize("C", k3.KERNEL_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k3_route_rule(C, dtype):
-    """bf16 takes the Hopper kernel up to 768 and the split wgmma kernel at
-    1024 and 1536; float32 takes the mma.sync kernel at every width."""
-    want = ("mma" if dtype == torch.float32 else
-            "wide" if C in (1024, 1536) else "wgmma")
+    """bf16 and float32 take the Hopper kernel up to 768; at 1024 and 1536
+    bf16 takes the split wgmma kernel and float32 the mma.sync kernel."""
+    want = ("wgmma" if C <= 768 else
+            "mma" if dtype == torch.float32 else "wide")
     assert k3.route(dtype, C) == want
 
 
@@ -55,9 +56,9 @@ def test_k3_route_rule(C, dtype):
                                48])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_route_rule(C, dtype):
-    """Every ConvNeXt width (96 to 1536) in bf16 takes the Hopper stencil;
-    float32, and a width that does not divide by 32, take dwconv.cu."""
-    want = "hopper" if dtype == torch.bfloat16 and C != 48 else "tile"
+    """Every ConvNeXt width (96 to 1536) in bf16 or float32 takes the Hopper
+    stencil; a width that does not divide by 32 takes dwconv.cu."""
+    want = "hopper" if C != 48 else "tile"
     assert k2.route(dtype, C) == want
 
 
@@ -210,20 +211,48 @@ def test_k3_float32_at_wide_widths_takes_the_mma_entry(recorder, C):
     assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
 
 
-def test_k3_float32_activations_take_the_mma_entry(recorder):
-    x, y, p, _, _ = _k3_args(96, torch.float32)
-    k3._launch_eval(x, y, approximate=False, **p)
+def _k3_float32_launch(recorder, train):
+    """One float32 call at C = 96 of the eval or train launcher: its entry,
+    its arguments and the rise of its wgmma counter."""
+    x, y, p, lin1, lin2 = _k3_args(96, torch.float32)
+    counter = k3.convnext_mlp_train if train else k3.convnext_mlp
+    before = counter.wgmma_launches
+    (k3._launch_train if train else k3._launch_eval)(x, y, approximate=False,
+                                                     **p)
     (name, args), = recorder.calls
-    assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
+    assert (args[4], args[6]) == (lin1.weight.data_ptr(),
+                                  lin2.weight.data_ptr())
+    return name, args, counter.wgmma_launches - before
+
+
+def test_k3_float32_activations_take_the_mma_entry(recorder):
+    """float32 activations at a width of the Hopper kernel launch
+    ``vcd_convnext_mlp_wgmma`` (not the mma.sync entry) with dtype code 1
+    and the Linear weights' own storage, and count under its route; the
+    eval variant hands it a scratch t for its LayerNorm pass, and no h_pre
+    or m."""
+    name, args, rise = _k3_float32_launch(recorder, train=False)
+    assert name == "vcd_convnext_mlp_wgmma" and args[-2] == 1
+    assert args[13:16] == (5, 96, 0) and len(args) == 18 and rise == 1
+    assert args[10] is not None and args[11:13] == (None, None)
+
+
+def test_k3_float32_train_takes_the_wgmma_entry(recorder):
+    """The train variant on float32 activations: the same entry and code,
+    with its saved t, h_pre and m."""
+    name, args, rise = _k3_float32_launch(recorder, train=True)
+    assert name == "vcd_convnext_mlp_wgmma" and args[-2] == 1
+    assert args[13:16] == (5, 96, 0) and rise == 1
+    assert None not in args[10:13]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_function_forward_and_dx_take_the_routed_entry(recorder,
                                                           monkeypatch, dtype):
-    """``_DwConv7x7``'s forward and its dx each launch the routed entry:
-    ``vcd_dwconv7x7_hopper`` for bf16, ``vcd_dwconv7x7`` (with its dtype
-    code) for float32; the dx call gets the taps flipped in both axes and a
-    zero bias, and both count as launches."""
+    """``_DwConv7x7``'s forward and its dx each launch the routed entry,
+    ``vcd_dwconv7x7_hopper`` with the dtype code (0 bf16, 1 float32); the
+    dx call gets the taps flipped in both axes and a zero bias, and both
+    count as launches on the Hopper kernel."""
     C = 64
     seen = []
     launch = k2._launch_fwd
@@ -244,20 +273,16 @@ def test_k2_function_forward_and_dx_take_the_routed_entry(recorder,
     assert dx.shape == x.shape and dx.dtype == dtype
     names = [name for name, _ in recorder.calls
              if name.startswith("vcd_dwconv7x7")]
-    hopper = dtype == torch.bfloat16
-    want = "vcd_dwconv7x7_hopper" if hopper else "vcd_dwconv7x7"
-    assert names == [want, want]
+    assert names == ["vcd_dwconv7x7_hopper"] * 2
     assert (k2.dwconv7x7.launches, k2.dwconv7x7.hopper_launches) == (
-        before[0] + 2, before[1] + 2 * hopper)
+        before[0] + 2, before[1] + 2)
     (fx, fw, fb), (gx, gw, gb) = seen
     assert fw is w and fb is b
     assert torch.equal(gw, w.detach().view(7, 7, C).flip(0, 1).reshape(49, C))
     assert torch.equal(gb, torch.zeros(C, dtype=dtype))
     for (name, args), (t_x, t_w, t_b) in zip(recorder.calls, seen):
         assert args[:3] == (t_x.data_ptr(), t_w.data_ptr(), t_b.data_ptr())
-        assert args[4:8] == (2, 5, 6, C)
-        if not hopper:
-            assert args[8] == 1  # dtype code float32
+        assert args[4:9] == (2, 5, 6, C, int(dtype == torch.float32))
 
 
 SMS = 132  # the H100's SMs, which size the wgrad kernels' partial sums

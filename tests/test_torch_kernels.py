@@ -145,7 +145,8 @@ def test_k1_rejects_oversized_content():
                                  32, MEAN, STD)
 
 
-@pytest.mark.parametrize("shape", [(2, 9, 10, 16), (1, 7, 7, 32)])
+@pytest.mark.parametrize("shape", [(2, 9, 10, 16), (1, 7, 7, 32),
+                                   (2, 7, 9, 96)])
 def test_k2_plain_matches_pallas(shape):
     rng = np.random.default_rng(2)
     C = shape[-1]
@@ -227,6 +228,33 @@ def test_k3_wide_stages_compose_into_plain_parts(approximate, train):
         assert torch.equal(m, want[3].to(torch.bfloat16))
         assert torch.equal(k3.convnext_mlp_train(
             tx, ty, approximate=approximate, **tp)[3], m)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("C", [96, 768])
+def test_k3_plain_float32_matches_pallas(C, approximate):
+    """float32 x and y, as a float32 model's blocks hand them over (the
+    Hopper kernel's float32 route takes them on the card): out stays
+    float32 and agrees with the JAX block, whose Pallas kernel rounds t and
+    h_pre to bf16 and takes bf16 products on float32 activations too."""
+    rng = np.random.default_rng(21 + C)
+    x, y, p = _k3_inputs(C, rng, rows=(2, 3, 4) if C < 768 else (1, 2, 3))
+    ref = np.asarray(convnext_mlp_block(
+        jnp.asarray(x), jnp.asarray(y), *(jnp.asarray(p[k]) for k in
+                                          ("ln_w", "ln_b", "w1", "b1", "w2",
+                                           "b2", "gamma")),
+        approximate))
+    got = k3.convnext_mlp(torch.from_numpy(x), torch.from_numpy(y),
+                          approximate=approximate,
+                          **{k: torch.from_numpy(v) for k, v in p.items()})
+    assert ref.dtype == np.float32 and got.dtype == torch.float32
+    assert got.shape == x.shape
+    # tolerance, bf16-level: one bf16 ulp of the largest output. out is not
+    # rounded, but h is: the JAX package evaluates GELU on bf16 h_pre, the
+    # port in float32 rounded to bf16, so h differs by an ulp in places
+    # (0.0067 to 0.0082 measured at these shapes against an ulp of 0.031)
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= bf16_ulp(np.abs(ref).max()), err
 
 
 def test_k3_plain_float32_residual_dtype():

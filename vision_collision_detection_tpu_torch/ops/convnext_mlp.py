@@ -5,24 +5,28 @@ Replaces the TPU kernels of
 ``vision_collision_detection_tpu/ops/convnext_mlp_pallas.py``
 ``convnext_mlp_block`` (math ``_ln_mlp``), wired into ``jax.custom_vjp``
 there and into the ``torch.autograd.Function`` ``_ConvNeXtMLP`` here. Both
-variants share each kernel, and ``route`` picks one of three: bf16
-activations at the widths ``WGMMA_DIMS`` (convnext tiny's, base's and
-large's up to 768) take the Hopper kernel ``ops/csrc/convnext_mlp_wgmma.cu``
-(wgmma, TMA-fed weight tiles in nn.Linear's own layout, a persistent block
-of 128 rows up to C = 256 and of 64 rows shared by two warpgroups above);
-bf16 at ``WIDE_DIMS`` (base's and large's last stage, 1024 and 1536) take
+variants share each kernel, and ``route`` picks one of three: bf16 or
+float32 activations at the widths ``WGMMA_DIMS`` (convnext tiny's, base's
+and large's up to 768) take the Hopper kernel
+``ops/csrc/convnext_mlp_wgmma.cu`` (wgmma, TMA-fed weight tiles in
+nn.Linear's own layout, a persistent block of 128 rows up to C = 256 and of
+64 rows shared by two warpgroups above; bf16 rows of y arrive by TMA and
+are normalised in the kernel, float32 ones go through a LayerNorm pass
+whose bf16 t the kernel loads instead); bf16 at
+``WIDE_DIMS`` (base's and large's last stage, 1024 and 1536) take
 ``ops/csrc/convnext_mlp_wide.cu``, the chain split into three launches (a
 LayerNorm row kernel, then the two products as persistent wgmma/TMA GEMMs
 with the bias, GELU and residual in their epilogues; t and h through
-scratch) that read the weights in nn.Linear's layout too; float32
-activations take the ``mma.sync`` kernel ``ops/csrc/convnext_mlp.cu``,
-which reads the weights in the flax layout (its bf16 instantiations stay
+scratch) that read the weights in nn.Linear's layout too; float32 at 1024
+and 1536 takes the ``mma.sync`` kernel ``ops/csrc/convnext_mlp.cu``, which
+reads the weights in the flax layout (its other instantiations stay
 compiled, as the yardstick the card's checks time).
 
-- **eval** (``_eval_kernel``): out only. Its bound on the H100 is
+- **eval** (``_eval_kernel``): out only. Its bound on the H100 in bf16 is
   operations: 16·M·C² flops per launch, ≈ 92 GFLOP per launch on the
   flagship forward at B=8 and ≈ 1.66 TFLOP over the 18 launches, ≈ 1.7 ms
-  at 989 TFLOP/s bf16.
+  at 989 TFLOP/s bf16. In float32 x, y and out take 12 bytes a
+  row-channel: bytes bound it at C = 96 and 192 (≈ 2.1 ms over the 18).
 - **train** (``_train_kernel``): the same out, and the tensors the backward
   needs, all bf16: t = LN(y) [M, C], h_pre = t·W1 + b1 [M, 4C] and
   m = h·W2 + b2 [M, C] (out uses the float32 m; only the saved copy is
@@ -63,7 +67,7 @@ LN_EPS = 1e-6
 # The widths the kernel is compiled for: every stage of convnext tiny, base
 # and large.
 KERNEL_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
-# The widths of the Hopper kernel (bf16 activations only).
+# The widths of the Hopper kernel (bf16 and float32 activations).
 WGMMA_DIMS = (96, 128, 192, 256, 384, 512, 768)
 # The widths of the split wgmma kernel (bf16 activations only).
 WIDE_DIMS = (1024, 1536)
@@ -173,9 +177,9 @@ def down_stage_plain(h, x, w2, b2, gamma):
 
 def route(dtype: torch.dtype, C: int) -> str:
     """Which kernel a CUDA call takes: ``"wgmma"`` (the Hopper kernel) for
-    bf16 activations at a width of ``WGMMA_DIMS``, ``"wide"`` (the split
-    wgmma kernel) for bf16 at ``WIDE_DIMS``, else ``"mma"``."""
-    if dtype == torch.bfloat16 and C in WGMMA_DIMS:
+    bf16 or float32 activations at a width of ``WGMMA_DIMS``, ``"wide"``
+    (the split wgmma kernel) for bf16 at ``WIDE_DIMS``, else ``"mma"``."""
+    if C in WGMMA_DIMS:
         return "wgmma"
     if dtype == torch.bfloat16 and C in WIDE_DIMS:
         return "wide"
@@ -229,9 +233,13 @@ def _launch_eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     stream = _build.stream_ptr(x.device)
     kernel_route = route(x.dtype, C)
     if kernel_route == "wgmma":
+        # float32 activations: t is the LayerNorm pass's output, scratch
+        # from the caching allocator
+        t = (torch.empty(M, C, dtype=torch.bfloat16, device=x.device)
+             if x.dtype == torch.float32 else None)
         err = _build.lib().vcd_convnext_mlp_wgmma(
-            *ptrs, out.data_ptr(), None, None, None, M, C,
-            int(bool(approximate)), stream)
+            *ptrs, out.data_ptr(), None if t is None else t.data_ptr(), None,
+            None, M, C, int(bool(approximate)), _DTYPE_CODE[x.dtype], stream)
         _build.check(err, "vcd_convnext_mlp_wgmma")
         convnext_mlp.wgmma_launches += 1
     elif kernel_route == "wide":
@@ -262,7 +270,8 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     kernel_route = route(x.dtype, C)
     if kernel_route == "wgmma":
         err = _build.lib().vcd_convnext_mlp_wgmma(
-            *ptrs, *saved, M, C, int(bool(approximate)), stream)
+            *ptrs, *saved, M, C, int(bool(approximate)),
+            _DTYPE_CODE[x.dtype], stream)
         _build.check(err, "vcd_convnext_mlp_wgmma")
         convnext_mlp_train.wgmma_launches += 1
     elif kernel_route == "wide":

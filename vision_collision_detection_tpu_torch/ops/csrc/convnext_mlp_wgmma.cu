@@ -1,7 +1,8 @@
-// K3 for bf16 activations on Hopper's warpgroup products (wgmma) fed by the
-// Tensor Memory Accelerator: the ConvNeXt block after the depthwise conv,
+// K3 on Hopper's warpgroup products (wgmma) fed by the Tensor Memory
+// Accelerator: the ConvNeXt block after the depthwise conv,
 //   out = x + gamma * (GELU(LN(y) @ W1 + b1) @ W2 + b2),
-// eval and train variants of one template body.
+// eval and train variants of one template body, for bf16 or float32
+// activations (x, y, out) at C = 96 to 768.
 //
 // Replaces the same TPU kernels as convnext_mlp.cu
 // (vision_collision_detection_tpu/ops/convnext_mlp_pallas.py `_call` with
@@ -9,14 +10,18 @@
 // LN with eps 1e-6 and two-pass float32 statistics, t = LN(y) rounded to
 // bf16; products on bf16 with float32 accumulation; h_pre = t @ W1 + b1
 // rounded to bf16; GELU (tanh or erf) in float32, rounded to bf16; the
-// residual added in float32. The train variant also writes t, h_pre and
-// m = h @ W2 + b2 in bf16; out uses the float32 m.
+// residual added in float32 and stored in x's dtype. The train variant also
+// writes t, h_pre and m = h @ W2 + b2 in bf16; out uses the float32 m. The
+// TPU kernel takes bf16 products on float32 activations too (`_call` casts
+// W1 and W2 to bf16, `_ln_mlp` rounds t and h_pre), so the float32 route
+// is that kernel's own arithmetic.
 //
 // Bound on the H100: eval, operations (16*C^2 flops per row against 6*C
-// bytes); train, bytes at C <= 192 (18*C bytes per row: h_pre alone is 8*C)
-// and operations above. The mma.sync kernel this replaces streamed all of
-// W1 and W2 (16*C^2 bytes from L2) for every 64 rows, at 64 flops per byte
-// of L2, and could not reach the tensor cores' rate with mma.sync.
+// bytes in bf16, 12*C in float32; float32 is bound by bytes at C <= 192);
+// train, bytes at C <= 192 (18*C bytes per row in bf16: h_pre alone is
+// 8*C) and operations above. The mma.sync kernel this replaces streamed all
+// of W1 and W2 (16*C^2 bytes from L2) for every 64 rows, at 64 flops per
+// byte of L2, and could not reach the tensor cores' rate with mma.sync.
 //
 // Design. The weights are read in nn.Linear's own layout, which is K-major
 // for both products: W1 as [4C, C], W2 as [C, 4C]. The grid is persistent,
@@ -27,7 +32,16 @@
 // W1's chunk rows, then the C/64 tiles of W2's chunk columns, each with
 // zeros past C. The consumer warpgroups normalise the rows of t in place
 // (and the producer loads the next item's y once the last chunk's first
-// product has read t). Per chunk each consumer warpgroup
+// product has read t). Float32 activations take a LayerNorm pass first
+// (`ln_rows_kernel`: y read once, bf16 t written), and the kernel loads t
+// where it would load y and skips the normalisation. A [64, 768] float32
+// y tile (192 KB) would not fit beside t and the ring; normalising float32
+// rows read from device memory inside the kernel was tried, and at the
+// flagship's first stage ([627200, 96]) took 1.279 ms a launch on an
+// H100 against bf16's 0.605: the loads sat between items, where no product
+// hid them. The pass moves 4 bytes a row-channel more (t written and read)
+// but keeps the kernel's loads behind its products. Per chunk each
+// consumer warpgroup
 //   1. h_pre = t @ W1_chunk^T by wgmma with both operands in shared memory,
 //      a group a W1 tile, up to four in flight; b1 is read meanwhile;
 //   2. + b1, bf16, GELU, bf16 in the accumulator's registers (the GELU form
@@ -53,10 +67,12 @@
 // train variants and at C = 768. The train
 // variant stages each rounded h_pre chunk in a swizzled tile and stores it
 // by TMA (one thread of the row group, after the barrier that completes
-// the tile); t leaves from the LayerNorm's 16-byte rows, m from the
-// epilogue. No wgmma group stays in flight across a loop's back edge
-// (ptxas serialises the loop's products if one does): the loops over a
-// chunk's tiles are unrolled and each chunk drains its groups.
+// the tile); t leaves from the LayerNorm's 16-byte rows (or is the
+// pass's output), m from the
+// epilogue, which reads x and writes out as channel pairs (4 bytes in
+// bf16, 8 in float32). No wgmma group stays in flight across a loop's back
+// edge (ptxas serialises the loop's products if one does): the loops over
+// a chunk's tiles are unrolled and each chunk drains its groups.
 #include <type_traits>
 
 #include "convnext_mlp_common.cuh"
@@ -127,9 +143,14 @@ struct Saved {
   bf16* m;      // [M, C]
 };
 
-// The producer warp's lane 0: per item the rows of y into the t tiles once
-// the consumers have freed them, then every chunk's weight tiles through
-// the ring, running ahead across items.
+// bf16 activations: the consumers normalise the rows of y in the t tiles;
+// float32 ones arrive there normalised, as the LayerNorm pass's bf16 t.
+template <typename T>
+constexpr bool LN_IN_KERNEL = std::is_same_v<T, bf16>;
+
+// The producer warp's lane 0: per item the rows of y (bf16) or t (float32
+// activations) into the t tiles once the consumers have freed them, then
+// every chunk's weight tiles through the ring, running ahead across items.
 template <int C>
 __device__ __forceinline__ void produce(const CUtensorMap* map_y,
                                         const CUtensorMap* map_w1,
@@ -198,6 +219,69 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
 __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// Eight float32 values from 32 bytes of device memory.
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// The LayerNorm pass of float32 activations: t = LN(y) rounded to bf16,
+// [M, C], for the kernel to load by TMA. A row takes LPR lanes (16 where
+// C <= 128), 8 columns a lane at a time (two 16-byte loads), the same
+// two-pass float32 statistics as `layer_norm`.
+template <int C>
+__global__ void __launch_bounds__(256)
+ln_rows_kernel(const float* __restrict__ y, const float* __restrict__ ln_w,
+               const float* __restrict__ ln_b, bf16* __restrict__ t, int M) {
+  constexpr int VECS = C / 8, LPR = VECS <= 16 ? 16 : 32;
+  constexpr int PER_LANE = (VECS + LPR - 1) / LPR;
+  const int lane = threadIdx.x % LPR;
+  const int64_t row = (int64_t)blockIdx.x * (256 / LPR) + threadIdx.x / LPR;
+  // rows past M take zeros: every lane takes part in the sums' shuffles
+  const bool valid = row < M;
+  auto row_sum = [](float v) {
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  };
+  float v[PER_LANE][8];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int vi = lane + LPR * i;
+    if (valid && vi < VECS) {
+      load8(y + row * C + vi * 8, v[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[i][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += v[i][e];
+  }
+  const float mu = row_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i)
+    if (lane + LPR * i < VECS)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q += (v[i][e] - mu) * (v[i][e] - mu);
+  const float rstd = rsqrtf(row_sum(q) / C + LN_EPS);
+#pragma unroll
+  for (int i = 0; i < PER_LANE; ++i) {
+    const int vi = lane + LPR * i;
+    if (!valid || vi >= VECS) continue;
+    float w[8], b[8], o[8];
+    load8(ln_w + vi * 8, w);
+    load8(ln_b + vi * 8, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = (v[i][e] - mu) * rstd * w[e] + b[e];
+    *reinterpret_cast<uint4*>(t + row * C + vi * 8) = pack8(o);
+  }
 }
 
 // LayerNorm of the item's BM rows in place in the t tiles, once they have
@@ -311,19 +395,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a,
   wgmma_ss32(d, a, b, accumulate);
 }
 
-template <int C, bool TRAIN>
+template <int C, bool TRAIN, typename T>
 __global__ void __launch_bounds__(Plan<C>::THREADS, 1)
 convnext_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap map_y,
                           const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w2,
                           const __grid_constant__ CUtensorMap map_hp,
-                          const bf16* __restrict__ x,
+                          const T* __restrict__ x,
                           const float* __restrict__ ln_w,
                           const float* __restrict__ ln_b,
                           const float* __restrict__ b1,
                           const float* __restrict__ b2,
                           const float* __restrict__ gamma,
-                          bf16* __restrict__ out, Saved saved, int M,
+                          T* __restrict__ out, Saved saved, int M,
                           int items, int approximate) {
   using P = Plan<C>;
   extern __shared__ unsigned char smem_raw[];
@@ -366,8 +450,12 @@ convnext_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap map_y,
       const int64_t row0 = (int64_t)(w / P::PASSES) * P::BM;
       const int ps = w % P::PASSES;
       const int64_t rw = row0 + rg * 64 + r;  // this lane's rows rw, rw + 8
-      layer_norm<C, TRAIN>(smem + P::T, base + P::T_FULL, n & 1, ln_w, ln_b,
-                           ps == 0 ? saved.t : nullptr, row0, M);
+      // (float32 activations' rows arrive normalised: the LayerNorm pass)
+      if constexpr (LN_IN_KERNEL<T>)
+        layer_norm<C, TRAIN>(smem + P::T, base + P::T_FULL, n & 1, ln_w,
+                             ln_b, ps == 0 ? saved.t : nullptr, row0, M);
+      else
+        mbar_wait(base + P::T_FULL, n & 1);
       fence_proxy_async();
       // (the last item's stores have read their tiles: a pass that stores
       // none runs no barrier that would say so)
@@ -537,10 +625,9 @@ convnext_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap map_y,
               if (TRAIN)
                 *reinterpret_cast<__nv_bfloat162*>(saved.m + row * C + c) =
                     __floats2bfloat162_rn(m0, m1);
-              const float2 xv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(x + row * C + c));
-              *reinterpret_cast<__nv_bfloat162*>(out + row * C + c) =
-                  __floats2bfloat162_rn(xv.x + gg.x * m0, xv.y + gg.y * m1);
+              const float2 xv = Pair<T>::load(x + row * C + c);
+              Pair<T>::store(out + row * C + c,
+                             make_float2(xv.x + gg.x * m0, xv.y + gg.y * m1));
             }
           }
       }
@@ -550,19 +637,28 @@ convnext_mlp_wgmma_kernel(const __grid_constant__ CUtensorMap map_y,
   }
 }
 
-template <int C, bool TRAIN>
+template <int C, bool TRAIN, typename T>
 int launch(const void* x, const void* y, const void* ln_w, const void* ln_b,
            const void* w1, const void* b1, const void* w2, const void* b2,
            const void* gamma, void* out, Saved saved, int M, int approximate,
            cudaStream_t stream) {
   using P = Plan<C>;
   if (M == 0) return (int)cudaSuccess;
+  cudaError_t err;
+  // float32 activations: the LayerNorm pass writes bf16 t, which the
+  // kernel then loads in place of y
+  if constexpr (!LN_IN_KERNEL<T>) {
+    constexpr int ROWS = 256 / (C / 8 <= 16 ? 16 : 32);
+    ln_rows_kernel<C><<<(M + ROWS - 1) / ROWS, 256, 0, stream>>>(
+        (const float*)y, (const float*)ln_w, (const float*)ln_b, saved.t, M);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    y = saved.t;
+  }
   CUtensorMap my, mw1, mw2;
   const cuuint32_t box[2] = {64, 64};
   const cuuint64_t dy[2] = {C, (cuuint64_t)M}, sy[1] = {C * 2};
   const cuuint64_t dw1[2] = {C, 4 * C}, sw1[1] = {C * 2};
   const cuuint64_t dw2[2] = {4 * C, C}, sw2[1] = {4 * C * 2};
-  cudaError_t err;
   if ((err = make_bf16_map(&my, y, 2, dy, sy, box)) != cudaSuccess ||
       (err = make_bf16_map(&mw1, w1, 2, dw1, sw1, box)) != cudaSuccess ||
       (err = make_bf16_map(&mw2, w2, 2, dw2, sw2, box)) != cudaSuccess)
@@ -574,7 +670,7 @@ int launch(const void* x, const void* y, const void* ln_w, const void* ln_b,
   if (TRAIN &&
       (err = make_bf16_map(&mhp, saved.h_pre, 2, dhp, shp, box)) != cudaSuccess)
     return (int)err;
-  auto kernel = convnext_mlp_wgmma_kernel<C, TRAIN>;
+  auto kernel = convnext_mlp_wgmma_kernel<C, TRAIN, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::DYNAMIC);
   if (err != cudaSuccess) return (int)err;
@@ -586,21 +682,21 @@ int launch(const void* x, const void* y, const void* ln_w, const void* ln_b,
   // a persistent grid: one block per SM, fewer where there is less work
   const int items = (M + P::BM - 1) / P::BM * P::PASSES;
   kernel<<<items < sms ? items : sms, P::THREADS, P::DYNAMIC, stream>>>(
-      my, mw1, mw2, mhp, (const bf16*)x, (const float*)ln_w, (const float*)ln_b,
-      (const float*)b1, (const float*)b2, (const float*)gamma, (bf16*)out,
-      saved, M, items, approximate);
+      my, mw1, mw2, mhp, (const T*)x, (const float*)ln_w,
+      (const float*)ln_b, (const float*)b1, (const float*)b2,
+      (const float*)gamma, (T*)out, saved, M, items, approximate);
   return (int)cudaGetLastError();
 }
 
-template <bool TRAIN>
+template <typename T, bool TRAIN>
 int dispatch(const void* x, const void* y, const void* ln_w, const void* ln_b,
              const void* w1, const void* b1, const void* w2, const void* b2,
              const void* gamma, void* out, Saved saved, int M, int C,
              int approximate, cudaStream_t stream) {
 #define VCD_K3W_CASE(C_)                                                     \
   case C_:                                                                   \
-    return launch<C_, TRAIN>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out,   \
-                             saved, M, approximate, stream);
+    return launch<C_, TRAIN, T>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,     \
+                                out, saved, M, approximate, stream);
   switch (C) {
     VCD_K3W_CASE(96)
     VCD_K3W_CASE(128)
@@ -617,21 +713,34 @@ int dispatch(const void* x, const void* y, const void* ln_w, const void* ln_b,
 
 }  // namespace
 
-// x, y, out: bf16 [M, C], contiguous, 16-byte aligned. ln_w, ln_b, b2,
-// gamma: float32 [C]; b1: float32 [4C]; w1: bf16 [4C, C] and w2: bf16
-// [C, 4C], nn.Linear's layout, contiguous and 16-byte aligned. t, h_pre, m:
-// the train variant's bf16 [M, C], [M, 4C], [M, C] (all null for the eval
-// variant). C is one of 96, 128, 192, 256, 384, 512, 768.
+// dtype: 0 = bfloat16, 1 = float32. x, y, out: [M, C] of that dtype,
+// contiguous, 16-byte aligned. ln_w, ln_b, b2, gamma: float32 [C]; b1:
+// float32 [4C]; w1: bf16 [4C, C] and w2: bf16 [C, 4C], nn.Linear's layout,
+// contiguous and 16-byte aligned. h_pre, m: the train variant's bf16
+// [M, 4C], [M, C], both null for the eval variant. t: bf16 [M, C], 16-byte
+// aligned: the train variant's saved t; float32 activations also need it in
+// the eval variant (scratch: the LayerNorm pass writes it, the kernel
+// reads it); null for bf16 eval. C is one of 96, 128, 192, 256, 384, 512,
+// 768.
 extern "C" int vcd_convnext_mlp_wgmma(
     const void* x, const void* y, const void* ln_w, const void* ln_b,
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* gamma, void* out, void* t, void* h_pre, void* m, int M, int C,
-    int approximate, void* stream) {
-  if (M < 0) return (int)cudaErrorInvalidValue;
+    int approximate, int dtype, void* stream) {
+  if (M < 0 || (dtype != 0 && dtype != 1) || (dtype == 1 && t == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Saved saved{(bf16*)t, (bf16*)h_pre, (bf16*)m};
-  if (t != nullptr)
-    return dispatch<true>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out, saved,
-                          M, C, approximate, (cudaStream_t)stream);
-  return dispatch<false>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, out, saved,
-                         M, C, approximate, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (h_pre != nullptr)
+    return dtype == 0
+               ? dispatch<bf16, true>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                      out, saved, M, C, approximate, st)
+               : dispatch<float, true>(x, y, ln_w, ln_b, w1, b1, w2, b2,
+                                       gamma, out, saved, M, C, approximate,
+                                       st);
+  return dtype == 0
+             ? dispatch<bf16, false>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                     out, saved, M, C, approximate, st)
+             : dispatch<float, false>(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma,
+                                      out, saved, M, C, approximate, st);
 }

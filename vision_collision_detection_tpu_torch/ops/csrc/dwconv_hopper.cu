@@ -1,17 +1,18 @@
 // K2 on Hopper: depthwise 7x7 convolution, stride 1, SAME (3-pixel zero
-// halo), + bias, NHWC, bf16 in and out, float32 accumulation. Forward, and
-// dx as the same kernel on flipped taps with a zero bias.
+// halo), + bias, NHWC, bf16 or float32 in and out (x, w, b, out of one
+// dtype), float32 accumulation. Forward, and dx as the same kernel on
+// flipped taps with a zero bias.
 //
 // Replaces the TPU kernel vision_collision_detection_tpu/ops/dwconv_pallas.py
-// `dwconv7x7` -> `_run_fwd` (`_fwd_kernel`) for bf16 activations with C a
-// multiple of 32 (every ConvNeXt width); float32 and other widths keep
-// dwconv.cu.
+// `dwconv7x7` -> `_run_fwd` (`_fwd_kernel`) for C a multiple of 32 (every
+// ConvNeXt width); other widths keep dwconv.cu.
 //
-// Bound on the H100: operations on the CUDA cores. Each output takes 49
-// float32 FMAs (98 flops) against 4 bytes moved (bf16 in and out), so at
-// 67 TFLOP/s the taps take longer than the bytes at 3.35 TB/s. The tensor
-// cores do not serve a depthwise 7x7: there is no sum over channels, so a
-// matrix form needs a banded (Toeplitz) operand per channel, mostly zeros,
+// Bound on the H100. bf16: operations on the CUDA cores. Each output takes
+// 49 float32 FMAs (98 flops) against 4 bytes moved (bf16 in and out), so
+// at 67 TFLOP/s the taps take longer than the bytes at 3.35 TB/s. float32:
+// bytes (8 a pixel-channel against the same 98 flops). The tensor cores do
+// not serve a depthwise 7x7: there is no sum over channels, so a matrix
+// form needs a banded (Toeplitz) operand per channel, mostly zeros,
 // gathered across the NHWC layout; the work the FMAs must do is already
 // the bound. No wgmma, no tensor-core operand, no clusters here.
 //
@@ -27,10 +28,13 @@
 //   is chosen so that its output groups fill the block's thread slots (see
 //   `pick`), so no item is mostly halo or idle threads on the main path.
 // - Loads: the next item's band plus its 3-pixel halo is copied from global
-//   memory as bf16 by 16-byte cp.async (out-of-frame pixels zero-filled by
-//   the copy's source size) into a staging buffer while the current item's
-//   FMAs run. After a barrier one pass converts the staging buffer to
-//   float32 in the shared tile, so the inner loop does no conversions.
+//   memory by 16-byte cp.async (out-of-frame pixels zero-filled by the
+//   copy's source size) while the current item's FMAs run. bf16 lands in a
+//   staging buffer and, after a barrier, one pass converts it to float32 in
+//   the shared tile, so the inner loop does no conversions. float32 needs
+//   no conversion: it lands in the other of two float32 tiles, which
+//   alternate (one barrier an item), so a pixel takes 256 bytes of shared
+//   memory against bf16's 192 and bands are planned smaller.
 // - Compute: a thread owns one channel pair and an output group of 2 rows x
 //   CC columns (CC = 7 where W divides by 7, else 8): 2*CC float2
 //   accumulators. It walks the group's 8 input rows once, each row's CC+6
@@ -38,10 +42,13 @@
 //   applies every tap a pixel carries to both output rows: 13-14 FMAs per
 //   shared-memory load. Taps are
 //   summed in (dy, dx) order from 0 for each output, then the bias is
-//   added, and the result is rounded to bf16 once, as in the TPU kernel.
+//   added, and the result is rounded to the output dtype once (stored as a
+//   channel pair, 4 or 8 bytes), as in the TPU kernel. That is dwconv.cu's
+//   order too, so on float32 the two kernels agree bit for bit.
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -54,8 +61,13 @@ constexpr int PAD = 3;
 constexpr int SLAB = 32;            // channels per block
 constexpr int PAIRS = SLAB / 2;     // threads of an output group
 constexpr int R = 2;                // output rows of a group
-constexpr int PX_BYTES = SLAB * 4 + SLAB * 2;  // float tile + bf16 staging
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
+
+// Shared bytes a pixel of an item's tile takes: bf16, the float32 tile and
+// its bf16 staging; float32, two float32 tiles.
+template <typename T>
+constexpr int PX_BYTES = std::is_same_v<T, bf16> ? SLAB * 4 + SLAB * 2
+                                                 : 2 * SLAB * 4;
 
 struct Geo {
   int N, H, W, C;
@@ -113,45 +125,52 @@ __device__ __forceinline__ void item_origin(const Geo& g, int item, int& n0,
   n0 = (rest / g.nbands) * g.F;
 }
 
-// the item's tile, halo included, as bf16 into the staging buffer; a row of
-// the tile a warp at a time, 16 bytes (8 channels) a lane
-__device__ __forceinline__ void issue_tile(const Geo& g, const bf16* x,
+// the item's tile, halo included, in x's dtype to shared address st_addr
+// (bf16: the staging buffer; float32: a float32 tile); a row of the tile a
+// warp at a time, 16 bytes (8 or 4 channels) a lane
+template <typename T>
+__device__ __forceinline__ void issue_tile(const Geo& g, const T* x,
                                            unsigned st_addr, int c0, int item,
                                            int warp, int lane, int nwarps) {
+  constexpr int PER16 = 16 / sizeof(T);  // channels a 16-byte copy
+  constexpr int CHUNKS = SLAB / PER16;   // copies a pixel
   int n0, h0, w0;
   item_origin(g, item, n0, h0, w0);
   for (int row = warp; row < g.F * g.TH; row += nwarps) {
     const int f = row / g.TH;
     const int n = n0 + f, gy = h0 - PAD + (row - f * g.TH);
     const bool rv = n < g.N && gy >= 0 && gy < g.H;
-    const bf16* src_row =
+    const T* src_row =
         x + ((size_t)(rv ? n : 0) * g.H + (rv ? gy : 0)) * g.W * g.C + c0;
-    const unsigned dst_row = st_addr + (unsigned)(row * g.TWH) * (SLAB * 2);
-    for (int c = lane; c < g.TWH * 4; c += 32) {
-      const int gx = w0 - PAD + (c >> 2);
+    const unsigned dst_row =
+        st_addr + (unsigned)(row * g.TWH) * (SLAB * sizeof(T));
+    for (int c = lane; c < g.TWH * CHUNKS; c += 32) {
+      const int gx = w0 - PAD + c / CHUNKS;
       const bool v = rv && gx >= 0 && gx < g.W;
       cp_async16_zfill(dst_row + c * 16,
-                       v ? src_row + (size_t)gx * g.C + (c & 3) * 8
-                         : (const bf16*)x,
+                       v ? src_row + (size_t)gx * g.C + (c % CHUNKS) * PER16
+                         : x,
                        v);
     }
   }
   cp_async_commit();
 }
 
-template <int CC, int SLOTS>
+template <typename T, int CC, int SLOTS>
 __global__ void __launch_bounds__(SLOTS * PAIRS, 1)
-dwconv7x7_hopper_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        const bf16* __restrict__ bias, bf16* __restrict__ out,
+dwconv7x7_hopper_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const T* __restrict__ bias, T* __restrict__ out,
                         const Geo g) {
   constexpr int NT = SLOTS * PAIRS;
   constexpr int NWARPS = NT / 32;
   constexpr int WIN = CC + K - 1;  // input columns of a group's row
+  constexpr bool STAGED = std::is_same_v<T, bf16>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile_px = g.F * g.TH * g.TWH;
-  float* ft = reinterpret_cast<float*>(smem);
-  const unsigned st_addr = (unsigned)__cvta_generic_to_shared(
-      smem + (size_t)tile_px * SLAB * 4);
+  const size_t tile_bytes = (size_t)tile_px * SLAB * 4;  // a float32 tile
+  // bf16: the staging buffer after the tile; float32: the second tile
+  const unsigned st_addr =
+      (unsigned)__cvta_generic_to_shared(smem + tile_bytes);
 
   const int nslab = g.C / SLAB;
   const int c0 = (blockIdx.x % nslab) * SLAB;
@@ -163,22 +182,33 @@ dwconv7x7_hopper_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   float2 wr[K * K];
 #pragma unroll
   for (int t = 0; t < K * K; ++t)
-    wr[t] = vcd::Pair<bf16>::load(w + (size_t)t * g.C + c0 + 2 * p);
-  const float2 bv = vcd::Pair<bf16>::load(bias + c0 + 2 * p);
+    wr[t] = vcd::Pair<T>::load(w + (size_t)t * g.C + c0 + 2 * p);
+  const float2 bv = vcd::Pair<T>::load(bias + c0 + 2 * p);
 
   int item = first;
   if (item >= g.items) return;
-  issue_tile(g, x, st_addr, c0, item, warp, lane, NWARPS);
-  const float2* tile2 = reinterpret_cast<const float2*>(ft);
+  const unsigned smem_addr = (unsigned)__cvta_generic_to_shared(smem);
+  // float32 lands in tile `cur` (0: at smem, 1: at st_addr)
+  int cur = 0;
+  issue_tile(g, x, STAGED ? st_addr : smem_addr, c0, item, warp, lane,
+             NWARPS);
   const int row_stride = g.TWH * PAIRS;  // float2s per tile row
   for (;;) {
     cp_async_wait_all();
     __syncthreads();  // the copies have landed; the last item's FMAs are done
-    convert_tile(smem, tile_px, tid, NT);
-    __syncthreads();  // the tile is float32; the staging buffer is free
     const int next = item + g.bps;
-    if (next < g.items)  // in flight under this item's FMAs
-      issue_tile(g, x, st_addr, c0, next, warp, lane, NWARPS);
+    if constexpr (STAGED) {
+      convert_tile(smem, tile_px, tid, NT);
+      __syncthreads();  // the tile is float32; the staging buffer is free
+      if (next < g.items)  // in flight under this item's FMAs
+        issue_tile(g, x, st_addr, c0, next, warp, lane, NWARPS);
+    } else if (next < g.items) {
+      // into the other tile, which the last item's FMAs have done reading
+      issue_tile(g, x, cur ? smem_addr : st_addr, c0, next, warp, lane,
+                 NWARPS);
+    }
+    const float2* tile2 =
+        reinterpret_cast<const float2*>(smem + (cur ? tile_bytes : 0));
     int n0, h0, w0;
     item_origin(g, item, n0, h0, w0);
     for (int grp = slot; grp < g.groups; grp += SLOTS) {
@@ -238,12 +268,12 @@ dwconv7x7_hopper_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int r = 0; r < R; ++r) {
         const int gy = h0 + r0 + r;
         if (r0 + r >= g.RB || gy >= g.H) continue;
-        bf16* orow = out + ((size_t)n * g.H + gy) * g.W * g.C + c0 + 2 * p;
+        T* orow = out + ((size_t)n * g.H + gy) * g.W * g.C + c0 + 2 * p;
 #pragma unroll
         for (int j = 0; j < CC; ++j) {
           const int gx = w0 + col0 + j;
           if (col0 + j < g.TW && gx < g.W)
-            vcd::Pair<bf16>::store(
+            vcd::Pair<T>::store(
                 orow + (size_t)gx * g.C,
                 make_float2(acc[r][j].x + bv.x, acc[r][j].y + bv.y));
         }
@@ -251,6 +281,7 @@ dwconv7x7_hopper_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
     if (next >= g.items) break;
     item = next;
+    if constexpr (!STAGED) cur ^= 1;
   }
 }
 
@@ -261,8 +292,10 @@ double slot_share(int groups, int slots) {
   return (double)groups / (rounds * slots);
 }
 
-// The item geometry for a shape, and the kernel variant (CC, SLOTS).
-void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
+// The item geometry for a shape, and the kernel variant (CC, SLOTS), for
+// tiles of px_bytes shared bytes a pixel.
+void pick(int N, int H, int W, int C, int px_bytes, Geo& g, int& cc,
+          int& slots) {
   g.N = N;
   g.H = H;
   g.W = W;
@@ -274,7 +307,7 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
   g.nct = (W + g.TW - 1) / g.TW;
   double best = -1.0;
   const int frame_rows = (H + R - 1) / R * R + 2 * PAD;
-  if (H <= 16 && (size_t)frame_rows * g.TWH * PX_BYTES <= SMEM_MAX) {
+  if (H <= 16 && (size_t)frame_rows * g.TWH * px_bytes <= SMEM_MAX) {
     // whole frames, as many as fill the slots and the shared memory
     g.RB = H;
     g.rgroups = (H + R - 1) / R;
@@ -282,7 +315,7 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
     const int per_frame = g.rgroups * g.cgroups;
     int F = per_frame >= 16 ? 1 : 16 / per_frame;
     if (F > N) F = N > 0 ? N : 1;
-    while (F > 1 && (size_t)F * g.TH * g.TWH * PX_BYTES > SMEM_MAX) --F;
+    while (F > 1 && (size_t)F * g.TH * g.TWH * px_bytes > SMEM_MAX) --F;
     g.F = F;
     g.groups = F * per_frame;
     for (int s : {16, 14}) {
@@ -291,12 +324,14 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
     }
   } else {
     // a band of RB rows: the largest band whose groups fill the slots and
-    // whose bands fill the frame, within the shared memory
+    // whose bands fill the frame, within the shared memory (bands of 6 or 4
+    // rows only where none of 8 or more fits: float32 at 64-column tiles)
     g.F = 1;
-    g.RB = 8;
-    for (int rb : {16, 14, 12, 10, 8}) {
+    g.RB = 4;
+    for (int rb : {16, 14, 12, 10, 8, 6, 4}) {
       const int th = rb + 2 * PAD;
-      if ((size_t)th * g.TWH * PX_BYTES > SMEM_MAX) continue;
+      if (rb < 8 && best >= 0.0) break;
+      if ((size_t)th * g.TWH * px_bytes > SMEM_MAX) continue;
       const int groups = (rb / R) * g.cgroups;
       const int bands = (H + rb - 1) / rb;
       for (int s : {16, 14}) {
@@ -317,11 +352,11 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
   g.items = (N + g.F - 1) / g.F * g.nbands * g.nct;
 }
 
-template <int CC, int SLOTS>
-int launch(const bf16* x, const bf16* w, const bf16* b, bf16* out, Geo g,
+template <typename T, int CC, int SLOTS>
+int launch(const T* x, const T* w, const T* b, T* out, Geo g,
            cudaStream_t stream, int* grid_out) {
-  auto kernel = dwconv7x7_hopper_kernel<CC, SLOTS>;
-  const size_t smem = (size_t)g.F * g.TH * g.TWH * PX_BYTES;
+  auto kernel = dwconv7x7_hopper_kernel<T, CC, SLOTS>;
+  const size_t smem = (size_t)g.F * g.TH * g.TWH * PX_BYTES<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -347,56 +382,67 @@ int launch(const bf16* x, const bf16* w, const bf16* b, bf16* out, Geo g,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int dispatch(const void* x, const void* w, const void* b, void* out, int n,
              int H, int W, int C, cudaStream_t stream, int* geo_out) {
   if (n < 0 || H < 1 || W < 1 || C < SLAB || C % SLAB)
     return (int)cudaErrorInvalidValue;
   Geo g;
   int cc = 8, slots = 16;
-  pick(n, H, W, C, g, cc, slots);
+  pick(n, H, W, C, PX_BYTES<T>, g, cc, slots);
   int grid = 0;
   int* grid_out = geo_out != nullptr ? &grid : nullptr;
   if (n > 0 || grid_out != nullptr) {
-    const bf16 *xp = (const bf16*)x, *wp = (const bf16*)w,
-               *bp = (const bf16*)b;
-    bf16* op = (bf16*)out;
+    const T *xp = (const T*)x, *wp = (const T*)w, *bp = (const T*)b;
+    T* op = (T*)out;
     int err;
     if (cc == 7 && slots == 16)
-      err = launch<7, 16>(xp, wp, bp, op, g, stream, grid_out);
+      err = launch<T, 7, 16>(xp, wp, bp, op, g, stream, grid_out);
     else if (cc == 7)
-      err = launch<7, 14>(xp, wp, bp, op, g, stream, grid_out);
+      err = launch<T, 7, 14>(xp, wp, bp, op, g, stream, grid_out);
     else if (slots == 16)
-      err = launch<8, 16>(xp, wp, bp, op, g, stream, grid_out);
+      err = launch<T, 8, 16>(xp, wp, bp, op, g, stream, grid_out);
     else
-      err = launch<8, 14>(xp, wp, bp, op, g, stream, grid_out);
+      err = launch<T, 8, 14>(xp, wp, bp, op, g, stream, grid_out);
     if (err != 0) return err;
   }
   if (geo_out != nullptr) {
-    const int vals[10] = {cc, slots, g.F, g.RB, g.TW, g.groups, g.items,
-                          grid, (int)((size_t)g.F * g.TH * g.TWH * PX_BYTES),
-                          g.nbands};
+    const int vals[10] = {
+        cc, slots, g.F, g.RB, g.TW, g.groups, g.items, grid,
+        (int)((size_t)g.F * g.TH * g.TWH * PX_BYTES<T>), g.nbands};
     for (int i = 0; i < 10; ++i) geo_out[i] = vals[i];
   }
   return 0;
 }
 
-}  // namespace
-
-// x/out bf16 [n, H, W, C], w bf16 [49, C] (tap dy*7 + dx major), b bf16
-// [C], all contiguous; x 16-byte aligned, w, b and out 4-byte aligned; C a
-// multiple of 32.
-extern "C" int vcd_dwconv7x7_hopper(const void* x, const void* w,
-                                    const void* b, void* out, int n, int H,
-                                    int W, int C, void* stream) {
-  return dispatch(x, w, b, out, n, H, W, C, (cudaStream_t)stream, nullptr);
+int dispatch(int dtype, const void* x, const void* w, const void* b,
+             void* out, int n, int H, int W, int C, cudaStream_t stream,
+             int* geo_out) {
+  if (dtype == 0)
+    return dispatch<bf16>(x, w, b, out, n, H, W, C, stream, geo_out);
+  if (dtype == 1)
+    return dispatch<float>(x, w, b, out, n, H, W, C, stream, geo_out);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The launch the kernel would make for a shape, without launching: geo[10]
-// receives CC, thread slots, frames an item, output rows an item, output
-// columns an item, output groups an item, items a slab, grid, dynamic shared
-// bytes, bands a frame.
+}  // namespace
+
+// dtype: 0 = bfloat16, 1 = float32. x/out [n, H, W, C], w [49, C] (tap
+// dy*7 + dx major), b [C], all of that dtype and contiguous; x 16-byte
+// aligned, w, b and out aligned to a channel pair; C a multiple of 32.
+extern "C" int vcd_dwconv7x7_hopper(const void* x, const void* w,
+                                    const void* b, void* out, int n, int H,
+                                    int W, int C, int dtype, void* stream) {
+  return dispatch(dtype, x, w, b, out, n, H, W, C, (cudaStream_t)stream,
+                  nullptr);
+}
+
+// The launch the kernel would make for a shape and dtype, without
+// launching: geo[10] receives CC, thread slots, frames an item, output rows
+// an item, output columns an item, output groups an item, items a slab,
+// grid, dynamic shared bytes, bands a frame.
 extern "C" int vcd_dwconv7x7_hopper_geometry(int n, int H, int W, int C,
-                                             int* geo) {
-  return dispatch(nullptr, nullptr, nullptr, nullptr, n, H, W, C, nullptr,
-                  geo);
+                                             int dtype, int* geo) {
+  return dispatch(dtype, nullptr, nullptr, nullptr, nullptr, n, H, W, C,
+                  nullptr, geo);
 }

@@ -6,19 +6,23 @@ Replaces the TPU kernels of ``vision_collision_detection_tpu/ops/dwconv_pallas.p
 gradient ``_run_wgrad`` (``_wgrad_kernel``), wired into ``jax.custom_vjp``
 there and into the ``torch.autograd.Function`` ``_DwConv7x7`` here.
 
-- The forward has two kernels, chosen by ``route``: for bf16 activations
-  with C a multiple of 32 (every ConvNeXt width)
+- The forward has two kernels, chosen by ``route``: for bf16 or float32
+  activations with C a multiple of 32 (every ConvNeXt width)
   ``ops/csrc/dwconv_hopper.cu``, a CUDA-core stencil (a persistent grid of
-  32-channel slabs, bands staged by cp.async and converted to float32
-  once, 2×7 or 2×8 outputs a thread); for float32 and other widths
-  ``ops/csrc/dwconv.cu`` (16×8 output tiles). Both mask the 3-pixel halo
-  while loading instead of padding the input in device memory. The bound
-  on the H100 is operations: each of the flagship forward's 18 launches
-  reads x and writes y once (≈ 1.7 GB over the 18 at B=8, ≈ 0.51 ms at
-  3.35 TB/s), but its 98 float32 flops per output (≈ 42 GFLOP over the 18)
-  take ≈ 0.63 ms on the CUDA cores at 67 TFLOP/s.
+  32-channel slabs, bands copied by cp.async while the last band's FMAs
+  run: bf16 staged and converted to float32 once, float32 into two
+  alternating tiles; 2×7 or 2×8 outputs a thread); for other widths
+  ``ops/csrc/dwconv.cu`` (16×8 output tiles), which stays as the card's
+  yardstick. Both mask the 3-pixel halo while loading instead of padding
+  the input in device memory, and both sum the taps in the same order, so
+  on float32 they agree bit for bit. The bound on the H100 in bf16 is
+  operations: each of the flagship forward's 18 launches reads x and
+  writes y once (≈ 1.7 GB over the 18 at B=8, ≈ 0.51 ms at 3.35 TB/s), but
+  its 98 float32 flops per output (≈ 42 GFLOP over the 18) take ≈ 0.63 ms
+  on the CUDA cores at 67 TFLOP/s. In float32 the bytes double and bound
+  it (≈ 1.0 ms over the 18).
 - The weight gradient has two kernels, chosen by ``wgrad_route`` (the
-  same rule): for bf16 x and g with C a multiple of 32
+  forward's rule for bf16 only): for bf16 x and g with C a multiple of 32
   ``ops/csrc/dwconv_wgrad_hopper.cu``, the dual of the forward's stencil (a
   persistent grid of 32-channel slabs, each thread's 49 float32 sums of a
   channel pair in registers, bf16 bands in a two-deep cp.async ring,
@@ -82,10 +86,9 @@ def dwconv7x7_plain(x: torch.Tensor, w: torch.Tensor,
 
 def route(dtype: torch.dtype, C: int) -> str:
     """Which forward kernel a CUDA call takes: ``"hopper"``
-    (``dwconv_hopper.cu``) for bf16 activations with C a multiple of
-    ``HOPPER_SLAB``, else ``"tile"`` (``dwconv.cu``)."""
-    return ("hopper" if dtype == torch.bfloat16 and C % HOPPER_SLAB == 0
-            else "tile")
+    (``dwconv_hopper.cu``) for bf16 or float32 activations with C a
+    multiple of ``HOPPER_SLAB``, else ``"tile"`` (``dwconv.cu``)."""
+    return "hopper" if C % HOPPER_SLAB == 0 else "tile"
 
 
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
@@ -107,7 +110,7 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
         _build.require_cuda(x, "x", align=16)
         err = _build.lib().vcd_dwconv7x7_hopper(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            N, H, W, C, stream)
+            N, H, W, C, _DTYPE_CODE[x.dtype], stream)
         _build.check(err, "vcd_dwconv7x7_hopper")
         dwconv7x7.hopper_launches += 1
     else:
@@ -119,14 +122,15 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def hopper_geometry(N: int, H: int, W: int, C: int) -> dict:
-    """The launch ``dwconv_hopper.cu`` makes for an [N, H, W, C] input, read
-    from the library without launching (needs the card)."""
+def hopper_geometry(N: int, H: int, W: int, C: int,
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch ``dwconv_hopper.cu`` makes for an [N, H, W, C] input of
+    ``dtype``, read from the library without launching (needs the card)."""
     import ctypes
 
     geo = (ctypes.c_int * 10)()
-    _build.check(_build.lib().vcd_dwconv7x7_hopper_geometry(N, H, W, C, geo),
-                 "vcd_dwconv7x7_hopper_geometry")
+    _build.check(_build.lib().vcd_dwconv7x7_hopper_geometry(
+        N, H, W, C, _DTYPE_CODE[dtype], geo), "vcd_dwconv7x7_hopper_geometry")
     keys = ("columns_per_thread", "slots", "frames", "rows", "cols",
             "groups", "items_per_slab", "grid", "smem_bytes", "bands")
     return dict(zip(keys, list(geo)))
