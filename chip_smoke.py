@@ -32,17 +32,18 @@ failure:
    same way at 100, 2,000 and 9,800 rows, two calls bit-equal, and each of
    its three launches against its own plain stage. K3 on float32
    activations at 96 to 768 takes the wgmma kernel too: held the same way
-   at each of those widths, at 100 and 2,000 rows. Then what stays on the mma.sync
-   kernel, off the main paths (K3 in bf16 at 1024 and 1536 and on float32
-   at 96, the route forced; on float32 at 1024 and 1536, its route), at
-   2,000 rows, and K2 on float32 on the Hopper kernel, bit-equal to
-   ``dwconv.cu``; the launch counters show which kernel each call took.
+   at each of those widths, at 100 and 2,000 rows. Then the mma.sync
+   kernel, off the main paths, the route forced (K3 in bf16 at 1024 and
+   1536 and on float32 at 96, 1024 and 1536: the yardsticks the Hopper
+   kernels are timed beside), at 2,000 rows, and K2 on float32 on the
+   Hopper kernel, bit-equal to ``dwconv.cu``; the launch counters show
+   which kernel each call took.
    Then the training path's kernels at the same shapes: K2 wgrad on its
    Hopper kernel (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
    (the route forced) against its plain version relative to Σ|x·g| and
    bit-equal over two runs (flipped or transposed taps must land outside),
-   the Hopper kernel again at the odd shapes and ``dwconv_wgrad.cu`` on
-   float32 inputs, K2 dx (the
+   the Hopper kernel again at the odd shapes and on float32 inputs, K2 dx
+   (the
    routed forward kernel on flipped taps, through the autograd Function) against
    autograd through the plain conv, and K3 train (out bit-equal to the
    eval kernel's; t, h_pre and m by K3's rule, with m saved without b2
@@ -295,6 +296,26 @@ failure:
     their faults, and timed beside their bounds (the split kernel also
     beside ``convnext_mlp.cu`` on the same inputs, the stock chain and
     its plain version).
+25. Float32 training. K2 wgrad on float32 at the four stage shapes on its
+    Hopper route (``dwconv_wgrad_hopper.cu``) and on ``dwconv_wgrad.cu``
+    (the route forced), relative to Σ|x·g| and bit-equal twice, flipped
+    and swapped taps outside, then at an odd shape and a width of 40
+    (``dwconv_wgrad.cu``, its route); K3 on float32 at [9800, 1024] and
+    [9800, 1536] on the split kernel's float32 route, eval and train, both
+    GELU forms, with K3's faults, twice bit-equal and stage by stage; each
+    timed in turns with the kernel it replaces on the same inputs, beside
+    its plain version and cuDNN's float32 ``convolution_backward`` (wgrad)
+    or the stock float32 chain (K3). Then the flagship with only
+    ``model.dtype="float32"`` at default switches: one step (K2 36 and K2
+    wgrad 18 on the float32 Hopper routes, no K3: a float32 block's
+    default is the stock MLP) against the plain step (TRAIN_TOL), where a
+    dropped K2 db and K2's dw off by 1% must land outside; the step timed
+    in turns with the bf16 flagship's, peak memory. Then ConvNeXt base and
+    large in float32 built with ``fused_mlp=True``: one step (K2 72, K2
+    wgrad 36, K3 train 36: 33 on the wgmma kernel's float32 route, 3 on
+    the split kernel's) against the plain step (1% dγ, a dropped K2 db,
+    1% dw outside) and the serving forward (K1 1, K2 36, K3 36, 3 split)
+    against plain versions, each timed with peak memory.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -308,6 +329,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -419,9 +441,17 @@ def main() -> int:
     report["build_s"] = time.time() - t0
     log(f"[build] {lib_path} in {report['build_s']:.1f} s")
     for logf in sorted(lib_path.parent.glob("*.log")):
+        function = None
         for line in logf.read_text().splitlines():
+            if "Function properties for" in line:
+                function = line.split("Function properties for")[-1].strip()
             if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"[ptxas {logf.stem}] {line.strip()}")
+            # which function spills: the line before names it
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and spill.groups() != ("0", "0"):
+                log(f"[ptxas {logf.stem}] spills in {function}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -532,12 +562,19 @@ def main() -> int:
     report["big_convnext"] = big
     launches.update(big["launches"])
     log(f"[phase 24] {big['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    f32_train = f32_training_phase(torch, dev)
+    report["f32_training"] = f32_train
+    launches.update(f32_train["launches"])
+    log(f"[phase 25] {f32_train['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
-        + ref["compare_rows"] + big["compare_rows"], launches,
+        + ref["compare_rows"] + big["compare_rows"]
+        + f32_train["compare_rows"], launches,
         report["timing"] + ref["kernel_timing"] + [
-            r for r in big["timing"] if r["kernel"].endswith("(wide)")])
+            r for r in big["timing"] if r["kernel"].endswith("(wide)")]
+        + f32_train["timing"])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -642,30 +679,34 @@ K3_FAULTS = {
 def k3_entries(torch, C, dtype):
     """The kernels-line entries (eval, train) of K3 at width C on ``dtype``
     activations, by the kernel ``convnext_mlp.route`` sends it to: the
-    Hopper kernel's (its float32 route has entries of its own), the split
-    kernel's, or the mma.sync kernel's, whose float32 eval is ``K3 (f32)``
-    and which has no other entry (it is off the main paths)."""
+    Hopper kernel's and the split kernel's (their float32 routes have
+    entries of their own), or the mma.sync kernel's, whose float32 eval is
+    ``K3 (f32)`` and which has no other entry (it is off the main
+    paths)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
     f32 = dtype == torch.float32
     return {"wgmma": (("K3 (wgmma f32)", "K3 train (wgmma f32)") if f32
                       else ("K3", "K3 train")),
-            "wide": ("K3 (wide)", "K3 train (wide)")}.get(
+            "wide": (("K3 (wide f32)", "K3 train (wide f32)") if f32
+                     else ("K3 (wide)", "K3 train (wide)"))}.get(
         k3.route(dtype, C),
         ("K3 (f32)" if f32 else "K3 (mma.sync)", "K3 train (mma.sync)"))
 
 
-def check_k3_wide(torch, dev, g, C, M, record, failed):
-    """The split kernel at [M, C] bf16 beyond ``check_k3_small``: two calls
-    of each variant bit-equal, and each of its three launches
-    (``ln_stage``, ``up_stage``, ``down_stage``) against its own plain
-    version on the plain version's inputs, by K3's rule (m against the
-    plain m rounded to bf16, as the kernel saves it)."""
+def check_k3_wide(torch, dev, g, C, M, record, failed, dtype=None):
+    """The split kernel at [M, C] in ``dtype`` (default bf16) beyond
+    ``check_k3_small``: two calls of each variant bit-equal, and each of
+    its three launches (``ln_stage``, ``up_stage``, ``down_stage``) against
+    its own plain version on the plain version's inputs, by K3's rule (m
+    against the plain m rounded to bf16, as the kernel saves it)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
-    xs = torch.randn(M, C, generator=g, device=g.device).to(dev,
-                                                            torch.bfloat16)
-    y = torch.randn(M, C, generator=g, device=g.device).to(dev, torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    eval_entry, train_entry = k3_entries(torch, C, dtype)
+    tag = "" if dtype == torch.bfloat16 else f" {str(dtype)[6:]}"
+    xs = torch.randn(M, C, generator=g, device=g.device).to(dev, dtype)
+    y = torch.randn(M, C, generator=g, device=g.device).to(dev, dtype)
     p = k3_params(torch, C, g, dev)
     with torch.no_grad():
         a, b = (k3.convnext_mlp(xs, y, approximate=False, **p)
@@ -673,11 +714,11 @@ def check_k3_wide(torch, dev, g, C, M, record, failed):
     ta, tb = (k3.convnext_mlp_train(xs, y, approximate=False, **p)
               for _ in range(2))
     torch.cuda.synchronize()
-    record(f"K3 wide twice width {C} (bit-equal)", [M, C],
-           max_err(torch, a, b), 0.0, entry="K3 (wide)")
-    record(f"K3 wide train twice width {C} (bit-equal)", [M, C],
+    record(f"K3 wide twice width {C}{tag} (bit-equal)", [M, C],
+           max_err(torch, a, b), 0.0, entry=eval_entry)
+    record(f"K3 wide train twice width {C}{tag} (bit-equal)", [M, C],
            max(max_err(torch, u, v) for u, v in zip(ta, tb)), 0.0,
-           entry="K3 train (wide)")
+           entry=train_entry)
     del a, b, ta, tb
     t_ref = k3.ln_stage_plain(y, p["ln_w"], p["ln_b"])
     hp_ref, h_ref = k3.up_stage_plain(t_ref, p["w1"], p["b1"], False)
@@ -692,11 +733,14 @@ def check_k3_wide(torch, dev, g, C, M, record, failed):
     refs = {"ln t": t_ref, "up h_pre": hp_ref, "up h": h_ref,
             "down out": out_ref, "down m": m_ref.to(torch.bfloat16)}
     for name, r in refs.items():
-        record(f"K3 wide stage {name} width {C}", [M, C],
+        if got[name].dtype != r.dtype:
+            failed.append(f"K3 wide stage {name} width {C}{tag} wrote "
+                          f"{got[name].dtype}, its plain version {r.dtype}")
+        record(f"K3 wide stage {name} width {C}{tag}", [M, C],
                max_err(torch, got[name], r),
                float(r.float().abs().max()) * 2 ** -6,
                mean_err(torch, got[name], r),
-               float(r.float().abs().mean()) * 2 ** -12, entry="K3 (wide)")
+               float(r.float().abs().mean()) * 2 ** -12, entry=eval_entry)
 
 
 def check_k3_small(torch, dev, g, C, M, record, faults, failed,
@@ -998,20 +1042,18 @@ def compare_kernels(torch, dev):
     k3_routed = (k3.convnext_mlp.wgmma_launches,
                  k3.convnext_mlp.wide_launches)
     # The other compiled variants, off the main paths, on the mma.sync
-    # kernel (``convnext_mlp.cu``): K3 in bf16 at 1024 and 1536 and on
-    # float32 at 96 with the route forced (the yardsticks phases 17 and 24
-    # time beside the Hopper kernels), and on float32 at 1024 and 1536
-    # (its route). A row count that is no multiple of any block's rows
-    # exercises the tail.
+    # kernel (``convnext_mlp.cu``), the route forced: K3 in bf16 at 1024
+    # and 1536 and on float32 at 96, 1024 and 1536 (the yardsticks phases
+    # 17, 24 and 25 time beside the Hopper kernels; float32 at 1024 and
+    # 1536 was its route before the split kernel took it). A row count
+    # that is no multiple of any block's rows exercises the tail.
     rows_off = 2000
     with swapped((k3, "route", lambda dtype, C_: "mma")):
         for C in k3.WIDE_DIMS:
             check_k3_small(torch, dev, g, C, rows_off, record, faults, failed)
-        check_k3_small(torch, dev, g, 96, rows_off, record, faults, failed,
-                       torch.float32)
-    for C in k3.WIDE_DIMS:
-        check_k3_small(torch, dev, g, C, rows_off, record, faults, failed,
-                       torch.float32)
+        for C in (96,) + k3.WIDE_DIMS:
+            check_k3_small(torch, dev, g, C, rows_off, record, faults,
+                           failed, torch.float32)
     # K2 on float32 on the Hopper kernel, bit-equal to dwconv.cu (the
     # route forced), at a frame of 56² (phase 17 holds the stage shapes)
     x = torch.randn(8, 56, 56, 96, generator=g).to(dev)
@@ -1044,8 +1086,9 @@ def compare_train_kernels(torch, dev, inputs):
     through the autograd Function, against autograd through the plain
     conv) and K3 train (out bit-equal to the eval kernel; t, h_pre, m held
     by K3's rule). Faulty plain versions must land outside each tolerance.
-    Then the Hopper wgrad kernel at the odd shapes and ``dwconv_wgrad.cu``
-    on float32 inputs."""
+    Then the Hopper wgrad kernel at the odd shapes and on float32 inputs
+    (``f32_train_kernels`` holds its float32 route at the stage
+    shapes)."""
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
 
@@ -1105,8 +1148,7 @@ def compare_train_kernels(torch, dev, inputs):
             fault_seen(faults, failed, f"K3 train {fault}", shape,
                        err > tols[name][0] or mean > tols[name][1],
                        max_abs_err=err, mean_abs_err=mean)
-    # the Hopper wgrad kernel at the odd shapes, and dwconv_wgrad.cu on
-    # float32 inputs (its route on the card)
+    # the Hopper wgrad kernel at the odd shapes, and on float32 inputs
     for shape in K2_ODD_SHAPES:
         x, _, _ = k2_inputs(torch, dev, g, shape)
         gy = torch.randn(shape, generator=g).to(dev, torch.bfloat16)
@@ -1123,12 +1165,13 @@ def compare_train_kernels(torch, dev, inputs):
 
 def k2_wgrad_entry(torch, x):
     """The kernels-line entry of the wgrad kernel ``dwconv.wgrad_route``
-    picks."""
+    picks (its Hopper kernel's float32 route has one of its own)."""
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
 
-    return ("K2 wgrad (hopper)"
-            if k2.wgrad_route(x.dtype, x.shape[-1]) == "hopper"
-            else "K2 wgrad")
+    if k2.wgrad_route(x.dtype, x.shape[-1]) != "hopper":
+        return "K2 wgrad"
+    return ("K2 wgrad (hopper f32)" if x.dtype == torch.float32
+            else "K2 wgrad (hopper)")
 
 
 def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
@@ -1141,7 +1184,8 @@ def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
 
     shape, C = list(x.shape), x.shape[-1]
     entry = k2_wgrad_entry(torch, x)
-    tag = entry + (" float32" if x.dtype == torch.float32 else "")
+    tag = entry + (" float32" if entry == "K2 wgrad"
+                   and x.dtype == torch.float32 else "")
     before = k2.dwconv7x7_wgrad.hopper_launches
     got = k2.dwconv7x7_wgrad(x, gy)
     again = k2.dwconv7x7_wgrad(x, gy)
@@ -1446,14 +1490,17 @@ def redraw_weights(torch, model, g):
 
 
 def block_launches(torch, model):
-    """(ConvNeXt blocks in ``model``, of them on K3's split kernel in
-    bf16): one K2 and one K3 launch a block in a forward."""
+    """(ConvNeXt blocks in ``model``, of them on K3, of those on K3's split
+    kernel) by each block's switch and compute dtype: one K2 launch a block
+    in a forward, one K3 launch a block that takes K3."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.models.backbones import convnext
 
-    dims = [m.dim for m in model.modules()
-            if isinstance(m, convnext.ConvNeXtBlock)]
-    return len(dims), sum(
-        k3_entries(torch, C, torch.bfloat16)[0] == "K3 (wide)" for C in dims)
+    blocks = [m for m in model.modules()
+              if isinstance(m, convnext.ConvNeXtBlock)]
+    fused = [m for m in blocks if m.use_fused_mlp]
+    return len(blocks), len(fused), sum(
+        k3.route(m.dtype, m.dim) == "wide" for m in fused)
 
 
 def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
@@ -1502,9 +1549,11 @@ def serving_forward(torch, dev, size=S, content=CONTENT, tag="serve",
     probs = forward(frames_dev)
     torch.cuda.synchronize()
     log(f"[{tag}] probs {probs.tolist()}")
-    blocks, on_wide = block_launches(torch, pred.model)
-    launches = expect_launches(tag, counters, wide={"K3": on_wide}, K1=1,
-                               K2=blocks, K3=blocks)
+    blocks, fused, on_wide = block_launches(torch, pred.model)
+    launches = expect_launches(tag, counters,
+                               f32=cfg.model.dtype == "float32",
+                               wide={"K3": on_wide}, K1=1, K2=blocks,
+                               K3=fused)
     if tuple(probs.shape) != (8, 3) or not bool(torch.isfinite(probs).all()):
         raise SystemExit(f"bad probabilities {probs}")
     row_err = float((probs.sum(-1) - 1).abs().max())
@@ -1613,9 +1662,10 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
     ``K2 wgrad (hopper)``, K3's into ``K3`` (``convnext_mlp_wgmma.cu``),
     ``K3 (wide)`` (``convnext_mlp_wide.cu``) and ``K3 (mma.sync)``
     (``convnext_mlp.cu``), K3 train's likewise; with ``f32`` (a float32
-    path) the Hopper launches of K2 and K3 count as ``K2 (hopper f32)``,
-    ``K3 (wgmma f32)`` and ``K3 train (wgmma f32)``, and ``convnext_mlp.cu``'s
-    as ``K3 (f32)``."""
+    path) the Hopper launches of K2, K2 wgrad and K3 count as ``K2 (hopper
+    f32)``, ``K2 wgrad (hopper f32)``, ``K3 (wgmma f32)``, ``K3 train
+    (wgmma f32)``, ``K3 (wide f32)`` and ``K3 train (wide f32)``, and
+    ``convnext_mlp.cu``'s as ``K3 (f32)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1640,7 +1690,7 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
     tag32 = " f32" if f32 else ""
     for k, hopper_entry, other in (
             ("K2", "K2 (hopper" + tag32 + ")", "K2"),
-            ("K2 wgrad", "K2 wgrad (hopper)", "K2 wgrad"),
+            ("K2 wgrad", "K2 wgrad (hopper" + tag32 + ")", "K2 wgrad"),
             ("K3", "K3 (wgmma f32)" if f32 else "K3",
              "K3 (f32)" if f32 else "K3 (mma.sync)"),
             ("K3 train", "K3 train (wgmma f32)" if f32 else "K3 train",
@@ -1650,7 +1700,7 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
         by_entry[hopper_entry] = on_hopper[k] - split
         by_entry[other] = launches[k] - on_hopper[k]
         if k in on_wide:
-            by_entry[f"{k} (wide)"] = split
+            by_entry[f"{k} (wide{tag32})"] = split
     return by_entry
 
 
@@ -1694,25 +1744,40 @@ def rel_grad_errs(torch, got, ref, floor=0.0):
     return {n: float((got[n] - ref[n]).norm()) / scale(n) for n in ref}
 
 
-def training_step(torch, dev, cfg=None, tag="train", fall=True):
+def training_step(torch, dev, cfg=None, tag="train", fall=True,
+                  fused_mlp=None):
     """One optimizer step of the flagship (or of ``cfg``) through the
-    port's entry points (``create_train_state``, ``make_train_step``) on a
-    seeded uint8 batch [8, 50, 126, 224, 3]: launch counts, finite loss, a
-    finite gradient for every parameter and a nonzero one for every block
+    port's entry points (``create_train_state``, ``make_train_step``; with
+    ``fused_mlp`` given, ``build_model(..., fused_mlp=fused_mlp)`` and
+    ``build_optimizer`` as ``create_train_state`` calls them) on a seeded
+    uint8 batch [8, 50, 126, 224, 3]: launch counts, finite loss, a finite
+    gradient for every parameter and a nonzero one for every block
     parameter; the same step with every kernel swapped for its plain
-    version; faults in the backward that the comparison must see; with
-    ``fall``, the loss falling over TRAIN_FALL_STEPS steps on a fixed
-    batch with augmentation off."""
+    version; faults in the backward that the comparison must see (γ's
+    gradient off by 1% where blocks take K3, a dropped K2 db, and on a
+    float32 model K2's dw off by 1%); with ``fall``, the loss falling over
+    TRAIN_FALL_STEPS steps on a fixed batch with augmentation off."""
     from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.models import build_model
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
     from vision_collision_detection_tpu_torch.train import (
-        create_train_state, make_train_step)
+        TrainState, build_optimizer, create_train_state, make_train_step)
 
     cfg = cfg or ExperimentConfig()
+    f32 = cfg.model.dtype == "float32"
     B, T = cfg.data.batch_size, cfg.data.num_frames
-    model, state = create_train_state(cfg, torch.Generator().manual_seed(3),
-                                      steps_per_epoch=STEPS_PER_EPOCH)
+    if fused_mlp is None:
+        model, state = create_train_state(
+            cfg, torch.Generator().manual_seed(3),
+            steps_per_epoch=STEPS_PER_EPOCH)
+    else:
+        model = build_model(cfg.model, fused_mlp=fused_mlp,
+                            generator=torch.Generator().manual_seed(3),
+                            frame_size=cfg.data.frame_size)
+        state = TrainState(*build_optimizer(cfg.optim, model.parameters(),
+                                            STEPS_PER_EPOCH),
+                           float(cfg.optim.grad_clip_norm))
     step = make_train_step(model, cfg)
     g = torch.Generator().manual_seed(4)
     frames = torch.randint(0, 256, (B, T, *CONTENT, 3), generator=g,
@@ -1739,10 +1804,11 @@ def training_step(torch, dev, cfg=None, tag="train", fall=True):
     metrics, grads = run(TRAIN_SEED)
     first_s = time.perf_counter() - t0
     log(f"[{tag}] first step {first_s:.2f} s, metrics {metrics}")
-    blocks, on_wide = block_launches(torch, model)
-    launches = expect_launches(tag, counters, wide={"K3 train": on_wide},
+    blocks, fused, on_wide = block_launches(torch, model)
+    launches = expect_launches(tag, counters, f32=f32,
+                               wide={"K3 train": on_wide},
                                K2=2 * blocks, K2_wgrad=blocks,
-                               K3_train=blocks)
+                               K3_train=fused)
     if not math.isfinite(metrics["loss"]):
         raise SystemExit(f"non-finite loss {metrics}")
     bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
@@ -1779,16 +1845,21 @@ def training_step(torch, dev, cfg=None, tag="train", fall=True):
 
     def dw_bwd_no_db(ctx, gy):
         dx, dw, db = dw_bwd(ctx, gy)
-        return dx, dw, torch.zeros_like(db)
+        return dx, dw * 1.01 if f32 else dw, torch.zeros_like(db)
 
     with swapped(*plain, (k3, "convnext_mlp_bwd", bwd_gamma_off),
                  (k2._DwConv7x7, "backward", staticmethod(dw_bwd_no_db))):
         _, fault_grads = run(TRAIN_SEED)
     ferrs = rel_grad_errs(torch, fault_grads, grads)
-    power = {"dgamma_1pct": min(e for n, e in ferrs.items()
-                                if n.endswith(".gamma")),
-             "k2_db_dropped": min(e for n, e in ferrs.items()
-                                  if n.endswith(".dwconv.bias"))}
+
+    def least(suffix):
+        return min(e for n, e in ferrs.items() if n.endswith(suffix))
+
+    power = {"k2_db_dropped": least(".dwconv.bias")}
+    if fused:  # the γ of a block that takes K3 gets its gradient there
+        power["dgamma_1pct"] = least(".gamma")
+    if f32:
+        power["k2_dw_1pct"] = least(".dwconv.weight")
     log(f"[{tag}] faults, least relative gradient error over the affected "
         f"parameters: {power} (must exceed tol {TRAIN_TOL:.0e})")
     if not all(v > TRAIN_TOL for v in power.values()):
@@ -4229,9 +4300,11 @@ def check_k3_f32(torch, xs, y, p, record, faults, failed):
         failed.append(f"K3 float32 {shape} did not take the Hopper kernel")
 
 
-def time_k3_f32(torch, xs, y, p):
-    """One stage's timing rows of K3 on float32 (erf GELU): ``K3 (wgmma
-    f32)`` and ``K3 train (wgmma f32)``, each in turns with
+def time_k3_f32(torch, xs, y, p, entries=("K3 (wgmma f32)",
+                                           "K3 train (wgmma f32)")):
+    """One stage's timing rows of K3 on float32 (erf GELU): ``entries``
+    (default ``K3 (wgmma f32)`` and ``K3 train (wgmma f32)``), each in turns
+    with
     ``convnext_mlp.cu`` on the same inputs (the route forced; that eval is
     also the row of ``K3 (f32)``), beside the plain versions, the stock
     float32 LN→Linear→GELU→Linear chain and the bounds: x, y read and out
@@ -4269,21 +4342,22 @@ def time_k3_f32(torch, xs, y, p):
     plain = median_ms(torch, call(k3.convnext_mlp_plain))
     plain_t = median_ms(torch, call(k3.convnext_mlp_train_plain))
     common = {"shape": list(xs.shape), "library_ms": None}
-    return [{"kernel": "K3 (wgmma f32)", "ms": new_ms, "mma_sync_ms": old_ms,
+    return [{"kernel": entries[0], "ms": new_ms, "mma_sync_ms": old_ms,
              "plain_ms": plain, "stock_chain_ms": stock_ms, "bound_ms": kb,
              "bound_by": kby, **common},
             {"kernel": "K3 (f32)", "ms": old_ms, "plain_ms": plain,
              "stock_chain_ms": stock_ms, "bound_ms": kb, "bound_by": kby,
              **common},
-            {"kernel": "K3 train (wgmma f32)", "ms": new_t,
+            {"kernel": entries[1], "ms": new_t,
              "mma_sync_ms": old_t, "plain_ms": plain_t, "bound_ms": kb_t,
              "bound_by": kby_t, **common}]
 
 
 def log_f32_timing(timing):
     for r in timing:
-        extra = {k: r[k] for k in ("dwconv_cu_ms", "mma_sync_ms",
-                                   "stock_chain_ms") if k in r}
+        extra = {k: r[k] for k in ("dwconv_cu_ms", "dwconv_wgrad_cu_ms",
+                                   "mma_sync_ms", "stock_chain_ms")
+                 if k in r}
         log(f"[time f32] {r['kernel']} {r['shape']} "
             f"x{r.get('per_forward', 1)}: {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']}; plain "
@@ -4322,6 +4396,127 @@ def f32_kernels(torch, dev):
     log_f32_timing(timing)
     if failed:
         raise SystemExit(f"float32 kernels disagree: {failed}")
+    return rows, faults, timing
+
+
+# ---- 25. float32 training: the kernels -------------------------------------
+
+# K2 wgrad on float32 beyond the stages: an odd shape on the Hopper route,
+# and a width of 40 (no multiple of 32), which stays on dwconv_wgrad.cu.
+K2_WGRAD_F32_ODD = ((64, 10, 6, 96), (64, 14, 14, 40))
+F32_K3_ROWS = N_FRAMES * 7 * 7    # ConvNeXt base's and large's last stage
+
+
+def time_k2_wgrad_f32(torch, x, gy):
+    """One stage's timing row of K2 wgrad on float32: ``K2 wgrad (hopper
+    f32)`` in turns with ``dwconv_wgrad.cu`` on the same inputs (the route
+    forced, ``dwconv_wgrad_cu_ms``), beside the plain version, cuDNN's
+    float32 depthwise weight and bias gradient (``convolution_backward``
+    on channels_last views, TF32 off) and the bound: x and g read once in
+    float32, dw written, 98 flops per element (bytes)."""
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    C, n = x.shape[-1], x.numel()
+
+    def old_call():
+        with swapped((k2, "wgrad_route", lambda dtype, C_: "tile")):
+            return k2.dwconv7x7_wgrad(x, gy)
+
+    new_ms, old_ms = in_turns_ms(torch, lambda: k2.dwconv7x7_wgrad(x, gy),
+                                 old_call)
+    x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+    w_cudnn = torch.zeros(C, 1, 7, 7, dtype=x.dtype, device=x.device)
+    bound, by = bound_ms(2 * n * 4 + 49 * C * 4, 98 * n, F32_FLOPS)
+    return {"kernel": "K2 wgrad (hopper f32)", "shape": list(x.shape),
+            "ms": new_ms, "dwconv_wgrad_cu_ms": old_ms,
+            "plain_ms": median_ms(torch, lambda: k2.dwconv7x7_wgrad_plain(
+                x, gy), warmup=1, iters=3),
+            "library_ms": median_ms(
+                torch, lambda: torch.ops.aten.convolution_backward(
+                    gy_cl, x_cl, w_cudnn, [C], [1, 1], [3, 3], [1, 1], False,
+                    [0, 0], C, [False, True, True])),
+            "bound_ms": bound, "bound_by": by}
+
+
+def time_k3_wide_f32(torch, xs, y, p):
+    """The timing rows of K3 on float32 at a split-kernel width (erf GELU):
+    ``K3 (wide f32)`` and ``K3 train (wide f32)``, each in turns with
+    ``convnext_mlp.cu`` on the same inputs (the route forced,
+    ``mma_sync_ms``), beside the plain versions, the stock float32
+    LN→Linear→GELU→Linear chain and the bounds (x, y read and out written
+    in float32, the train variant also t and m in bf16 and h_pre in bf16
+    at 4C, W1 and W2 in bf16 once; the products on bf16 operands at the
+    bf16 peak: operations)."""
+    rows = time_k3_f32(torch, xs, y, p, entries=("K3 (wide f32)",
+                                                 "K3 train (wide f32)"))
+    return [r for r in rows if r["kernel"] != "K3 (f32)"]
+
+
+def f32_train_kernels(torch, dev):
+    """Phase 25's kernel checks, the float32 routes a float32 model's
+    training step and ConvNeXt base's and large's float32 forward take. K2
+    wgrad on float32 at the four stage shapes on its Hopper route and on
+    ``dwconv_wgrad.cu`` (the route forced), each against its plain version
+    relative to Σ|x·g| and bit-equal over two runs, with flipped and
+    swapped taps outside, each stage timed (``time_k2_wgrad_f32``); then
+    an odd shape and a width of 40 (``dwconv_wgrad.cu``, its route). K3 on
+    float32 at [9800, 1024] and [9800, 1536] on the split kernel: eval and
+    train by K3's rule with its faults (``check_k3_small``), twice
+    bit-equal and stage by stage (``check_k3_wide``), timed
+    (``time_k3_wide_f32``; ``convnext_mlp.cu`` on the same inputs is held
+    in phase 2 with the route forced). → (rows, faults, timing)."""
+    from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
+    from vision_collision_detection_tpu_torch.ops import dwconv as k2
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    rows, faults, failed = [], [], []
+    record = recorder(rows, failed)
+    timing = []
+    for H, C, blocks in STAGES:
+        shape = (N_FRAMES, H, H, C)
+        x = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(shape, generator=g, device=dev)
+        log(f"[f32 wgrad] {list(shape)}: geometry "
+            f"{k2.wgrad_hopper_geometry(*shape, dtype=torch.float32)}")
+        check_k2_wgrad(torch, x, gy, record, failed, faults)
+        with swapped((k2, "wgrad_route", lambda dtype, C_: "tile")):
+            check_k2_wgrad(torch, x, gy, record, failed)
+        timing.append(dict(time_k2_wgrad_f32(torch, x, gy),
+                           per_forward=blocks))
+        del x, gy
+    for shape in K2_WGRAD_F32_ODD:
+        x = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(shape, generator=g, device=dev)
+        check_k2_wgrad(torch, x, gy, record, failed, faults)
+        del x, gy
+    for C in k3.WIDE_DIMS:
+        before = (k3.convnext_mlp.wide_launches,
+                  k3.convnext_mlp_train.wide_launches)
+        check_k3_small(torch, dev, g, C, F32_K3_ROWS, record, faults, failed,
+                       torch.float32)
+        check_k3_wide(torch, dev, g, C, F32_K3_ROWS, record, failed,
+                      torch.float32)
+        # check_k3_small's two GELU forms and check_k3_wide's two calls of
+        # each variant
+        rise = (k3.convnext_mlp.wide_launches - before[0],
+                k3.convnext_mlp_train.wide_launches - before[1])
+        if rise != (4, 4):
+            failed.append(f"K3 float32 at {C} did not take the split kernel: "
+                          f"{rise} launches on it, expected (4, 4)")
+        xs = torch.randn(F32_K3_ROWS, C, generator=g, device=dev)
+        y = torch.randn(F32_K3_ROWS, C, generator=g, device=dev)
+        p = k3_params(torch, C, g, dev)
+        # W1 and W2 as a block hands them over: transposed views of
+        # nn.Linear's float32 storage
+        p.update(w1=p["w1"].t().contiguous().t(),
+                 w2=p["w2"].t().contiguous().t())
+        timing += [dict(r, per_forward=3)
+                   for r in time_k3_wide_f32(torch, xs, y, p)]
+        del xs, y, p
+        torch.cuda.empty_cache()
+    log_f32_timing(timing)
+    if failed:
+        raise SystemExit(f"float32 training kernels disagree: {failed}")
     return rows, faults, timing
 
 
@@ -6129,6 +6324,105 @@ def big_convnext_phase(torch, dev):
     return out
 
 
+# ---- 25. a float32 ConvNeXt trains --------------------------------------------
+
+BIG_F32_TIME_ITERS = 2         # float32 base/large steps timed, after one warm-up
+
+
+def f32_training_phase(torch, dev):
+    """Phase 25: the float32 training paths. The kernel checks and times of
+    ``f32_train_kernels``; the flagship with only ``model.dtype="float32"``
+    at default switches through ``create_train_state`` and
+    ``make_train_step`` (``training_step``: K2 36 and K2 wgrad 18 on their
+    Hopper float32 routes, no K3: the float32 default is the stock MLP;
+    against the plain step, a dropped K2 db and K2's dw off by 1% outside),
+    timed in turns with the bf16 flagship's step, with peak memory; then
+    ConvNeXt base and large in float32 built with ``fused_mlp=True`` (the
+    JAX package's opt-in): one step (K2 72, K2 wgrad 36, K3 train 36, of
+    them 3 on the split kernel's float32 route, the rest on wgmma's; 1% dγ,
+    a dropped K2 db and 1% dw outside) and, weights redrawn, the serving
+    forward (K1 1, K2 36, K3 36, 3 split; dropped biases outside), each
+    timed with peak memory."""
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    t_start = time.time()
+    out = {"launches": {}, "models": {}}
+    t0 = time.time()
+    out["compare_rows"], out["faults"], out["timing"] = f32_train_kernels(
+        torch, dev)
+    out["kernels_s"] = time.time() - t0
+    log(f"[phase 25 kernels] {out['kernels_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    f32_cfg = ExperimentConfig().override({"model.dtype": "float32"})
+    tr = training_step(torch, dev, cfg=f32_cfg, tag="f32 train", fall=False)
+    out["launches"]["f32_train"] = tr["summary"]["launches"]
+    # the bf16 flagship's step (phase 6's) on the same batch, for the turns
+    bf16_cfg = ExperimentConfig()
+    bf16_model, bf16_state = create_train_state(
+        bf16_cfg, torch.Generator().manual_seed(3),
+        steps_per_epoch=STEPS_PER_EPOCH)
+    frames, targets, mask = tr["batch"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def one(step, state):
+        return lambda: step(state, frames, targets, mask, gen)
+
+    times = in_turns(
+        torch, "f32 train time",
+        {"float32": one(tr["step"], tr["state"]),
+         "bfloat16": one(make_train_step(bf16_model, bf16_cfg), bf16_state)},
+        lambda fn: median_step_ms(torch, fn, warmup=1,
+                                  iters=TRAIN_TIME_ITERS), 8)
+    out["flagship"] = {"train": tr["summary"], "step": times,
+                       "phase_s": time.time() - t0}
+    log(f"[phase 25 flagship] {out['flagship']['phase_s']:.1f} s")
+    del tr, bf16_model, bf16_state, frames, targets, mask
+    torch.cuda.empty_cache()
+
+    for name in BIG_BACKBONES:
+        t0 = time.time()
+        cfg = ExperimentConfig().override({"model.backbone": name,
+                                           "model.dtype": "float32"})
+        tr = training_step(torch, dev, cfg=cfg, tag=f"{name} f32 train",
+                           fall=False, fused_mlp=True)
+        frames, targets, mask = tr["batch"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = median_step_ms(
+            torch, lambda: tr["step"](tr["state"], frames, targets, mask, gen),
+            warmup=1, iters=BIG_F32_TIME_ITERS)
+        step_peak = torch.cuda.max_memory_allocated()
+        model, train = tr["model"], tr["summary"]
+        del tr, frames, targets, mask
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        serve = serving_forward(torch, dev, tag=f"{name} f32 serve", cfg=cfg,
+                                model=model, logit_spread=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_ms = median_ms(torch, lambda: serve["forward"](serve["frames"]),
+                           warmup=2, iters=10, queued=False)
+        fwd_peak = torch.cuda.max_memory_allocated()
+        served = serve["summary"]
+        del serve, model
+        torch.cuda.empty_cache()
+        out["launches"][f"{name}_f32_train"] = train["launches"]
+        out["launches"][f"{name}_f32_serve"] = served["launches"]
+        ms = {"forward_ms": fwd_ms, "forward_peak_bytes": fwd_peak,
+              "step_ms": step_ms, "step_peak_bytes": step_peak,
+              "phase_s": time.time() - t0}
+        out["models"][name] = dict(ms, serve=served, train=train)
+        log(f"[{name} f32] forward {fwd_ms:.3f} ms a batch of 8 (peak "
+            f"{fwd_peak / 2**30:.2f} GiB), step {step_ms:.3f} ms (peak "
+            f"{step_peak / 2**30:.2f} GiB), {ms['phase_s']:.1f} s")
+    out["phase_s"] = time.time() - t_start
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -6138,8 +6432,9 @@ def kernel_line(compare_rows, launches, timing):
     forwards and steps, and phases 20 and 21's ranks summed: the DP step
     at world size 1 and on two ranks, the BatchNorm DP step, the DP
     Trainer, the TP step and evaluation; the bundles' bucket-8 calls; the
-    attention view's call; ConvNeXt base's and large's forward and step;
-    each counted from 0), with the split in ``launches_by_path``; ms,
+    attention view's call; ConvNeXt base's and large's forward and step,
+    in bf16 and in float32 with ``fused_mlp=True``; the flagship's float32
+    step; each counted from 0), with the split in ``launches_by_path``; ms,
     plain_ms, bound_ms and library_ms cover one pass over the stages (K1:
     one launch; K2 and K3: the 18 launches of one pass through the
     flagship's ConvNeXt blocks; K4: the 8 launches of one pass through the
@@ -6153,7 +6448,12 @@ def kernel_line(compare_rows, launches, timing):
     there timed on the same inputs (``dwconv_cu_ms``, ``mma_sync_ms``);
     ``K2`` (``dwconv.cu``) and ``K3 (f32)`` (``convnext_mlp.cu``) are those
     kernels, timed on the same float32 inputs, ``dwconv.cu`` also on the
-    Hopper kernel's bf16 inputs (``bf16_inputs_ms``). Both K4 backward kernels carry the
+    Hopper kernel's bf16 inputs (``bf16_inputs_ms``). ``K2 wgrad (hopper
+    f32)`` (the 18 launches of the flagship's float32 step, with
+    ``dwconv_wgrad.cu`` on the same inputs as ``dwconv_wgrad_cu_ms``),
+    ``K3 (wide f32)`` and ``K3 train (wide f32)`` (base's and large's last
+    stages in float32, 3 + 3, ``convnext_mlp.cu`` as ``mma_sync_ms``) are
+    phase 25's float32 training routes. Both K4 backward kernels carry the
     library's whole backward as library_ms: it is one call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
     two Pallas kernels (the line ``replaces`` names), not a kernel."""
@@ -6174,6 +6474,9 @@ def kernel_line(compare_rows, launches, timing):
         "K2 wgrad (hopper)": ("dwconv7x7_wgrad_hopper",
                               csrc + "dwconv_wgrad_hopper.cu",
                               tpu + "dwconv_pallas.py:114"),
+        "K2 wgrad (hopper f32)": ("dwconv7x7_wgrad_hopper_f32",
+                                  csrc + "dwconv_wgrad_hopper.cu",
+                                  tpu + "dwconv_pallas.py:114"),
         "K3": ("convnext_mlp", csrc + "convnext_mlp_wgmma.cu",
                tpu + "convnext_mlp_pallas.py:160"),
         "K3 (f32)": ("convnext_mlp_f32", csrc + "convnext_mlp.cu",
@@ -6191,6 +6494,12 @@ def kernel_line(compare_rows, launches, timing):
         "K3 train (wide)": ("convnext_mlp_train_wide",
                             csrc + "convnext_mlp_wide.cu",
                             tpu + "convnext_mlp_pallas.py:160"),
+        "K3 (wide f32)": ("convnext_mlp_wide_f32",
+                          csrc + "convnext_mlp_wide.cu",
+                          tpu + "convnext_mlp_pallas.py:160"),
+        "K3 train (wide f32)": ("convnext_mlp_train_wide_f32",
+                                csrc + "convnext_mlp_wide.cu",
+                                tpu + "convnext_mlp_pallas.py:160"),
         "K4 fwd": ("flash_mha_fwd", csrc + "flash_attention_fwd_wgmma.cu",
                    tpu + "flash_attention.py:96" + lib + "758)"),
         "K4 bwd dKdV": ("flash_mha_bwd_dkv",
@@ -6225,13 +6534,14 @@ def kernel_line(compare_rows, launches, timing):
             "library_ms": total("library_ms")}
         # the kernel that still serves the other dtypes and widths, timed on
         # the same inputs
-        for key in ("mma_sync_ms", "dwconv_cu_ms"):
+        for key in ("mma_sync_ms", "dwconv_cu_ms", "dwconv_wgrad_cu_ms"):
             if total(key) is not None:
                 entry[key] = total(key)
         # K3 on float32 and on the split kernel: the stock chain on the
         # same inputs
         if total("stock_chain_ms") is not None and k in (
-                "K3 (f32)", "K3 (wgmma f32)", "K3 (wide)", "K3 train (wide)"):
+                "K3 (f32)", "K3 (wgmma f32)", "K3 (wide)", "K3 train (wide)",
+                "K3 (wide f32)"):
             entry["stock_chain_ms"] = total("stock_chain_ms")
         # dwconv.cu, timed on float32 (its main path's), also on the bf16
         # inputs of its Hopper sibling

@@ -2,7 +2,7 @@
 """K3's split kernel (``ops/csrc/convnext_mlp_wide.cu``) against variants
 of itself on one NVIDIA GPU: what its time is made of.
 
-    python3 scripts/ab_convnext_mlp_wide_variants.py
+    python3 scripts/ab_convnext_mlp_wide_variants.py [--float32]
 
 Each variant is the source with one change made by text substitution,
 built by ``nvcc`` into its own library under ``build/wide_variants/``
@@ -18,7 +18,13 @@ built by ``nvcc`` into its own library under ``build/wide_variants/``
 - ``erff``: GELU's erf form by ``erff`` (``convnext_mlp_common.cuh``)
   instead of the kernel's branch-free approximation;
 - ``no_gelu`` (a diagnostic): GEMM 1 writes h_pre where h belongs, so
-  the time of GELU is the difference.
+  the time of GELU is the difference;
+- ``f32_round128`` (with ``--float32`` only, beside ``kernel``): GEMM 2's
+  float32 epilogue staging 128 columns a round in four tiles, the ring one
+  stage shorter, where the kernel stages 64 in two.
+
+``--float32`` runs ``kernel`` and ``f32_round128`` on float32 x, y and out
+(the entry's dtype code 1), the two choices of the float32 epilogue.
 
 Every variant but the diagnostics is held against
 ``convnext_mlp_train_plain`` by ``chip_smoke.py``'s rule (2^-6 of the
@@ -62,19 +68,23 @@ VARIANTS = {
     "no_gelu": [("gelu_fast<APPROX>(hf.x),\n"
                  "                                     gelu_fast<APPROX>(hf.y));",
                  "hf.x, hf.y);")],
+    "f32_round128": [("constexpr int F32_ROUND = 64;",
+                      "constexpr int F32_ROUND = 128;")],
 }
+F32_VARIANTS = ("kernel", "f32_round128")
 DIAGNOSTICS = ("mainloop_only", "tile256_mainloop_only", "no_gelu")
 WIDTHS = (1024, 1536)
 M = 9800
 
 
-def build() -> dict:
+def build(names) -> dict:
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     OUT.mkdir(parents=True, exist_ok=True)
     source = (CSRC / "convnext_mlp_wide.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name in names:
+        edits = VARIANTS[name]
         text = source
         for old, new in edits:
             if old not in text:
@@ -100,7 +110,7 @@ def build() -> dict:
             raise SystemExit(f"{name}: nvcc failed")
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vcd_convnext_mlp_wide.argtypes = [P] * 14 + [I] * 4 + [P]
+        lib.vcd_convnext_mlp_wide.argtypes = [P] * 14 + [I] * 5 + [P]
         lib.vcd_convnext_mlp_wide.restype = I
         libs[name] = lib
     return libs
@@ -118,7 +128,10 @@ def main() -> int:
     from vision_collision_detection_tpu_torch.ops import convnext_mlp as k3
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = build()
+    f32 = "--float32" in sys.argv
+    dtype = torch.float32 if f32 else torch.bfloat16
+    libs = build(F32_VARIANTS if f32 else
+                 [n for n in VARIANTS if n != "f32_round128"])
     print("[card]", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -135,8 +148,8 @@ def main() -> int:
                 mean <= float(ref.float().abs().mean()) * 2 ** -12)
 
     for C in WIDTHS:
-        xs = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
-        y = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
+        xs = torch.randn(M, C, generator=g, device=dev).to(dtype)
+        y = torch.randn(M, C, generator=g, device=dev).to(dtype)
         p = cs.k3_params(torch, C, g, dev)
         ptrs, _keep, _, _ = k3._kernel_operands(xs, y, **p)
         bf = dict(dtype=torch.bfloat16, device=dev)
@@ -149,7 +162,7 @@ def main() -> int:
                 *ptrs, out.data_ptr(), t.data_ptr(), h.data_ptr(),
                 h_pre.data_ptr() if train else None,
                 m.data_ptr() if train else None, M, C, int(approximate),
-                stages, stream)
+                int(f32), stages, stream)
             if err:
                 raise SystemExit(f"launch failed with CUDA error {err}")
 

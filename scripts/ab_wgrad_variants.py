@@ -84,7 +84,7 @@ def build() -> dict:
             raise SystemExit(f"{name}: nvcc failed")
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.vcd_dwconv_wgrad_hopper.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        lib.vcd_dwconv_wgrad_hopper.argtypes = [P, P, P, P] + [I] * 6 + [P]
         lib.vcd_dwconv_wgrad_hopper.restype = I
         libs[name] = lib
     return libs
@@ -126,7 +126,7 @@ def main() -> int:
             def run(lib=lib, dw=dw):
                 err = lib.vcd_dwconv_wgrad_hopper(
                     x.data_ptr(), gy.data_ptr(), partial.data_ptr(),
-                    dw.data_ptr(), *shape, parts, stream)
+                    dw.data_ptr(), *shape, parts, 0, stream)  # bf16
                 if err:
                     raise SystemExit(f"launch failed with CUDA error {err}")
 

@@ -3,7 +3,7 @@
 one NVIDIA GPU: a quick check for work on it (a minute or two, build
 included).
 
-    python3 scripts/check_convnext_mlp_wide.py [--time]
+    python3 scripts/check_convnext_mlp_wide.py [--time] [--float32]
 
 Builds the port's kernels, prints what ``ptxas`` said of the source
 (registers, spills, and any note on ``wgmma``), then, at C = 768, 1024 and
@@ -28,6 +28,13 @@ route forced), the Hopper kernel of ``convnext_mlp_wgmma.cu`` at 768, the
 stock chain LN → ``F.linear`` → GELU → ``F.linear`` → γ, residual, the
 plain version, and the bound. Imports nothing of JAX. Exits non-zero on a
 mismatch or without a CUDA device.
+
+``--float32`` does the same on float32 x and y (out float32; t, h, h_pre
+and m bf16 as in bf16), the split kernel's float32 route, and its
+``--time`` takes ``chip_smoke.py``'s ``time_k3_wide_f32`` at 1024 and 1536
+(eval and train in turns with ``convnext_mlp.cu`` on the same inputs, the
+route forced, beside the stock float32 chain, the plain versions and the
+bounds) with the three stages alone.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ def wide_call(torch, k3, xs, y, p, approximate, train):
     t, h = torch.empty(M, C, **bf), torch.empty(M, 4 * C, **bf)
     h_pre = torch.empty(M, 4 * C, **bf) if train else None
     m = torch.empty(M, C, **bf) if train else None
-    k3._wide(ptrs, out, t, h, h_pre, m, M, C, approximate, k3.WIDE_ALL)
+    k3._wide(ptrs, out, t, h, h_pre, m, M, C, approximate, k3.WIDE_ALL,
+             xs.dtype)
     return out, (t if train else None), h_pre, m
 
 
@@ -85,6 +93,8 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(17)
     bad = 0
+    f32 = "--float32" in sys.argv
+    dtype = torch.float32 if f32 else torch.bfloat16
 
     def held(got, ref):
         err = float((got.float() - ref.float()).abs().max())
@@ -97,8 +107,8 @@ def main() -> int:
     timed = {}
     for C in WIDTHS:
         for M in ROWS:
-            xs = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
-            y = torch.randn(M, C, generator=g, device=dev).to(torch.bfloat16)
+            xs = torch.randn(M, C, generator=g, device=dev).to(dtype)
+            y = torch.randn(M, C, generator=g, device=dev).to(dtype)
             p = cs.k3_params(torch, C, g, dev)
             for approximate in (True, False):
                 if C in k3.WIDE_DIMS:
@@ -130,6 +140,7 @@ def main() -> int:
                     line += f" | {name} {text}{'' if good else ' BAD'}"
                 same = torch.equal(out, got[0])
                 twice = torch.equal(out, again)
+                ok &= out.dtype == dtype
                 line += (f" | train out {'equal' if same else 'DIFFERS'}"
                          f" | twice {'equal' if twice else 'DIFFERS'}")
                 ok &= same and twice and routed
@@ -161,7 +172,33 @@ def main() -> int:
                 timed[C] = (xs, y, p)
             torch.cuda.empty_cache()
 
-    if "--time" in sys.argv and not bad:
+    if "--time" in sys.argv and not bad and f32:
+        print(f"[time] ms a launch on {card}", flush=True)
+        for C, (xs, y, p) in timed.items():
+            if C not in k3.WIDE_DIMS:
+                continue
+            # W1 and W2 as a block hands them over: transposed views of
+            # nn.Linear's float32 storage
+            p = dict(p, w1=p["w1"].t().contiguous().t(),
+                     w2=p["w2"].t().contiguous().t())
+            for r in cs.time_k3_wide_f32(torch, xs, y, p):
+                print(f"[time] C={C} {r['kernel']}: " + ", ".join(
+                    f"{k} {r[k]:.4f}" for k in (
+                        "ms", "mma_sync_ms", "stock_chain_ms", "plain_ms",
+                        "bound_ms") if r.get(k) is not None), flush=True)
+            t_in = k3.ln_stage(y, p["ln_w"], p["ln_b"])
+            h_in = k3.up_stage(t_in, p["w1"], p["b1"], True)[1]
+            with torch.no_grad():
+                print(f"[time] C={C} stages (ln, up, down): " + ", ".join(
+                    f"{v:.4f}" for v in (
+                        cs.median_ms(torch, lambda: k3.ln_stage(
+                            y, p["ln_w"], p["ln_b"])),
+                        cs.median_ms(torch, lambda: k3.up_stage(
+                            t_in, p["w1"], p["b1"], False)),
+                        cs.median_ms(torch, lambda: k3.down_stage(
+                            h_in, xs, p["w2"], p["b2"], p["gamma"]))))
+                      + " ms", flush=True)
+    elif "--time" in sys.argv and not bad:
         import torch.nn.functional as F
         print(f"[time] ms a launch on {card}", flush=True)
         for C, (xs, y, p) in timed.items():

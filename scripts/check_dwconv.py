@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K2's forward alone, on one NVIDIA GPU: a quick check for work on
-``ops/csrc/dwconv_hopper.cu`` (about a minute, build included, where
-``chip_smoke.py`` takes several).
+"""K2's forward alone (and, on float32, its weight gradient), on one
+NVIDIA GPU: a quick check for work on ``ops/csrc/dwconv_hopper.cu`` and
+the float32 route of ``ops/csrc/dwconv_wgrad_hopper.cu`` (about a minute,
+build included, where ``chip_smoke.py`` takes several).
 
     python3 scripts/check_dwconv.py [--time] [--float32]
 
@@ -21,12 +22,21 @@ through the plain conv. The launch geometry of each shape is printed.
 ``check_k2_f32``: the Hopper kernel bit-equal to ``dwconv.cu`` (the route
 forced) and to itself over two runs, within 2^-16 of the largest output
 of the plain version, dx bit-equal on the two kernels, one channel pair's
-taps swapped in the plain version landing outside.
+taps swapped in the plain version landing outside. Then the weight
+gradient on float32 by ``chip_smoke.py``'s ``check_k2_wgrad`` at the
+stage shapes and ``K2_WGRAD_F32_ODD`` (an odd shape, and a width of 40,
+which stays on ``dwconv_wgrad.cu``): its Hopper route against
+``dwconv7x7_wgrad_plain`` relative to Σ|x·g| (1e-6), bit-equal over two
+runs, flipped and swapped taps outside, each shape's launch geometry, and
+at the stage shapes ``dwconv_wgrad.cu`` too (the route forced).
 
 ``--time`` adds per-stage times (CUDA events, median of 10) at the stage
 shapes: the Hopper kernel, ``dwconv.cu`` on the same inputs (the route
 forced), cuDNN's depthwise ``conv2d`` and the bound, and their sums over
-the 18 launches of a forward. Imports nothing of JAX. Exits non-zero on a
+the 18 launches of a forward; with ``--float32`` also the weight gradient
+by ``time_k2_wgrad_f32`` (in turns with ``dwconv_wgrad.cu``, beside cuDNN's
+float32 ``convolution_backward``, the plain version and the bound).
+Imports nothing of JAX. Exits non-zero on a
 mismatch or without a CUDA device.
 """
 
@@ -88,6 +98,22 @@ def main() -> int:
             cs.check_k2_dx(torch, x, w, b, gy, record, failed)
         del x, w, b, gy
         torch.cuda.empty_cache()
+    if f32:
+        stage_shapes = set(shapes)
+        for shape in shapes + list(cs.K2_WGRAD_F32_ODD):
+            x = torch.randn(shape, generator=g).to(dev)
+            gy = torch.randn(shape, generator=g).to(dev)
+            if k2.wgrad_route(x.dtype, shape[-1]) == "hopper":
+                print(f"{list(shape)}: wgrad geometry "
+                      f"{k2.wgrad_hopper_geometry(*shape, dtype=dtype)}",
+                      flush=True)
+            cs.check_k2_wgrad(torch, x, gy, record, failed, faults)
+            if shape in stage_shapes:
+                with cs.swapped((k2, "wgrad_route",
+                                 lambda dtype_, C_: "tile")):
+                    cs.check_k2_wgrad(torch, x, gy, record, failed)
+            del x, gy
+            torch.cuda.empty_cache()
 
     if "--time" in sys.argv:
         sums = {}
@@ -112,6 +138,23 @@ def main() -> int:
             del x, w, b
         print("   [time] over the 18 launches: " + ", ".join(
             f"{k} {v:.3f}" for k, v in sums.items()) + " ms", flush=True)
+        if f32:
+            keys = ("ms", "dwconv_wgrad_cu_ms", "library_ms", "plain_ms",
+                    "bound_ms")
+            sums = dict.fromkeys(keys, 0.0)
+            for H, C, blocks in cs.STAGES:
+                shape = (cs.N_FRAMES, H, H, C)
+                x = torch.randn(shape, generator=g).to(dev)
+                gy = torch.randn(shape, generator=g).to(dev)
+                r = cs.time_k2_wgrad_f32(torch, x, gy)
+                for k in keys:
+                    sums[k] += r[k] * blocks
+                print(f"   [time wgrad f32] {list(shape)} x{blocks}: "
+                      + ", ".join(f"{k} {r[k]:.4f}" for k in keys)
+                      + f" (bound by {r['bound_by']})", flush=True)
+                del x, gy
+            print("   [time wgrad f32] over the 18 launches: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sums.items()), flush=True)
     print(f"FAILED: {failed}" if failed else "ALL OK")
     return 1 if failed else 0
 

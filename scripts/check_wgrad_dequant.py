@@ -15,8 +15,10 @@ rules:
   the taps flipped, and dy and dx swapped, landing outside), at the odd
   shapes of ``chip_smoke.K2_ODD_SHAPES`` and at a frame wider than one
   column tile (20×130); ``dwconv_wgrad.cu`` (the route forced) at the stage
-  shapes, and on float32 inputs. The Hopper kernel's launch geometry is
-  printed for each shape.
+  shapes; the routed kernel on float32 inputs at [8, 56, 56, 96] (the
+  Hopper kernel's float32 route; ``check_dwconv.py --float32`` holds it at
+  the stages). The Hopper kernel's launch geometry is printed for each
+  shape.
 - K1 against ``dequant_normalize_pad_plain``, bit-equal, in bf16 and
   float32: the flagship's 200 frames of 126×224 → 224², the ViViT's 256 of
   189×336 → 336², and 64 of 120×213 → 224² (side bars, rows off the 16-byte

@@ -5,11 +5,11 @@ its kernel, checked on the CPU.
 K3 and K4's forward each have a Hopper kernel (wgmma, TMA) for the main
 paths' dtypes and widths (K3: bf16 and float32 up to 768) and the
 mma.sync one for the rest; K3 has a second Hopper kernel, split into a
-LayerNorm and two GEMMs, for bf16 at 1024 and 1536;
+LayerNorm and two GEMMs, for bf16 and float32 at 1024 and 1536;
 K2's forward has the CUDA-core stencil of ``dwconv_hopper.cu`` for bf16
 and float32 at widths that divide by 32 and ``dwconv.cu`` for the rest,
 and K2's weight gradient the CUDA-core reduction of
-``dwconv_wgrad_hopper.cu`` for bf16 at those widths and
+``dwconv_wgrad_hopper.cu`` for bf16 and float32 at those widths and
 ``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
 ``dwconv.wgrad_route``, ``convnext_mlp.route``,
@@ -45,10 +45,10 @@ K3_NAMES = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
 @pytest.mark.parametrize("C", k3.KERNEL_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k3_route_rule(C, dtype):
-    """bf16 and float32 take the Hopper kernel up to 768; at 1024 and 1536
-    bf16 takes the split wgmma kernel and float32 the mma.sync kernel."""
-    want = ("wgmma" if C <= 768 else
-            "mma" if dtype == torch.float32 else "wide")
+    """bf16 and float32 take the Hopper kernel up to 768 and the split
+    wgmma kernel at 1024 and 1536; no width of ``KERNEL_DIMS`` is left to
+    the mma.sync kernel."""
+    want = "wgmma" if C <= 768 else "wide"
     assert k3.route(dtype, C) == want
 
 
@@ -65,9 +65,9 @@ def test_k2_route_rule(C, dtype):
 @pytest.mark.parametrize("C", [96, 128, 768, 40])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k2_wgrad_route_rule(C, dtype):
-    """bf16 at every width that divides by 32 takes the Hopper reduction;
-    float32, and a width that does not (40), take dwconv_wgrad.cu."""
-    want = "hopper" if dtype == torch.bfloat16 and C != 40 else "tile"
+    """bf16 and float32 at every width that divides by 32 take the Hopper
+    reduction; a width that does not (40) takes dwconv_wgrad.cu."""
+    want = "hopper" if C != 40 else "tile"
     assert k2.wgrad_route(dtype, C) == want
 
 
@@ -186,14 +186,14 @@ def test_k3_wide_launch_hands_its_entry_storage_and_scratch(recorder, C,
     got = (k3._launch_train if train else k3._launch_eval)(
         x, y, approximate=False, **p)
     (name, args), = recorder.calls
-    assert name == "vcd_convnext_mlp_wide" and len(args) == 19
+    assert name == "vcd_convnext_mlp_wide" and len(args) == 20
     assert counter.wide_launches == before + 1
     assert (args[4], args[6]) == (lin1.weight.data_ptr(),
                                   lin2.weight.data_ptr())
     out, t, h, h_pre, m = args[9:14]
     assert None not in (out, t, h) and t != h
     assert (h_pre is not None, m is not None) == (train, train)
-    assert args[14:18] == (M, C, 0, k3.WIDE_ALL)
+    assert args[14:19] == (M, C, 0, 0, k3.WIDE_ALL)  # dtype code 0: bf16
     if train:
         out_t, t_t, h_pre_t, m_t = got
         assert (out, t, h_pre, m) == tuple(a.data_ptr() for a in got)
@@ -203,12 +203,51 @@ def test_k3_wide_launch_hands_its_entry_storage_and_scratch(recorder, C,
         assert out == got.data_ptr()
 
 
+@pytest.mark.parametrize("train", [False, True])
 @pytest.mark.parametrize("C", [1024, 1536])
-def test_k3_float32_at_wide_widths_takes_the_mma_entry(recorder, C):
-    x, y, p, _, _ = _k3_args(C, torch.float32)
-    k3._launch_eval(x, y, approximate=True, **p)
+def test_k3_float32_at_wide_widths_takes_the_wide_entry(recorder,
+                                                        monkeypatch, C,
+                                                        train):
+    """float32 activations at 1024 and 1536 launch ``vcd_convnext_mlp_wide``
+    with dtype code 1: x and out float32, its scratch t [M, C] and h
+    [M, 4C] bf16, and in the train variant the saved t, h_pre and m in
+    bf16, handed back as the variant's outputs; the Linear weights' own
+    storage; its counter goes up by one."""
+    M = 5
+    seen = []
+    wide = k3._wide
+
+    def spy(ptrs, out, t, h, h_pre, m, *rest):
+        seen.append((out, t, h, h_pre, m))
+        return wide(ptrs, out, t, h, h_pre, m, *rest)
+
+    monkeypatch.setattr(k3, "_wide", spy)
+    x, y, p, lin1, lin2 = _k3_args(C, torch.float32, M=M)
+    counter = k3.convnext_mlp_train if train else k3.convnext_mlp
+    before = (counter.launches, counter.wide_launches)
+    got = (k3._launch_train if train else k3._launch_eval)(
+        x, y, approximate=True, **p)
     (name, args), = recorder.calls
-    assert name == "vcd_convnext_mlp" and args[-2] == 1  # dtype code float32
+    assert name == "vcd_convnext_mlp_wide" and len(args) == 20
+    assert args[:2] == (x.data_ptr(), y.data_ptr())
+    assert (args[4], args[6]) == (lin1.weight.data_ptr(),
+                                  lin2.weight.data_ptr())
+    assert args[14:19] == (M, C, 1, 1, k3.WIDE_ALL)  # dtype code 1: float32
+    assert (counter.launches, counter.wide_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ((out, t, h, h_pre, m),) = seen
+    assert args[9:14] == tuple(None if a is None else a.data_ptr()
+                               for a in (out, t, h, h_pre, m))
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    assert (t.dtype, h.dtype) == (torch.bfloat16, torch.bfloat16)
+    assert t.shape == (M, C) and h.shape == (M, 4 * C)
+    if train:
+        assert (h_pre.dtype, m.dtype) == (torch.bfloat16, torch.bfloat16)
+        assert h_pre.shape == (M, 4 * C) and m.shape == (M, C)
+        assert tuple(a.data_ptr() for a in got) == tuple(
+            a.data_ptr() for a in (out, t, h_pre, m))
+    else:
+        assert h_pre is None and m is None and got.data_ptr() == out.data_ptr()
 
 
 def _k3_float32_launch(recorder, train):
@@ -225,7 +264,7 @@ def _k3_float32_launch(recorder, train):
     return name, args, counter.wgmma_launches - before
 
 
-def test_k3_float32_activations_take_the_mma_entry(recorder):
+def test_k3_float32_activations_take_the_wgmma_entry(recorder):
     """float32 activations at a width of the Hopper kernel launch
     ``vcd_convnext_mlp_wgmma`` (not the mma.sync entry) with dtype code 1
     and the Linear weights' own storage, and count under its route; the
@@ -291,13 +330,16 @@ SMS = 132  # the H100's SMs, which size the wgrad kernels' partial sums
 @pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 96),
                                      (torch.bfloat16, 768),
                                      (torch.bfloat16, 40),
-                                     (torch.float32, 96)])
+                                     (torch.float32, 96),
+                                     (torch.float32, 768),
+                                     (torch.float32, 40)])
 def test_k2_wgrad_launch_takes_the_routed_entry(recorder, monkeypatch, dtype,
                                                 C):
-    """A bf16 call at a width that divides by 32 launches
+    """A bf16 or float32 call at a width that divides by 32 launches
     ``vcd_dwconv_wgrad_hopper`` with room for two blocks an SM shared among
-    the C / 32 slabs, and counts it; another launches ``vcd_dwconv_wgrad``
-    with its dtype code. Both write into a float32 [49, C] dw."""
+    the C / 32 slabs, and counts it; another launches ``vcd_dwconv_wgrad``.
+    Both get the dtype code (0 bf16, 1 float32) and write into a float32
+    [49, C] dw."""
     monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
     g = torch.Generator().manual_seed(C)
     x = torch.randn(2, 5, 6, C, generator=g).to(dtype)
@@ -306,7 +348,7 @@ def test_k2_wgrad_launch_takes_the_routed_entry(recorder, monkeypatch, dtype,
     dw = k2._launch_wgrad(x, gy)
     assert dw.shape == (49, C) and dw.dtype == torch.float32
     (name, args), = recorder.calls
-    hopper = dtype == torch.bfloat16 and C % 32 == 0
+    hopper = C % 32 == 0
     assert name == ("vcd_dwconv_wgrad_hopper" if hopper else
                     "vcd_dwconv_wgrad")
     assert (k2.dwconv7x7_wgrad.launches, k2.dwconv7x7_wgrad.hopper_launches) \
@@ -316,8 +358,7 @@ def test_k2_wgrad_launch_takes_the_routed_entry(recorder, monkeypatch, dtype,
     assert args[4:8] == (2, 5, 6, C)
     if hopper:
         assert args[8] == -(-2 * SMS // (C // 32))
-    else:
-        assert args[9] == (0 if dtype == torch.bfloat16 else 1)
+    assert args[9] == (0 if dtype == torch.bfloat16 else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -325,7 +366,7 @@ def test_k2_function_dw_reaches_the_routed_entry(recorder, monkeypatch,
                                                  dtype):
     """``_DwConv7x7.backward``'s dw goes to the weight-gradient launcher with
     x as saved and the incoming gradient in x's dtype, and from there to the
-    routed entry (``vcd_dwconv_wgrad_hopper`` for bf16)."""
+    routed entry (``vcd_dwconv_wgrad_hopper`` for bf16 and float32)."""
     C = 64
     monkeypatch.setattr(_build, "sm_count", lambda device: SMS)
     monkeypatch.setattr(k2, "_forward", k2._launch_fwd)
@@ -349,12 +390,11 @@ def test_k2_function_dw_reaches_the_routed_entry(recorder, monkeypatch,
     assert sx.data_ptr() == x.data_ptr() and sg.dtype == x.dtype
     names = [name for name, _ in recorder.calls
              if name.startswith("vcd_dwconv_wgrad")]
-    hopper = dtype == torch.bfloat16
-    assert names == ["vcd_dwconv_wgrad_hopper" if hopper else
-                     "vcd_dwconv_wgrad"]
-    assert (spy.launches, spy.hopper_launches) == (1, int(hopper))
+    assert names == ["vcd_dwconv_wgrad_hopper"]
+    assert (spy.launches, spy.hopper_launches) == (1, 1)
     (_, args), = [c for c in recorder.calls if c[0] == names[0]]
     assert args[:2] == (sx.data_ptr(), sg.data_ptr())
+    assert args[9] == (0 if dtype == torch.bfloat16 else 1)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])

@@ -230,13 +230,35 @@ def test_k3_wide_stages_compose_into_plain_parts(approximate, train):
             tx, ty, approximate=approximate, **tp)[3], m)
 
 
+@pytest.mark.parametrize("C", [1024, 1536])
+def test_k3_wide_stages_compose_on_float32(C):
+    """The same on float32 x and y, as a float32 model's last stage hands
+    them over (the split kernel's float32 route): t, h_pre, h and m bf16
+    as on bf16, out float32, each bit for bit ``_plain_parts``'."""
+    rng = np.random.default_rng(13 + C)
+    x, y, p = _k3_inputs(C, rng, rows=(1, 2, 3))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    want = k3._plain_parts(tx, ty, approximate=False, **tp)
+    t = k3.ln_stage(ty, tp["ln_w"], tp["ln_b"])
+    h_pre, h = k3.up_stage(t, tp["w1"], tp["b1"], False)
+    out, m = k3.down_stage(h, tx, tp["w2"], tp["b2"], tp["gamma"])
+    assert (t.dtype, h_pre.dtype, h.dtype, m.dtype) == (torch.bfloat16,) * 4
+    assert out.dtype == torch.float32 and out.shape == tx.shape
+    assert torch.equal(out, want[0]) and torch.equal(t, want[1])
+    assert torch.equal(h_pre, want[2])
+    assert torch.equal(m, want[3].to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("approximate", [True, False])
-@pytest.mark.parametrize("C", [96, 768])
+@pytest.mark.parametrize("C", [96, 768, 1024, 1536])
 def test_k3_plain_float32_matches_pallas(C, approximate):
     """float32 x and y, as a float32 model's blocks hand them over (the
-    Hopper kernel's float32 route takes them on the card): out stays
-    float32 and agrees with the JAX block, whose Pallas kernel rounds t and
-    h_pre to bf16 and takes bf16 products on float32 activations too."""
+    Hopper kernel's float32 route takes them on the card up to 768, the
+    split kernel's at 1024 and 1536, ConvNeXt base's and large's last
+    stage): out stays float32 and agrees with the JAX block, whose Pallas
+    kernel rounds t and h_pre to bf16 and takes bf16 products on float32
+    activations too."""
     rng = np.random.default_rng(21 + C)
     x, y, p = _k3_inputs(C, rng, rows=(2, 3, 4) if C < 768 else (1, 2, 3))
     ref = np.asarray(convnext_mlp_block(
@@ -252,7 +274,7 @@ def test_k3_plain_float32_matches_pallas(C, approximate):
     # tolerance, bf16-level: one bf16 ulp of the largest output. out is not
     # rounded, but h is: the JAX package evaluates GELU on bf16 h_pre, the
     # port in float32 rounded to bf16, so h differs by an ulp in places
-    # (0.0067 to 0.0082 measured at these shapes against an ulp of 0.031)
+    # (0.0067 to 0.0097 measured at these shapes against an ulp of 0.031)
     err = np.abs(got.numpy() - ref).max()
     assert err <= bf16_ulp(np.abs(ref).max()), err
 

@@ -185,8 +185,10 @@ def _jax_loss_and_grads(overrides, params, frames, targets, mask):
     return float(loss), float(optax.global_norm(grads)), jax.device_get(grads)
 
 
-# (blocks, model dtype) → tolerances (loss and grad norm relative, each
-# parameter's gradient error relative to that gradient's norm).
+# (K2 on, K3 on, model dtype) → tolerances (loss and grad norm relative,
+# each parameter's gradient error relative to that gradient's norm). The
+# port's side takes the kernels at its default switches where K2 is on
+# (K3 on bf16 activations only), the stock blocks where it is off.
 # kernels, bf16: both packages on their kernels. The two round the K3
 # GELU in other places (JAX evaluates it in bf16), and 18 blocks with γ of
 # order 1 amplify such 1-ulp flips: measured 1.7% on the loss, 2.8% on the
@@ -195,17 +197,26 @@ def _jax_loss_and_grads(overrides, params, frames, targets, mask):
 # stock, float32: the same step with no bf16 rounding anywhere, which holds
 # everything around the blocks tightly (measured 2.6e-6 on the worst
 # parameter).
-STEP_CASES = {"kernels-bf16": (True, "bfloat16", 3e-2, 5e-2, 0.2),
-              "stock-float32": (False, "float32", 1e-5, 1e-5, 1e-4)}
+# kernels, float32: a float32 model at the port's default switches (K2
+# forward, dx and weight gradient in float32, the stock float32 MLP)
+# against the JAX step with its K2 Pallas kernel (interpret mode) and the
+# stock MLP: float32 on both sides, so it is held as tightly as the stock
+# step (measured 4.9e-6 on the loss, 3.5e-6 on the grad norm, 4.5e-6 on
+# the worst parameter).
+STEP_CASES = {"kernels-bf16": (True, True, "bfloat16", 3e-2, 5e-2, 0.2),
+              "stock-float32": (False, False, "float32", 1e-5, 1e-5, 1e-4),
+              "kernels-float32": (True, False, "float32", 1e-5, 1e-5, 1e-4)}
 
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_training_step_matches_jax(step_inputs, case, monkeypatch):
-    kernels, dtype, loss_tol, norm_tol, grad_tol = STEP_CASES[case]
+    kernels, fused, dtype, loss_tol, norm_tol, grad_tol = STEP_CASES[case]
     params, frames, targets, mask = step_inputs
     overrides = dict(OVERRIDES, **{"model.dtype": dtype})
-    if kernels:  # the JAX blocks through their Pallas kernels (interpret mode)
+    # the JAX blocks through their Pallas kernels (interpret mode)
+    if kernels:
         monkeypatch.setattr(dwconv_pallas, "PALLAS_DWCONV_DEFAULT", True)
+    if fused:
         monkeypatch.setattr(convnext_mlp_pallas, "FUSED_MLP_DEFAULT", True)
         monkeypatch.setattr(convnext_mlp_pallas, "FUSED_MLP_MIN_DIM", 0)
     ref_loss, ref_norm, ref_grads = _jax_loss_and_grads(

@@ -10,10 +10,12 @@ subsampled every 2nd when T > 10, as the reference does.
 
 float32 by default, the reference's precision; ``dtype=torch.bfloat16`` is
 the faster option. The ConvNeXt blocks take the module defaults
-(``models/backbones/convnext.py``): in float32 K2 on ``dwconv.cu`` (float32
-sums) and the stock float32 MLP chain, as the JAX package computes it
-(``fused_mlp=True`` sends them to K3's ``convnext_mlp.cu``, whose products
-round to bf16 by K3's rule); in bf16 K2 and K3 on the Hopper kernels.
+(``models/backbones/convnext.py``): in float32 K2 on the float32 route of
+``dwconv_hopper.cu`` (float32 sums) and the stock float32 MLP chain, as
+the JAX package computes it (``fused_mlp=True`` sends them to K3's float32
+routes, ``convnext_mlp_wgmma.cu`` up to C = 768 and ``convnext_mlp_wide.cu``
+at 1024 and 1536, whose products round to bf16 by K3's rule); in bf16 K2
+and K3 on the same Hopper kernels.
 
 The ConvNeXt pads as torchvision's does (``padding="VALID"``: the stem and
 downsample convolutions drop the remainder of an odd side), so a

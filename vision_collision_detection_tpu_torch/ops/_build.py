@@ -42,13 +42,13 @@ _SIGNATURES = {
     "vcd_dwconv7x7_hopper_geometry": [_I, _I, _I, _I, _I,
                                       ctypes.POINTER(ctypes.c_int)],
     "vcd_dwconv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vcd_dwconv_wgrad_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vcd_dwconv_wgrad_hopper_geometry": [_I, _I, _I, _I, _I,
+    "vcd_dwconv_wgrad_hopper": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vcd_dwconv_wgrad_hopper_geometry": [_I, _I, _I, _I, _I, _I,
                                          ctypes.POINTER(ctypes.c_int)],
     "vcd_convnext_mlp": [_P] * 10 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_train": [_P] * 13 + [_I, _I, _I, _I, _P],
     "vcd_convnext_mlp_wgmma": [_P] * 13 + [_I, _I, _I, _I, _P],
-    "vcd_convnext_mlp_wide": [_P] * 14 + [_I] * 4 + [_P],
+    "vcd_convnext_mlp_wide": [_P] * 14 + [_I] * 5 + [_P],
     "vcd_flash_fwd": [_P] * 5 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_fwd_wgmma": [_P] * 5 + [_STRIDES, _I, _I, _I, _F, _P],
     "vcd_flash_bwd_dkv": [_P] * 8 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],

@@ -12,15 +12,17 @@ and large's up to 768) take the Hopper kernel
 nn.Linear's own layout, a persistent block of 128 rows up to C = 256 and of
 64 rows shared by two warpgroups above; bf16 rows of y arrive by TMA and
 are normalised in the kernel, float32 ones go through a LayerNorm pass
-whose bf16 t the kernel loads instead); bf16 at
+whose bf16 t the kernel loads instead); bf16 or float32 at
 ``WIDE_DIMS`` (base's and large's last stage, 1024 and 1536) take
 ``ops/csrc/convnext_mlp_wide.cu``, the chain split into three launches (a
 LayerNorm row kernel, then the two products as persistent wgmma/TMA GEMMs
 with the bias, GELU and residual in their epilogues; t and h through
-scratch) that read the weights in nn.Linear's layout too; float32 at 1024
-and 1536 takes the ``mma.sync`` kernel ``ops/csrc/convnext_mlp.cu``, which
-reads the weights in the flax layout (its other instantiations stay
-compiled, as the yardstick the card's checks time).
+scratch, bf16 in both dtypes; float32 y, x and out read and written only
+by the LayerNorm and the second product's epilogue) that read the weights
+in nn.Linear's layout too. The ``mma.sync`` kernel
+``ops/csrc/convnext_mlp.cu``, which reads the weights in the flax layout,
+serves no width of ``KERNEL_DIMS`` now; it stays compiled as the
+yardstick the card's checks time.
 
 - **eval** (``_eval_kernel``): out only. Its bound on the H100 in bf16 is
   operations: 16·M·C² flops per launch, ≈ 92 GFLOP per launch on the
@@ -69,7 +71,7 @@ LN_EPS = 1e-6
 KERNEL_DIMS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
 # The widths of the Hopper kernel (bf16 and float32 activations).
 WGMMA_DIMS = (96, 128, 192, 256, 384, 512, 768)
-# The widths of the split wgmma kernel (bf16 activations only).
+# The widths of the split wgmma kernel (bf16 and float32 activations).
 WIDE_DIMS = (1024, 1536)
 # ``vcd_convnext_mlp_wide``'s stages, as bits: LN, the first product with
 # its epilogue, the second with its epilogue.
@@ -178,10 +180,10 @@ def down_stage_plain(h, x, w2, b2, gamma):
 def route(dtype: torch.dtype, C: int) -> str:
     """Which kernel a CUDA call takes: ``"wgmma"`` (the Hopper kernel) for
     bf16 or float32 activations at a width of ``WGMMA_DIMS``, ``"wide"``
-    (the split wgmma kernel) for bf16 at ``WIDE_DIMS``, else ``"mma"``."""
+    (the split wgmma kernel) for either at ``WIDE_DIMS``, else ``"mma"``."""
     if C in WGMMA_DIMS:
         return "wgmma"
-    if dtype == torch.bfloat16 and C in WIDE_DIMS:
+    if C in WIDE_DIMS:
         return "wide"
     return "mma"
 
@@ -246,7 +248,8 @@ def _launch_eval(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
         # t and h are scratch, from the caching allocator
         bf = dict(dtype=torch.bfloat16, device=x.device)
         t, h = torch.empty(M, C, **bf), torch.empty(M, 4 * C, **bf)
-        _wide(ptrs, out, t, h, None, None, M, C, approximate, WIDE_ALL)
+        _wide(ptrs, out, t, h, None, None, M, C, approximate, WIDE_ALL,
+              x.dtype)
         convnext_mlp.wide_launches += 1
     else:
         err = _build.lib().vcd_convnext_mlp(
@@ -277,7 +280,8 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     elif kernel_route == "wide":
         # h is scratch; t is the saved t
         h = torch.empty(M, 4 * C, **bf)
-        _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, WIDE_ALL)
+        _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, WIDE_ALL,
+              x.dtype)
         convnext_mlp_train.wide_launches += 1
     else:
         err = _build.lib().vcd_convnext_mlp_train(
@@ -288,45 +292,53 @@ def _launch_train(x, y, ln_w, ln_b, w1, b1, w2, b2, gamma, approximate):
     return out, t, h_pre, m
 
 
-def _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, stages):
+def _wide(ptrs, out, t, h, h_pre, m, M, C, approximate, stages,
+          dtype=torch.bfloat16):
     """One call of ``vcd_convnext_mlp_wide``: ``ptrs`` are x, y, ln_w, ln_b,
     W1, b1, W2, b2, γ (0 for what ``stages`` does not read); out, t, h,
-    h_pre and m are the caller's fresh tensors or None."""
+    h_pre and m are the caller's fresh tensors or None; ``dtype`` is x's,
+    y's and out's (t, h, h_pre and m are bf16)."""
     def ptr(a):
         return None if a is None else a.data_ptr()
 
     err = _build.lib().vcd_convnext_mlp_wide(
         *ptrs, ptr(out), ptr(t), ptr(h), ptr(h_pre), ptr(m), M, C,
-        int(bool(approximate)), stages,
+        int(bool(approximate)), _DTYPE_CODE[dtype], stages,
         _build.stream_ptr((t if h is None else h).device))
     _build.check(err, "vcd_convnext_mlp_wide")
 
 
 def _stage_operands(*named):
-    """(name, tensor, dtype) → the tensors cast to the kernel's types and
-    checked, for a wide stage alone (bf16 activations 16-byte aligned)."""
+    """(name, tensor, dtype, align) → the tensors cast to the kernel's types
+    and checked, for a wide stage alone (activations 16-byte aligned)."""
     cast = []
-    for name, a, dtype in named:
+    for name, a, dtype, align in named:
         a = a.to(dtype).contiguous()
-        _build.require_cuda(a, name, align=16 if dtype == torch.bfloat16
-                            else 1)
+        _build.require_cuda(a, name, align=align)
         cast.append(a)
     return cast
 
 
+def _activation_dtype(a: torch.Tensor) -> torch.dtype:
+    """The dtype a wide stage reads an activation in: float32 as it is,
+    anything else as bf16."""
+    return torch.float32 if a.dtype == torch.float32 else torch.bfloat16
+
+
 def ln_stage(y, ln_w, ln_b):
-    """The wide kernel's LayerNorm stage alone: t [M, C] bf16. A CPU tensor
-    takes ``ln_stage_plain``."""
+    """The wide kernel's LayerNorm stage alone: t [M, C] bf16 from y in
+    bf16 or float32. A CPU tensor takes ``ln_stage_plain``."""
     if y.device.type == "cpu":
         return ln_stage_plain(y, ln_w, ln_b)
     C = y.shape[-1]
-    y, ln_w, ln_b = _stage_operands(("y", y, torch.bfloat16),
-                                    ("ln_w", ln_w, torch.float32),
-                                    ("ln_b", ln_b, torch.float32))
+    dtype = _activation_dtype(y)
+    y, ln_w, ln_b = _stage_operands(("y", y, dtype, 16),
+                                    ("ln_w", ln_w, torch.float32, 1),
+                                    ("ln_b", ln_b, torch.float32, 1))
     M = y.numel() // C
     t = torch.empty(M, C, dtype=torch.bfloat16, device=y.device)
     _wide([0, y.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr()] + [0] * 5,
-          None, t, None, None, None, M, C, False, WIDE_LN)
+          None, t, None, None, None, M, C, False, WIDE_LN, dtype)
     return t
 
 
@@ -337,9 +349,9 @@ def up_stage(t, w1, b1, approximate: bool):
     if t.device.type == "cpu":
         return up_stage_plain(t, w1, b1, approximate)
     M, C = t.shape
-    t, w1t, b1 = _stage_operands(("t", t, torch.bfloat16),
-                                 ("w1", w1.t(), torch.bfloat16),
-                                 ("b1", b1, torch.float32))
+    t, w1t, b1 = _stage_operands(("t", t, torch.bfloat16, 16),
+                                 ("w1", w1.t(), torch.bfloat16, 16),
+                                 ("b1", b1, torch.float32, 1))
     h_pre, h = (torch.empty(M, 4 * C, dtype=torch.bfloat16, device=t.device)
                 for _ in range(2))
     _wide([0, 0, 0, 0, w1t.data_ptr(), b1.data_ptr(), 0, 0, 0], None, t, h,
@@ -348,23 +360,26 @@ def up_stage(t, w1, b1, approximate: bool):
 
 
 def down_stage(h, x, w2, b2, gamma):
-    """The wide kernel's second product alone: (out [..., C] bf16, m [M, C]
-    bf16) from h [M, 4C] bf16, the residual x (bf16) and W2 [4C, C] (read
-    as nn.Linear's storage). A CPU tensor takes ``down_stage_plain``, its m
-    rounded to bf16 as the kernel saves it."""
+    """The wide kernel's second product alone: (out [..., C] in the
+    residual's dtype, m [M, C] bf16) from h [M, 4C] bf16, the residual x
+    (float32 as it is, else bf16) and W2 [4C, C] (read as nn.Linear's
+    storage). A CPU tensor takes ``down_stage_plain``, its m rounded to
+    bf16 as the kernel saves it."""
     if h.device.type == "cpu":
         out, m = down_stage_plain(h, x, w2, b2, gamma)
         return out, m.to(torch.bfloat16)
     C = x.shape[-1]
     M = h.shape[0]
-    h, xb, w2t, b2, gamma = _stage_operands(
-        ("h", h, torch.bfloat16), ("x", x, torch.bfloat16),
-        ("w2", w2.t(), torch.bfloat16), ("b2", b2, torch.float32),
-        ("gamma", gamma, torch.float32))
-    out = torch.empty_like(xb)
+    dtype = _activation_dtype(x)
+    h, xc, w2t, b2, gamma = _stage_operands(
+        ("h", h, torch.bfloat16, 16), ("x", x, dtype, 16),
+        ("w2", w2.t(), torch.bfloat16, 16), ("b2", b2, torch.float32, 1),
+        ("gamma", gamma, torch.float32, 1))
+    out = torch.empty_like(xc)
     m = torch.empty(M, C, dtype=torch.bfloat16, device=h.device)
-    _wide([xb.data_ptr(), 0, 0, 0, 0, 0, w2t.data_ptr(), b2.data_ptr(),
-           gamma.data_ptr()], out, None, h, None, m, M, C, False, WIDE_DOWN)
+    _wide([xc.data_ptr(), 0, 0, 0, 0, 0, w2t.data_ptr(), b2.data_ptr(),
+           gamma.data_ptr()], out, None, h, None, m, M, C, False, WIDE_DOWN,
+          dtype)
     return out, m
 
 

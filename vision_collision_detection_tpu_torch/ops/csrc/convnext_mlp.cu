@@ -20,11 +20,10 @@
 // at 8*C), 0.9*C flops/byte: bytes at C <= 192, operations above; over the
 // flagship's 18 blocks the bytes dominate.
 //
-// The Hopper kernels take most calls (the Python wrapper's `route`):
+// The Hopper kernels take every call (the Python wrapper's `route`):
 // convnext_mlp_wgmma.cu for bf16 and float32 activations up to C = 768,
-// convnext_mlp_wide.cu for bf16 at 1024 and 1536. This one serves float32
-// activations at 1024 and 1536; its other instantiations stay compiled, as
-// the yardstick the card's checks time beside the Hopper kernels.
+// convnext_mlp_wide.cu for both at 1024 and 1536. This one stays compiled
+// as the yardstick the card's checks time beside them.
 //
 // Design. One block of 8 to 16 warps takes BM rows (64 up to C=384, 48 at
 // C=768, 32 or 16 above), so the float32 [BM, C] product of the second

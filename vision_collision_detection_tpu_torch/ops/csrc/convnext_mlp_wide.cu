@@ -1,6 +1,6 @@
-// K3 for bf16 activations at the widths of ConvNeXt base's and large's last
-// stage (C = 1024, 1536; the entry also takes 768): the ConvNeXt block after
-// the depthwise conv,
+// K3 for bf16 or float32 activations at the widths of ConvNeXt base's and
+// large's last stage (C = 1024, 1536; the entry also takes 768): the
+// ConvNeXt block after the depthwise conv,
 //   out = x + gamma * (GELU(LN(y) @ W1 + b1) @ W2 + b2),
 // eval and train variants of one entry.
 //
@@ -11,8 +11,11 @@
 // bf16; products on bf16 with float32 accumulation; h_pre = t @ W1 + b1
 // rounded to bf16; GELU (tanh or erf) in float32, rounded to bf16 (the erf
 // form by a branch-free approximation, `gelu_erf`); the residual added in
-// float32. The train variant also writes t, h_pre and
-// m = h @ W2 + b2 in bf16; out uses the float32 m.
+// float32 and stored in x's dtype. The train variant also writes t, h_pre
+// and m = h @ W2 + b2 in bf16; out uses the float32 m. float32 activations
+// change only what is read and written at the ends: y is read as float32
+// by the LayerNorm row kernel (t is bf16 in both dtypes), and GEMM 2 reads
+// x and writes out as float32.
 //
 // Bound on the H100: operations (16*C^2 flops a row: 164 GFLOP at
 // [9800, 1024], 0.166 ms; 370 GFLOP at [9800, 1536], 0.374 ms).
@@ -64,11 +67,20 @@
 //   and the next tile; rows past M are neither loaded nor stored.
 // - GELU's erf form is a branch-free approximation (`gelu_erf`): erff
 //   took 0.07 ms of GEMM 1 at [9800, 1024].
+// - float32 x and out. A 128-byte swizzled row holds 32 float32 columns,
+//   not 64, so the same two staging tiles hold 64 columns of out, not 128:
+//   GEMM 2's float32 epilogue stages F32_ROUND = 64 columns a round, twice
+//   the rounds at the same bytes, and the ring keeps all its stages. (The
+//   other choice, 128 columns a round in four tiles with one ring stage
+//   less, is F32_ROUND = 128; scripts/ab_convnext_mlp_wide_variants.py
+//   times the two.) The saved m stays bf16, 128 columns a round.
 // BN is 256 or 128, chosen per GEMM by how evenly the tiles fill the
 // resident clusters' rounds (`pick_tile_n`). No split of the depth and no
 // atomics: two calls are bit-equal, and eval and train run the same code
 // (the train variant's extra passes are a runtime choice), so their out is
 // bit-equal.
+#include <type_traits>
+
 #include "convnext_mlp_common.cuh"
 #include "hopper.cuh"
 
@@ -80,18 +92,41 @@ constexpr int BM = 128;  // rows of an output tile: two warpgroups of 64
 constexpr int BK = 64;   // depth of a stage: one 128-byte swizzled row
 constexpr int CONSUMERS = 2;
 constexpr int CLUSTER = 2;  // blocks that share each B tile
+// Columns of float32 out (and of x) that one round of GEMM 2's float32
+// epilogue stages: 64 fill the two tiles that bf16 fills with 128.
+constexpr int F32_ROUND = 64;
 
-// The ring takes 192 KB: four stages of [128 + 256] x 64 or six of
-// [128 + 128] x 64. The epilogue stages 128 x 128 of a result at a time in
-// two swizzled 64-column tiles (32 KB) that TMA stores, and that TMA
-// first fills with the residual x in GEMM 2.
-template <int BN>
+// GELU's form in GEMM 1's epilogue (UP_*); GEMM 2's epilogue writing bf16
+// out (DOWN) or float32 out (DOWN_F32).
+enum Mode { UP_TANH, UP_ERF, DOWN, DOWN_F32 };
+
+// What an epilogue round stages: ROUND columns of a result of type T (out
+// in GEMM 2, h in GEMM 1) in TILES swizzled tiles of BM rows of 128 bytes.
+// STAGING: the tiles' bytes, which also hold 128 columns of a bf16 result
+// (the saved h_pre or m).
+template <int MODE>
+struct Out {
+  using T = std::conditional_t<MODE == DOWN_F32, float, bf16>;
+  static constexpr int ROUND = MODE == DOWN_F32 ? F32_ROUND : 128;
+  static constexpr int TILE_COLS = 128 / (int)sizeof(T);
+  static constexpr int TILES = ROUND / TILE_COLS;
+  static constexpr int STAGING =
+      (TILES > 2 ? TILES : 2) * BM * 128;
+};
+
+// The ring takes 192 KB, or what the staging tiles leave of 227 KB: four
+// stages of [128 + 256] x 64 or six of [128 + 128] x 64 beside 32 KB of
+// staging tiles. The epilogue stages a result in those tiles that TMA
+// stores, and that TMA first fills with the residual x in GEMM 2.
+template <int BN, int STAGING>
 struct Gemm {
   static constexpr int A_BYTES = BM * 128;
   static constexpr int STAGE = A_BYTES + BN * 128;
-  static constexpr int STAGES = 196608 / STAGE;
+  static constexpr int RING_MAX = 232448 - 1024 - 256 - STAGING;
+  static constexpr int STAGES =
+      (RING_MAX < 196608 ? RING_MAX : 196608) / STAGE;
   static constexpr int OUT = STAGES * STAGE;  // the staging tiles
-  static constexpr int FULL = OUT + 2 * BM * 128, EMPTY = FULL + 8 * STAGES;
+  static constexpr int FULL = OUT + STAGING, EMPTY = FULL + 8 * STAGES;
   static constexpr int X_FULL = EMPTY + 8 * STAGES;  // x's load
   static constexpr int DYNAMIC = X_FULL + 8 + 1024;
   static_assert(DYNAMIC <= 232448, "shared memory of one block");
@@ -176,9 +211,9 @@ __device__ __forceinline__ float gelu_fast(float v) {
 }
 
 // GEMM 1 (UP): h_pre = acc + b1 rounded to bf16 (stored too where `saved`),
-// h = GELU(h_pre) rounded to bf16 (the output). GEMM 2 (DOWN): m = acc + b2
-// (stored in bf16 where `saved`), out = x + gamma * m.
-enum Mode { UP_TANH, UP_ERF, DOWN };
+// h = GELU(h_pre) rounded to bf16 (the output). GEMM 2 (DOWN, DOWN_F32):
+// m = acc + b2 (stored in bf16 where `saved`), out = x + gamma * m in x's
+// dtype.
 
 struct Epilogue {
   const float* bias;   // b1 [N] or b2 [N]
@@ -186,12 +221,16 @@ struct Epilogue {
   int saved;           // the train variant: h_pre (UP) or m (DOWN) too
 };
 
-// Byte offset in the staging tiles of a thread's two columns 8j + 2tg
-// (j < 16) of staging row r: tile j / 8, 16-byte chunk j % 8 of row r,
-// swizzled as TMA reads it. The eight rows of a warp's store fall on eight
-// chunks, so its 32 words hit 32 banks.
-__device__ __forceinline__ int staged(int r, int j, int tg) {
-  return (j / 8) * (BM * 128) + sw128_chunk(r, j % 8) + 4 * tg;
+// Byte offset in the staging tiles of a thread's two columns cr = 8j + 2tg
+// of staging row r, for values of type T: tile cr / (128 / sizeof(T)), its
+// 16-byte chunk of row r swizzled as TMA reads it. bf16: the eight rows of
+// a warp's store fall on eight chunks, so its 32 words hit 32 banks;
+// float32: its 256 bytes take two wavefronts, each bank hit twice.
+template <typename T>
+__device__ __forceinline__ int staged(int r, int cr) {
+  constexpr int TC = 128 / (int)sizeof(T), E = 16 / (int)sizeof(T);
+  return (cr / TC) * (BM * 128) + sw128_chunk(r, (cr % TC) / E) +
+         (int)sizeof(T) * (cr % E);
 }
 
 // What the two consumer warpgroups share in the epilogue: the staging
@@ -208,93 +247,120 @@ struct Staging {
     if (leader) tma_store_wait_read();
     named_barrier(1, CONSUMERS * 128);
   }
-  // Every thread has written its part: store the 128 x 128 at (col, row).
+  // Every thread has written its part: store the TILES tiles of TC
+  // columns each at (col, row).
+  template <int TILES, int TC>
   __device__ __forceinline__ void store(const CUtensorMap* map, int col,
                                         int row) {
     fence_proxy_async();
     named_barrier(1, CONSUMERS * 128);
     if (leader) {
-      tma_store_2d(map, addr, col, row);
-      tma_store_2d(map, addr + BM * 128, col + 64, row);
+#pragma unroll
+      for (int i = 0; i < TILES; ++i)
+        tma_store_2d(map, addr + i * BM * 128, col + i * TC, row);
     }
   }
-  // The leader's load of x's 128 x 128 at (col, row) into the tiles, once
-  // they are free.
+  // The leader's load of a round of x (O::ROUND columns at (col, row)) into
+  // the tiles, once they are free.
+  template <typename O>
   __device__ __forceinline__ void load_x(const CUtensorMap* map, int col,
                                          int row) {
-    mbar_arrive_expect(x_full, 2 * BM * 128);
-    tma_load_2d(addr, map, x_full, col, row);
-    tma_load_2d(addr + BM * 128, map, x_full, col + 64, row);
+    mbar_arrive_expect(x_full, O::TILES * BM * 128);
+#pragma unroll
+    for (int i = 0; i < O::TILES; ++i)
+      tma_load_2d(addr + i * BM * 128, map, x_full, col + i * O::TILE_COLS,
+                  row);
   }
 };
 
 // The tile's epilogue, 128 columns at a time: this thread's rows r and
 // r + 8 of the tile (r = its warpgroup's 64 rows, its warp's 16, lane / 4),
 // its columns 2 tg and the next of every group of eight. In GEMM 2 the
-// leader has already asked for x's first 128 columns (at the tile's start);
-// out is computed in place over x in the tiles.
+// leader has already asked for x's first round (at the tile's start); out
+// is computed in place over x in the tiles, a round (Out<MODE>::ROUND
+// columns) at a time.
 template <int MODE, int BN>
 __device__ __forceinline__ void epilogue(
     const float (&acc)[BN / 2], const Epilogue& ep, Staging& st,
     const CUtensorMap* map_out, const CUtensorMap* map_saved,
     const CUtensorMap* map_x, int r, int tg, int row0, int col0) {
+  using O = Out<MODE>;
 #pragma unroll
   for (int hc = 0; hc < BN / 128; ++hc) {
     const int c0 = col0 + 128 * hc;
-    // the bf16 result of acc + bias into the tiles, after `f` of it, of
-    // gamma and of the tiles' value there
+    // the bf16 result of acc + bias over these 128 columns into the tiles,
+    // after `f` of it
     auto write = [&](auto f) {
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int jj = 16 * hc + j, c = c0 + 8 * j + 2 * tg;
         const float2 bias = __ldg(reinterpret_cast<const float2*>(ep.bias + c));
-        float2 gamma = {};
-        if constexpr (MODE == DOWN)
-          gamma = __ldg(reinterpret_cast<const float2*>(ep.gamma + c));
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          __nv_bfloat162* at = reinterpret_cast<__nv_bfloat162*>(
-              st.tiles + staged(r + 8 * half, j, tg));
-          *at = f(acc[4 * jj + 2 * half] + bias.x,
-                  acc[4 * jj + 2 * half + 1] + bias.y, gamma, at);
-        }
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<__nv_bfloat162*>(
+              st.tiles + staged<bf16>(r + 8 * half, 8 * j + 2 * tg)) =
+              f(acc[4 * jj + 2 * half] + bias.x,
+                acc[4 * jj + 2 * half + 1] + bias.y);
       }
     };
-    if constexpr (MODE == DOWN) {
-      if (hc > 0) {
-        st.wait_free();
-        if (st.leader) st.load_x(map_x, c0, row0);
+    auto to_bf16 = [](float v0, float v1) {
+      return __floats2bfloat162_rn(v0, v1);
+    };
+    if constexpr (MODE == DOWN || MODE == DOWN_F32) {
+      using T = typename O::T;
+#pragma unroll
+      for (int rd = 0; rd < 128 / O::ROUND; ++rd) {
+        const int cr0 = rd * O::ROUND;  // the round's first column
+        if (hc > 0 || rd > 0) {
+          st.wait_free();
+          if (st.leader) st.load_x<O>(map_x, c0 + cr0, row0);
+        }
+        mbar_wait(st.x_full, st.x_uses++ & 1);
+#pragma unroll
+        for (int j = 0; j < O::ROUND / 8; ++j) {
+          const int jj = 16 * hc + cr0 / 8 + j, cr = 8 * j + 2 * tg;
+          const int c = c0 + cr0 + cr;
+          const float2 bias =
+              __ldg(reinterpret_cast<const float2*>(ep.bias + c));
+          const float2 g = __ldg(reinterpret_cast<const float2*>(ep.gamma + c));
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float m0 = acc[4 * jj + 2 * half] + bias.x;
+            const float m1 = acc[4 * jj + 2 * half + 1] + bias.y;
+            unsigned char* at = st.tiles + staged<T>(r + 8 * half, cr);
+            if constexpr (MODE == DOWN_F32) {
+              float2* o = reinterpret_cast<float2*>(at);
+              const float2 x = *o;
+              *o = make_float2(x.x + g.x * m0, x.y + g.y * m1);
+            } else {
+              __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(at);
+              const float2 x = __bfloat1622float2(*o);
+              *o = __floats2bfloat162_rn(x.x + g.x * m0, x.y + g.y * m1);
+            }
+          }
+        }
+        st.store<O::TILES, O::TILE_COLS>(map_out, c0 + cr0, row0);
       }
-      mbar_wait(st.x_full, st.x_uses++ & 1);
-      write([](float m0, float m1, float2 g, const __nv_bfloat162* xv) {
-        const float2 x = __bfloat1622float2(*xv);
-        return __floats2bfloat162_rn(x.x + g.x * m0, x.y + g.y * m1);
-      });
-      st.store(map_out, c0, row0);
       if (ep.saved) {
         st.wait_free();
-        write([](float m0, float m1, float2, const __nv_bfloat162*) {
-          return __floats2bfloat162_rn(m0, m1);
-        });
-        st.store(map_saved, c0, row0);
+        write(to_bf16);
+        st.store<2, 64>(map_saved, c0, row0);
       }
     } else {
       if (ep.saved) {
         st.wait_free();
-        write([](float v0, float v1, float2, const __nv_bfloat162*) {
-          return __floats2bfloat162_rn(v0, v1);
-        });
-        st.store(map_saved, c0, row0);
+        write(to_bf16);
+        st.store<2, 64>(map_saved, c0, row0);
       }
       st.wait_free();
-      write([](float v0, float v1, float2, const __nv_bfloat162*) {
+      write([](float v0, float v1) {
         const float2 hf =
             __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
         constexpr bool APPROX = MODE == UP_TANH;
         return __floats2bfloat162_rn(gelu_fast<APPROX>(hf.x),
                                      gelu_fast<APPROX>(hf.y));
       });
-      st.store(map_out, c0, row0);
+      st.store<2, 64>(map_out, c0, row0);
     }
   }
 }
@@ -353,7 +419,7 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_saved,
                  const __grid_constant__ CUtensorMap map_x, Epilogue ep,
                  int M, int N, int K) {
-  using G = Gemm<BN>;
+  using G = Gemm<BN, Out<MODE>::STAGING>;
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = smem_u32(smem_raw);
   const unsigned base = (raw + 1023u) & ~1023u;
@@ -425,9 +491,9 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       const int col0 = tile % col_tiles * BN;
       // GEMM 2: x's first 128 columns load while the products run, once
       // the last tile's stores have read the staging tiles
-      if (MODE == DOWN && st.leader) {
+      if ((MODE == DOWN || MODE == DOWN_F32) && st.leader) {
         tma_store_wait_read();
-        st.load_x(&map_x, col0, row0);
+        st.load_x<Out<MODE>>(&map_x, col0, row0);
       }
       fence(acc);
       for (int kt = 0; kt < k_tiles; ++kt, ++g) {
@@ -465,31 +531,42 @@ wide_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ---- LayerNorm: a warp a row ---------------------------------------------
 
-// t = LN(y) rounded to bf16, rows of C = 256 * PER_LANE: lane l holds the
-// 16-byte vectors l, l + 32, ... of its row.
-template <int PER_LANE>
+// Eight values of y from 16 (bf16) or 32 (float32) bytes, as float32.
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 v = __bfloat1622float2(b[k]);
+    f[2 * k] = v.x;
+    f[2 * k + 1] = v.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+// t = LN(y) rounded to bf16, rows of C = 256 * PER_LANE of y in bf16 or
+// float32: lane l holds the 8-column vectors l, l + 32, ... of its row.
+template <typename T, int PER_LANE>
 __global__ void __launch_bounds__(256)
-wide_ln_kernel(const bf16* __restrict__ y, const float* __restrict__ ln_w,
+wide_ln_kernel(const T* __restrict__ y, const float* __restrict__ ln_w,
                const float* __restrict__ ln_b, bf16* __restrict__ t, int M) {
   constexpr int C = 256 * PER_LANE;
   const int lane = threadIdx.x % 32;
   const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
   if (row >= M) return;
-  const uint4* yr = reinterpret_cast<const uint4*>(y + row * C);
   uint4* tr = reinterpret_cast<uint4*>(t + row * C);
   float v[PER_LANE][8];
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < PER_LANE; ++i) {
-    const uint4 u = yr[lane + 32 * i];
-    const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+    load8(y + row * C + (lane + 32 * i) * 8, v[i]);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(b[k]);
-      v[i][2 * k] = f.x;
-      v[i][2 * k + 1] = f.y;
-      s += f.x + f.y;
-    }
+    for (int k = 0; k < 4; ++k) s += v[i][2 * k] + v[i][2 * k + 1];
   }
   const float mu = warp_sum(s) / C;
   float q = 0.f;
@@ -529,9 +606,10 @@ struct Launch {
 
   explicit Launch(cudaStream_t stream) {
     auto kernel = wide_gemm_kernel<BN, MODE>;
+    using G = Gemm<BN, Out<MODE>::STAGING>;
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Gemm<BN>::DYNAMIC);
+                               G::DYNAMIC);
     // all of the SM's 228 KB as shared memory
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel,
@@ -542,7 +620,7 @@ struct Launch {
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     config.blockDim = dim3(THREADS);
-    config.dynamicSmemBytes = Gemm<BN>::DYNAMIC;
+    config.dynamicSmemBytes = G::DYNAMIC;
     config.stream = stream;
     config.attrs = attr;
     config.numAttrs = 1;
@@ -569,7 +647,8 @@ int pick_tile_n(int M, int N, int clusters) {
 }
 
 // One GEMM launch: A [M, K] and B [N, K] bf16, row-major; the epilogue's
-// output, `saved` (or null) and x (GEMM 2) bf16 [M, N].
+// output and x (GEMM 2) [M, N] in bf16, or float32 in DOWN_F32; `saved`
+// (or null) bf16 [M, N].
 template <int BN, int MODE>
 cudaError_t gemm(const void* a, const void* b, void* out, void* saved,
                  const void* x, const Epilogue& ep, int M, int N, int K,
@@ -580,19 +659,25 @@ cudaError_t gemm(const void* a, const void* b, void* out, void* saved,
   const cuuint64_t da[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t db[2] = {(cuuint64_t)K, (cuuint64_t)N};
   const cuuint64_t dout[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  using O = Out<MODE>;
+  const CUtensorMapDataType out_type = MODE == DOWN_F32
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t stride[1] = {(cuuint64_t)K * 2};
-  const cuuint64_t out_stride[1] = {(cuuint64_t)N * 2};
+  const cuuint64_t out_stride[1] = {(cuuint64_t)N * sizeof(typename O::T)};
+  const cuuint64_t saved_stride[1] = {(cuuint64_t)N * 2};
   const cuuint32_t box_a[2] = {BK, BM}, box_b[2] = {BK, BN / CLUSTER};
-  const cuuint32_t box_out[2] = {64, BM};
+  const cuuint32_t box_out[2] = {(cuuint32_t)O::TILE_COLS, BM};
+  const cuuint32_t box_saved[2] = {64, BM};
   cudaError_t err;
   if ((err = make_bf16_map(&ma, a, 2, da, stride, box_a)) != cudaSuccess ||
       (err = make_bf16_map(&mb, b, 2, db, stride, box_b)) != cudaSuccess ||
-      (err = make_bf16_map(&mo, out, 2, dout, out_stride, box_out)) !=
+      (err = make_map(&mo, out_type, out, 2, dout, out_stride, box_out)) !=
           cudaSuccess ||
-      (err = make_bf16_map(&ms, saved ? saved : out, 2, dout, out_stride,
-                           box_out)) != cudaSuccess ||
-      (err = make_bf16_map(&mx, x ? x : out, 2, dout, out_stride,
-                           box_out)) != cudaSuccess)
+      (err = make_bf16_map(&ms, saved ? saved : out, 2, dout, saved_stride,
+                           box_saved)) != cudaSuccess ||
+      (err = make_map(&mx, out_type, x ? x : out, 2, dout, out_stride,
+                      box_out)) != cudaSuccess)
     return err;
   const int tiles =
       (M + CLUSTER * BM - 1) / (CLUSTER * BM) * (N / BN);
@@ -614,20 +699,21 @@ cudaError_t gemm_any(const void* a, const void* b, void* out, void* saved,
              : gemm<256, MODE>(a, b, out, saved, x, ep, M, N, K, stream);
 }
 
+template <typename T>
 cudaError_t layer_norm(const void* y, const void* ln_w, const void* ln_b,
                        void* t, int M, int C, cudaStream_t stream) {
   const int blocks = (M + 7) / 8;
-  const bf16* yb = (const bf16*)y;
+  const T* yt = (const T*)y;
   const float *w = (const float*)ln_w, *b = (const float*)ln_b;
   switch (C) {
     case 768:
-      wide_ln_kernel<3><<<blocks, 256, 0, stream>>>(yb, w, b, (bf16*)t, M);
+      wide_ln_kernel<T, 3><<<blocks, 256, 0, stream>>>(yt, w, b, (bf16*)t, M);
       break;
     case 1024:
-      wide_ln_kernel<4><<<blocks, 256, 0, stream>>>(yb, w, b, (bf16*)t, M);
+      wide_ln_kernel<T, 4><<<blocks, 256, 0, stream>>>(yt, w, b, (bf16*)t, M);
       break;
     default:
-      wide_ln_kernel<6><<<blocks, 256, 0, stream>>>(yb, w, b, (bf16*)t, M);
+      wide_ln_kernel<T, 6><<<blocks, 256, 0, stream>>>(yt, w, b, (bf16*)t, M);
   }
   return cudaGetLastError();
 }
@@ -637,25 +723,28 @@ cudaError_t layer_norm(const void* y, const void* ln_w, const void* ln_b,
 // The stages of one call, as bits of `stages`: LN, GEMM 1, GEMM 2 (7: the
 // whole block). A stage reads what the stages before it write.
 //
-// x, y, out, t: bf16 [M, C]; h, h_pre: bf16 [M, 4C]; m: bf16 [M, C]; all
-// contiguous and 16-byte aligned. ln_w, ln_b, b2, gamma: float32 [C]; b1:
-// float32 [4C]; w1: bf16 [4C, C] and w2: bf16 [C, 4C], nn.Linear's layout.
-// t and h are the caller's scratch (t is the train variant's saved t); h_pre
-// and m are null in the eval variant, and given in the train variant. C is
-// 768, 1024 or 1536.
+// dtype: 0 = bfloat16, 1 = float32, the dtype of x, y and out [M, C]; t:
+// bf16 [M, C]; h, h_pre: bf16 [M, 4C]; m: bf16 [M, C]; all contiguous and
+// 16-byte aligned. ln_w, ln_b, b2, gamma: float32 [C]; b1: float32 [4C];
+// w1: bf16 [4C, C] and w2: bf16 [C, 4C], nn.Linear's layout. t and h are
+// the caller's scratch (t is the train variant's saved t); h_pre and m are
+// null in the eval variant, and given in the train variant. C is 768, 1024
+// or 1536.
 extern "C" int vcd_convnext_mlp_wide(
     const void* x, const void* y, const void* ln_w, const void* ln_b,
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* gamma, void* out, void* t, void* h, void* h_pre, void* m,
-    int M, int C, int approximate, int stages, void* stream_) {
+    int M, int C, int approximate, int dtype, int stages, void* stream_) {
   if (M < 0 || (C != 768 && C != 1024 && C != 1536) || stages < 1 ||
-      stages > 7)
+      stages > 7 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   const cudaStream_t stream = (cudaStream_t)stream_;
   cudaError_t err;
   if ((stages & 1) &&
-      (err = layer_norm(y, ln_w, ln_b, t, M, C, stream)) != cudaSuccess)
+      (err = dtype ? layer_norm<float>(y, ln_w, ln_b, t, M, C, stream)
+                   : layer_norm<bf16>(y, ln_w, ln_b, t, M, C, stream)) !=
+          cudaSuccess)
     return (int)err;
   if (stages & 2) {
     const Epilogue up{(const float*)b1, nullptr, h_pre != nullptr};
@@ -667,9 +756,10 @@ extern "C" int vcd_convnext_mlp_wide(
   }
   if (stages & 4) {
     const Epilogue down{(const float*)b2, (const float*)gamma, m != nullptr};
-    if ((err = gemm_any<DOWN>(h, w2, out, m, x, down, M, C, 4 * C,
-                              stream)) != cudaSuccess)
-      return (int)err;
+    err = dtype ? gemm_any<DOWN_F32>(h, w2, out, m, x, down, M, C, 4 * C,
+                                     stream)
+                : gemm_any<DOWN>(h, w2, out, m, x, down, M, C, 4 * C, stream);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
 }

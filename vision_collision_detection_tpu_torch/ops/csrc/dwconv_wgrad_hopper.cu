@@ -1,9 +1,9 @@
 // K2 weight gradient on Hopper: the per-tap reduction of the depthwise 7x7
 // convolution's backward,
 //   dw[dy*7 + dx, c] = sum over n, h, w of x[n, h+dy-3, w+dx-3, c] * g[n, h, w, c]
-// with the halo read as zero, summed in float32, for bf16 NHWC x and g with
-// C a multiple of 32 (every ConvNeXt width); float32 and other widths keep
-// dwconv_wgrad.cu.
+// with the halo read as zero, summed in float32, for NHWC x and g of one
+// dtype, bf16 or float32, with C a multiple of 32 (every ConvNeXt width);
+// other widths keep dwconv_wgrad.cu.
 //
 // Replaces the TPU kernel vision_collision_detection_tpu/ops/dwconv_pallas.py
 // `_run_wgrad` (`_wgrad_kernel`). That kernel added each frame's sums into
@@ -12,10 +12,11 @@
 // a second kernel adds the blocks' partial sums in a fixed order. No float
 // atomics: two runs give the same dw bit for bit.
 //
-// Bound on the H100: operations on the CUDA cores. 49 float32 FMAs (98
-// flops) per input element against 4 bytes read (bf16 x and g), so at 67
-// TFLOP/s the FMAs take longer than the bytes at 3.35 TB/s. There is no sum
-// over channels, so no operand for the tensor cores to share.
+// Bound on the H100. bf16: operations on the CUDA cores, 49 float32 FMAs
+// (98 flops) per input element against 4 bytes read (x and g), so at 67
+// TFLOP/s the FMAs take longer than the bytes at 3.35 TB/s. float32: the
+// bytes double (8 an element) and bound it, 1.6 times the FMAs' time. There
+// is no sum over channels, so no operand for the tensor cores to share.
 //
 // Design (the dual of dwconv_hopper.cu's stencil: where the forward holds a
 // slab's 49 taps in registers, this kernel holds its 49 sums):
@@ -24,15 +25,22 @@
 // - A work item is a band of RB rows of g across the whole frame width (W <=
 //   64; wider frames take column tiles), or F whole frames where H <= 16 and
 //   a frame fits. Its x band (RB + 6 rows, a 3-pixel halo on every side) and
-//   its g band are copied as bf16 by 16-byte cp.async (out-of-frame pixels
-//   zero-filled by the copy's source size) into a two-deep ring in shared
-//   memory, so item k+1's copies run under item k's FMAs. No float32 tile:
-//   bf16 pairs are converted to float32 in registers as they are read.
+//   its g band are copied in x's dtype by 16-byte cp.async (out-of-frame
+//   pixels zero-filled by the copy's source size) into a two-deep ring in
+//   shared memory, so item k+1's copies run under item k's FMAs. No float32
+//   tile for bf16: its pairs are converted to float32 in registers as they
+//   are read; float32 pairs are read as they are, and no value of x or g is
+//   rounded.
+// - A float32 pixel of a slab takes 128 bytes, twice a bf16 one, so the
+//   same band takes twice the ring: `pick` plans bands as short as 2 rows
+//   (4 at 56x56, 8 at 28x28; whole frames still fit at 14x14 and 7x7). The
+//   halo rows then grow as (RB + 6) / RB, read again from L2, not from
+//   device memory.
 // - Compute: a thread owns one channel pair and so 49 float2 sums. For each
 //   strip of g it is given (2 rows x CC columns of its pair, held in
 //   registers) it streams the 8 x rows those g rows meet, one pixel at a
 //   time; each x pair feeds up to 7 taps x 2 g rows, about 12 FMAs per
-//   4-byte shared-memory load. (The forward's empty asm between rows, which
+//   shared-memory load. (The forward's empty asm between rows, which
 //   kept ptxas from spilling there, changes nothing here: no spills either
 //   way.)
 // - End: the threads that share a channel pair add their sums in shared
@@ -41,6 +49,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -54,7 +63,6 @@ constexpr int TAPS = K * K;
 constexpr int SLAB = 32;            // channels per block
 constexpr int PAIRS = SLAB / 2;     // threads of a strip slot
 constexpr int R = 2;                // g rows of a strip
-constexpr int PX = SLAB * 2;        // bytes of a staged pixel (bf16)
 constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block may use
 
 struct Geo {
@@ -86,9 +94,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float2 bf2_to_float2(uint32_t v) {
+// bytes of a staged pixel of a slab, and its 16-byte chunks
+template <typename T>
+constexpr int PX = SLAB * (int)sizeof(T);
+template <typename T>
+constexpr int CHUNKS = PX<T> / 16;
+
+// A channel pair as staged: one 32-bit word of two bf16, or a float2.
+template <typename T>
+using Pair2 = std::conditional_t<std::is_same_v<T, bf16>, uint32_t, float2>;
+
+__device__ __forceinline__ float2 to_float2(uint32_t v) {
   return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
 }
+__device__ __forceinline__ float2 to_float2(float2 v) { return v; }
 
 // item -> (first frame, first row, first column)
 __device__ __forceinline__ void item_origin(const Geo& g, int item, int& n0,
@@ -100,29 +119,31 @@ __device__ __forceinline__ void item_origin(const Geo& g, int item, int& n0,
   n0 = (rest / g.nbands) * g.F;
 }
 
-// The item's x tile (halo included) and g tile as bf16 into one stage of the
-// ring, a tile row a warp at a time, 16 bytes (8 channels) a lane. g pixels
-// outside the item (past its band, its column tile or the frame) are zero,
-// so the strips that cover them add nothing.
-__device__ __forceinline__ void issue_item(const Geo& g, const bf16* x,
-                                           const bf16* gin, unsigned stage,
+// The item's x tile (halo included) and g tile in their dtype into one
+// stage of the ring, a tile row a warp at a time, 16 bytes (8 bf16 or 4
+// float32 channels) a lane. g pixels outside the item (past its band, its
+// column tile or the frame) are zero, so the strips that cover them add
+// nothing.
+template <typename T>
+__device__ __forceinline__ void issue_item(const Geo& g, const T* x,
+                                           const T* gin, unsigned stage,
                                            int c0, int item, int warp,
                                            int lane, int nwarps) {
+  constexpr int CH = CHUNKS<T>, EL = 16 / (int)sizeof(T);
   int n0, h0, w0;
   item_origin(g, item, n0, h0, w0);
   for (int row = warp; row < g.F * g.TH; row += nwarps) {
     const int f = row / g.TH;
     const int n = n0 + f, gy = h0 - PAD + (row - f * g.TH);
     const bool rv = n < g.N && gy >= 0 && gy < g.H;
-    const bf16* src_row =
+    const T* src_row =
         x + ((size_t)(rv ? n : 0) * g.H + (rv ? gy : 0)) * g.W * g.C + c0;
-    const unsigned dst_row = stage + (unsigned)(row * g.TWH) * PX;
-    for (int c = lane; c < g.TWH * 4; c += 32) {
-      const int gx = w0 - PAD + (c >> 2);
+    const unsigned dst_row = stage + (unsigned)(row * g.TWH) * PX<T>;
+    for (int c = lane; c < g.TWH * CH; c += 32) {
+      const int gx = w0 - PAD + c / CH;
       const bool v = rv && gx >= 0 && gx < g.W;
       cp_async16_zfill(dst_row + c * 16,
-                       v ? src_row + (size_t)gx * g.C + (c & 3) * 8
-                         : (const bf16*)x,
+                       v ? src_row + (size_t)gx * g.C + (c % CH) * EL : x,
                        v);
     }
   }
@@ -132,27 +153,27 @@ __device__ __forceinline__ void issue_item(const Geo& g, const bf16* x,
     const int rr = row - f * g.GH;
     const int n = n0 + f, gy = h0 + rr;
     const bool rv = n < g.N && rr < g.RB && gy < g.H;
-    const bf16* src_row =
+    const T* src_row =
         gin + ((size_t)(rv ? n : 0) * g.H + (rv ? gy : 0)) * g.W * g.C + c0;
-    const unsigned dst_row = gstage + (unsigned)(row * g.GW) * PX;
-    for (int c = lane; c < g.GW * 4; c += 32) {
-      const int col = c >> 2;
+    const unsigned dst_row = gstage + (unsigned)(row * g.GW) * PX<T>;
+    for (int c = lane; c < g.GW * CH; c += 32) {
+      const int col = c / CH;
       const int gx = w0 + col;
       const bool v = rv && col < g.TW && gx < g.W;
       cp_async16_zfill(dst_row + c * 16,
-                       v ? src_row + (size_t)gx * g.C + (c & 3) * 8
-                         : (const bf16*)gin,
+                       v ? src_row + (size_t)gx * g.C + (c % CH) * EL : gin,
                        v);
     }
   }
   cp_async_commit();
 }
 
-template <int CC, int SLOTS>
+template <typename T, int CC, int SLOTS>
 __global__ void __launch_bounds__(SLOTS * PAIRS, 1)
-dwconv_wgrad_hopper_kernel(const bf16* __restrict__ x,
-                           const bf16* __restrict__ gin,
+dwconv_wgrad_hopper_kernel(const T* __restrict__ x,
+                           const T* __restrict__ gin,
                            float* __restrict__ partial, const Geo g) {
+  using P2 = Pair2<T>;
   constexpr int NT = SLOTS * PAIRS;
   constexpr int NWARPS = NT / 32;
   constexpr int WIN = CC + K - 1;  // x columns a strip's row meets
@@ -182,37 +203,37 @@ dwconv_wgrad_hopper_kernel(const bf16* __restrict__ x,
   else
     cp_async_commit();
 
-  const int x_row = g.TWH * PAIRS;  // bf16 pairs per x tile row
+  const int x_row = g.TWH * PAIRS;  // channel pairs per x tile row
   int k = 0;
   for (int item = first; item < g.items; item += g.bps, ++k) {
     cp_async_wait_older();
     __syncthreads();  // item k's tiles have landed for every thread
     const unsigned char* st = smem + (size_t)(k & 1) * g.stage_bytes;
-    const uint32_t* xt = reinterpret_cast<const uint32_t*>(st);
-    const uint32_t* gt = reinterpret_cast<const uint32_t*>(st + g.x_bytes);
+    const P2* xt = reinterpret_cast<const P2*>(st);
+    const P2* gt = reinterpret_cast<const P2*>(st + g.x_bytes);
     for (int grp = slot; grp < g.groups; grp += SLOTS) {
       const int cg = grp % g.cgroups;
       const int rest = grp / g.cgroups;
       const int r0 = (rest % g.rgroups) * R;
       const int f = rest / g.rgroups;
       const int col0 = cg * CC;
-      const uint32_t* gb = gt + ((f * g.GH + r0) * g.GW + col0) * PAIRS + p;
+      const P2* gb = gt + ((f * g.GH + r0) * g.GW + col0) * PAIRS + p;
       float2 gv[R][CC];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < CC; ++j)
-          gv[r][j] = bf2_to_float2(gb[(r * g.GW + j) * PAIRS]);
-      const uint32_t* xb = xt + ((f * g.TH + r0) * g.TWH + col0) * PAIRS + p;
+          gv[r][j] = to_float2(gb[(r * g.GW + j) * PAIRS]);
+      const P2* xb = xt + ((f * g.TH + r0) * g.TWH + col0) * PAIRS + p;
       // x row iy meets g row r through kernel row dy = iy - r, and x column
       // jj meets g column j through tap dx = jj - j; each sum takes its
       // terms in (iy, jj) order
 #pragma unroll
       for (int iy = 0; iy < R + K - 1; ++iy) {
-        const uint32_t* rowp = xb + iy * x_row;
+        const P2* rowp = xb + iy * x_row;
 #pragma unroll
         for (int jj = 0; jj < WIN; ++jj) {
-          const float2 xv = bf2_to_float2(rowp[jj * PAIRS]);
+          const float2 xv = to_float2(rowp[jj * PAIRS]);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const int dy = iy - r;
@@ -274,14 +295,15 @@ double slot_share(int groups, int slots) {
   return (double)groups / (rounds * slots);
 }
 
-// two ring stages of an item of F frames and rb g rows
-size_t ring_bytes(const Geo& g, int F, int rb) {
+// two ring stages of an item of F frames and rb g rows, px bytes a pixel
+size_t ring_bytes(const Geo& g, int F, int rb, int px) {
   const int gh = (rb + R - 1) / R * R;
-  return 2 * (size_t)F * ((gh + 2 * PAD) * g.TWH + gh * g.GW) * PX;
+  return 2 * (size_t)F * ((gh + 2 * PAD) * g.TWH + gh * g.GW) * px;
 }
 
-// The item geometry for a shape, and the kernel variant (CC, SLOTS).
-void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
+// The item geometry for a shape whose staged pixels take px bytes, and the
+// kernel variant (CC, SLOTS).
+void pick(int N, int H, int W, int C, int px, Geo& g, int& cc, int& slots) {
   g.N = N;
   g.H = H;
   g.W = W;
@@ -293,14 +315,14 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
   g.TWH = g.GW + 2 * PAD;
   g.nct = (W + g.TW - 1) / g.TW;
   double best = -1.0;
-  if (H <= 16 && ring_bytes(g, 1, H) <= SMEM_MAX) {
+  if (H <= 16 && ring_bytes(g, 1, H, px) <= SMEM_MAX) {
     // whole frames, as many as fill the slots and the shared memory
     g.RB = H;
     g.rgroups = (H + R - 1) / R;
     const int per_frame = g.rgroups * g.cgroups;
     int F = per_frame >= 16 ? 1 : 16 / per_frame;
     if (F > N) F = N > 0 ? N : 1;
-    while (F > 1 && ring_bytes(g, F, H) > SMEM_MAX) --F;
+    while (F > 1 && ring_bytes(g, F, H, px) > SMEM_MAX) --F;
     g.F = F;
     g.groups = F * per_frame;
     for (int s : {16, 14}) {
@@ -309,11 +331,14 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
     }
   } else {
     // a band of RB rows: the largest band whose strips fill the slots and
-    // whose bands fill the frame, within the shared memory
+    // whose bands fill the frame, within the shared memory; bands under 8
+    // rows only where none of 8 or more fits (float32's pixels at a width
+    // of 56: 4 rows)
     g.F = 1;
-    g.RB = 8;
-    for (int rb : {16, 14, 12, 10, 8}) {
-      if (ring_bytes(g, 1, rb) > SMEM_MAX) continue;
+    g.RB = 2;
+    for (int rb : {16, 14, 12, 10, 8, 6, 4, 2}) {
+      if (rb < 8 && best >= 0.0) break;
+      if (ring_bytes(g, 1, rb, px) > SMEM_MAX) continue;
       const int groups = (rb / R) * g.cgroups;
       const int bands = (H + rb - 1) / rb;
       for (int s : {16, 14}) {
@@ -333,14 +358,14 @@ void pick(int N, int H, int W, int C, Geo& g, int& cc, int& slots) {
   g.TH = g.GH + 2 * PAD;
   g.nbands = (H + g.RB - 1) / g.RB;
   g.items = (N + g.F - 1) / g.F * g.nbands * g.nct;
-  g.x_bytes = g.F * g.TH * g.TWH * PX;
-  g.stage_bytes = g.x_bytes + g.F * g.GH * g.GW * PX;
+  g.x_bytes = g.F * g.TH * g.TWH * px;
+  g.stage_bytes = g.x_bytes + g.F * g.GH * g.GW * px;
 }
 
-template <int CC, int SLOTS>
-int launch(const bf16* x, const bf16* gin, float* partial, float* dw,
+template <typename T, int CC, int SLOTS>
+int launch(const T* x, const T* gin, float* partial, float* dw,
            Geo g, int max_parts, cudaStream_t stream, int* grid_out) {
-  auto kernel = dwconv_wgrad_hopper_kernel<CC, SLOTS>;
+  auto kernel = dwconv_wgrad_hopper_kernel<T, CC, SLOTS>;
   const size_t red = (size_t)TAPS * SLOTS * SLAB * 4;
   const size_t smem = 2 * (size_t)g.stage_bytes > red
                           ? 2 * (size_t)g.stage_bytes : red;
@@ -376,6 +401,7 @@ int launch(const bf16* x, const bf16* gin, float* partial, float* dw,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
 int dispatch(const void* x, const void* gin, void* partial, void* dw, int n,
              int H, int W, int C, int max_parts, cudaStream_t stream,
              int* geo_out) {
@@ -383,22 +409,22 @@ int dispatch(const void* x, const void* gin, void* partial, void* dw, int n,
     return (int)cudaErrorInvalidValue;
   Geo g;
   int cc = 8, slots = 16;
-  pick(n, H, W, C, g, cc, slots);
+  pick(n, H, W, C, PX<T>, g, cc, slots);
   int grid[2] = {0, 0};
   int* grid_out = geo_out != nullptr ? grid : nullptr;
   if (n == 0 && grid_out == nullptr)  // no terms: every sum is 0
     return (int)cudaMemsetAsync(dw, 0, (size_t)TAPS * C * 4, stream);
-  const bf16 *xp = (const bf16*)x, *gp = (const bf16*)gin;
+  const T *xp = (const T*)x, *gp = (const T*)gin;
   float *pp = (float*)partial, *dp = (float*)dw;
   int err;
   if (cc == 7 && slots == 16)
-    err = launch<7, 16>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
+    err = launch<T, 7, 16>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
   else if (cc == 7)
-    err = launch<7, 14>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
+    err = launch<T, 7, 14>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
   else if (slots == 16)
-    err = launch<8, 16>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
+    err = launch<T, 8, 16>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
   else
-    err = launch<8, 14>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
+    err = launch<T, 8, 14>(xp, gp, pp, dp, g, max_parts, stream, grid_out);
   if (err != 0) return err;
   if (geo_out != nullptr) {
     const int vals[10] = {cc, slots, g.F, g.RB, g.TW, g.groups, g.items,
@@ -408,25 +434,38 @@ int dispatch(const void* x, const void* gin, void* partial, void* dw, int n,
   return 0;
 }
 
+int dispatch(int dtype, const void* x, const void* gin, void* partial,
+             void* dw, int n, int H, int W, int C, int max_parts,
+             cudaStream_t stream, int* geo_out) {
+  if (dtype == 0)
+    return dispatch<bf16>(x, gin, partial, dw, n, H, W, C, max_parts, stream,
+                          geo_out);
+  if (dtype == 1)
+    return dispatch<float>(x, gin, partial, dw, n, H, W, C, max_parts,
+                           stream, geo_out);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x, g bf16 [n, H, W, C], contiguous, 16-byte aligned, C a multiple of 32;
-// partial float32 scratch of at least [max_parts, 49, C]; dw float32
-// [49, C].
+// dtype: 0 = bfloat16, 1 = float32. x, g [n, H, W, C] of that dtype,
+// contiguous, 16-byte aligned, C a multiple of 32; partial float32 scratch
+// of at least [max_parts, 49, C]; dw float32 [49, C].
 extern "C" int vcd_dwconv_wgrad_hopper(const void* x, const void* g,
                                        void* partial, void* dw, int n, int H,
-                                       int W, int C, int max_parts,
+                                       int W, int C, int max_parts, int dtype,
                                        void* stream) {
-  return dispatch(x, g, partial, dw, n, H, W, C, max_parts,
+  return dispatch(dtype, x, g, partial, dw, n, H, W, C, max_parts,
                   (cudaStream_t)stream, nullptr);
 }
 
-// The launch the kernel would make for a shape, without launching: geo[10]
-// receives CC, thread slots, frames an item, g rows an item, g columns an
-// item, strips an item, items a slab, grid, dynamic shared bytes, bands a
-// frame.
+// The launch the kernel would make for a shape and dtype, without
+// launching: geo[10] receives CC, thread slots, frames an item, g rows an
+// item, g columns an item, strips an item, items a slab, grid, dynamic
+// shared bytes, bands a frame.
 extern "C" int vcd_dwconv_wgrad_hopper_geometry(int n, int H, int W, int C,
-                                                int max_parts, int* geo) {
-  return dispatch(nullptr, nullptr, nullptr, nullptr, n, H, W, C, max_parts,
-                  nullptr, geo);
+                                                int max_parts, int dtype,
+                                                int* geo) {
+  return dispatch(dtype, nullptr, nullptr, nullptr, nullptr, n, H, W, C,
+                  max_parts, nullptr, geo);
 }

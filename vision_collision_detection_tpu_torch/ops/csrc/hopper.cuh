@@ -19,7 +19,8 @@
 // A operands come from registers (ldmatrix reads them out of a tile by the
 // same rule) or from a tile in shared memory, read K-major like B.
 //
-// Host side: tensor maps of bf16 operands, encoded through libcuda's
+// Host side: tensor maps of bf16 operands (and of float32 ones, whose
+// 128-byte rows hold 32 values), encoded through libcuda's
 // cuTensorMapEncodeTiled (found with dlsym: the kernels link against the
 // runtime only).
 #pragma once
@@ -302,23 +303,31 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a bf16 tensor of `rank` dimensions, innermost first, with the
-// byte strides of dimensions 1 to rank - 1 and a box of `box` elements: the
-// box's 64 innermost elements fill one 128-byte swizzled row, elements past
-// the tensor's end read as zeros.
-inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                                 const cuuint64_t* dims,
-                                 const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+// The map of a tensor of element type `type` and `rank` dimensions,
+// innermost first, with the byte strides of dimensions 1 to rank - 1 and a
+// box of `box` elements: the box's innermost 128 bytes (64 bf16, 32
+// float32) fill one swizzled row, elements past the tensor's end read as
+// zeros.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* ptr, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// make_map of a bf16 tensor.
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
+                  strides, box);
 }
 
 }  // namespace vcd

@@ -22,16 +22,20 @@ there and into the ``torch.autograd.Function`` ``_DwConv7x7`` here.
   on the CUDA cores at 67 TFLOP/s. In float32 the bytes double and bound
   it (≈ 1.0 ms over the 18).
 - The weight gradient has two kernels, chosen by ``wgrad_route`` (the
-  forward's rule for bf16 only): for bf16 x and g with C a multiple of 32
+  forward's rule): for bf16 or float32 x and g with C a multiple of 32
   ``ops/csrc/dwconv_wgrad_hopper.cu``, the dual of the forward's stencil (a
   persistent grid of 32-channel slabs, each thread's 49 float32 sums of a
-  channel pair in registers, bf16 bands in a two-deep cp.async ring,
-  converted in registers as they are read); for float32 and other widths
-  ``ops/csrc/dwconv_wgrad.cu`` (8×8 tiles). Both write float32 ``dw[49,
-  C]`` from per-block partial sums added in a fixed order, so two runs
-  agree bit for bit. The bound is operations too: 98 flops per element of
-  x (≈ 42 GFLOP over a training step's 18 launches at B=8, ≈ 0.63 ms)
-  against ≈ 1.7 GB read (≈ 0.51 ms).
+  channel pair in registers, bands in a two-deep cp.async ring in x's
+  dtype, bf16 converted in registers as it is read, float32 read as it is,
+  shorter bands for float32's larger pixels); for other widths
+  ``ops/csrc/dwconv_wgrad.cu`` (8×8 tiles), which stays as the card's
+  yardstick. Both write float32 ``dw[49, C]`` from per-block partial sums
+  added in a fixed order, so two runs agree bit for bit (the two kernels
+  partition the sums differently, so they do not agree bit for bit with
+  each other). The bound in bf16 is operations too: 98 flops per element
+  of x (≈ 42 GFLOP over a training step's 18 launches at B=8, ≈ 0.63 ms)
+  against ≈ 1.7 GB read (≈ 0.51 ms); in float32 the bytes double (≈ 3.4
+  GB, ≈ 1.0 ms) and bound it.
 
 The backward is the JAX ``_dwconv_bwd``: dx is the forward kernel run on
 the incoming gradient with the taps flipped in both axes and a zero bias,
@@ -159,10 +163,9 @@ def dwconv7x7_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def wgrad_route(dtype: torch.dtype, C: int) -> str:
     """Which weight-gradient kernel a CUDA call takes: ``"hopper"``
-    (``dwconv_wgrad_hopper.cu``) for bf16 x and g with C a multiple of
-    ``HOPPER_SLAB``, else ``"tile"`` (``dwconv_wgrad.cu``)."""
-    return ("hopper" if dtype == torch.bfloat16 and C % HOPPER_SLAB == 0
-            else "tile")
+    (``dwconv_wgrad_hopper.cu``) for bf16 or float32 x and g with C a
+    multiple of ``HOPPER_SLAB``, else ``"tile"`` (``dwconv_wgrad.cu``)."""
+    return "hopper" if C % HOPPER_SLAB == 0 else "tile"
 
 
 def _wgrad_hopper_parts(device, C: int) -> int:
@@ -194,7 +197,7 @@ def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                               device=x.device)
         err = _build.lib().vcd_dwconv_wgrad_hopper(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            N, H, W, C, parts, stream)
+            N, H, W, C, parts, _DTYPE_CODE[x.dtype], stream)
         _build.check(err, "vcd_dwconv_wgrad_hopper")
         dwconv7x7_wgrad.hopper_launches += 1
     else:
@@ -213,15 +216,17 @@ def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-def wgrad_hopper_geometry(N: int, H: int, W: int, C: int) -> dict:
+def wgrad_hopper_geometry(N: int, H: int, W: int, C: int,
+                          dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch ``dwconv_wgrad_hopper.cu`` makes for an [N, H, W, C]
-    input, read from the library without launching (needs the card)."""
+    input of ``dtype``, read from the library without launching (needs the
+    card)."""
     import ctypes
 
     geo = (ctypes.c_int * 10)()
     _build.check(_build.lib().vcd_dwconv_wgrad_hopper_geometry(
-        N, H, W, C, _wgrad_hopper_parts(torch.device("cuda"), C), geo),
-        "vcd_dwconv_wgrad_hopper_geometry")
+        N, H, W, C, _wgrad_hopper_parts(torch.device("cuda"), C),
+        _DTYPE_CODE[dtype], geo), "vcd_dwconv_wgrad_hopper_geometry")
     keys = ("columns_per_thread", "slots", "frames", "rows", "cols",
             "strips", "items_per_slab", "grid", "smem_bytes", "bands")
     return dict(zip(keys, list(geo)))
