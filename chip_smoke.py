@@ -92,22 +92,26 @@ failure:
    a float32 copy of g against summed as read, timed at the stage shapes.
 
 8. Hold K4's kernels (flash attention forward, backward dK/dV, backward
-   dQ, and the backward's row kernel di = Σ o·do; the forward on its
-   Hopper kernel for bf16 with head_dim 64, on the mma.sync kernel of
-   ``flash_attention.cu`` for head_dim 16 and float32, the counter showing
-   which) against
+   dQ, and the backward's row kernel di = Σ o·do; with head_dim 64 on the
+   Hopper kernels, bf16 and, as split bf16 products, float32; with
+   head_dim 16 on the mma.sync (bf16) and CUDA-core (float32) kernels of
+   ``flash_attention.cu`` and ``flash_attention_bwd.cu``; the counters
+   showing which) against
    ``flash_mha_plain``, its written-out backward and ``_row_dot`` at
    [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576, 6,
    64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and 200,
    the lengths on the edges of the backward's 64-, 128- and 192-row tiles
    (1, 63, 65, 127, 129, 193, 1030), a length of 4, head_dim 16 and
-   float32 inputs: o and the log-sum-exp, dq, dk, dv on their largest and
-   mean error (FLASH tolerances in ``flash_tols``), di within 2^-20 of
-   Σ|o·do|, the backward bit-equal over two runs, strided views read
-   without a copy, unsupported shapes refused. Faulty plain versions (the
-   scale dropped, keys past S attended, the last key tile out of the
-   normaliser, di left out of ds, do's last 8 columns left out of di)
-   must land outside. (Run with phase 2.)
+   float32 inputs, then float32 at [256, 576, 6, 64] and the same
+   lengths: o and the log-sum-exp, dq, dk, dv on their largest and mean
+   error (FLASH tolerances in ``flash_tols``; float32 2^-14 of the
+   largest value), di within 2^-20 of Σ|o·do|, the backward bit-equal
+   over two runs, strided views read without a copy (bf16 and float32),
+   unsupported shapes refused. Faulty plain versions (the scale dropped,
+   keys past S attended, the last key tile out of the normaliser, di left
+   out of ds, do's last 8 columns left out of di; on float32 also every
+   product on its operands' bf16 halves alone) must land outside. (Run
+   with phase 2.)
 9. Run the scaled ViViT configuration's serving forward (vivit_small, 32
    frames of 336², ``attention_impl="flash"``) through
    ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
@@ -117,8 +121,14 @@ failure:
 10. Time K4's kernels (the di kernel beside ``_row_dot``, the forward
     beside the mma.sync kernel, ``mma_sync_ms``), their plain versions and
     ``F.scaled_dot_product_attention`` forward and backward
-    (``library_ms``); the ViViT forward with "flash" and "xla" attention
-    in turns, its peak memory and profile.
+    (``library_ms``); the float32 kernels at [256, 576, 6, 64], each on
+    split copies made beforehand, their split pass (``K4 split``, the
+    forward's of q, k, v and the backward's of q, k, v, do) and the
+    CUDA-core kernels on the same inputs (``cuda_core_ms``), beside SDPA
+    in float32; head_dim 16 at
+    vivit_tiny's [256, 256, 4, 16] in bf16 and float32 as routed; the
+    ViViT forward with "flash" and "xla" attention in turns, its peak
+    memory and profile.
 11. Run one training step of the scaled configuration
     (``create_train_state``, ``make_train_step``, default augmentation
     with blur off) on a uint8 batch [8, 32, 189, 336, 3]: launches K4 fwd
@@ -316,6 +326,20 @@ failure:
     the split kernel's) against the plain step (1% dγ, a dropped K2 db,
     1% dw outside) and the serving forward (K1 1, K2 36, K3 36, 3 split)
     against plain versions, each timed with peak memory.
+26. The scaled ViViT in float32 (phases 9 and 11's configuration with
+    ``model.dtype="float32"``; ``python3 chip_smoke.py --phase 26`` runs
+    it alone, through ``float32_vivit_phase(torch, dev)``). Serving on
+    phase 9's batch: launches K1 1, K4 fwd 8 on the float32 kernel, each
+    after a split pass (K4 split 8); probabilities that spread; within 1e-4 of the forward
+    on plain versions, where a scale dropped in block 1 or 8 must not be;
+    ms per batch in turns with float32 "xla" and bf16 "flash", peak
+    memory. Training, one step on phase 11's batch: K4 fwd, dK/dV, dQ and
+    di 8 each, on the float32 kernels, and K4 split 16 (one a forward, one
+    a backward for both its kernels); finite gradients, nonzero for every
+    spatial block's projections; loss and gradients within 1e-3 of the
+    plain float32 step (remat on), where di left out of dQ's ds and dv off
+    by 1% must not be; the loss falling on a fixed batch; ms per step in
+    turns with float32 "xla" and bf16 "flash", peak memory.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -502,8 +526,10 @@ def main() -> int:
 
     flash_timing, report["flash_by_shape"] = time_flash_kernels(
         torch, dev, flash["inputs"])
+    route_timing, report["flash_routes"] = time_flash_routes(
+        torch, dev, flash["inputs"])
     del flash["inputs"]
-    report["timing"] = timing + flash_timing
+    report["timing"] = timing + flash_timing + route_timing
     vserve = vivit_serving(torch, dev)
     report["vivit_serving"] = vserve["summary"]
     report["vivit_forward"] = time_vivit_forward(torch, vserve)
@@ -567,6 +593,11 @@ def main() -> int:
     report["f32_training"] = f32_train
     launches.update(f32_train["launches"])
     log(f"[phase 25] {f32_train['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    vivit32 = float32_vivit_phase(torch, dev)
+    report["vivit_f32"] = vivit32
+    launches.update(vivit32["launches"])
+    log(f"[phase 26] {vivit32['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
@@ -1223,9 +1254,25 @@ def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
 # tiles (S no multiple of 64), a sequence shorter than a tile, head_dim 16
 # (vivit_tiny) and float32 inputs; then the lengths on the edges of the
 # backward kernels' tiles (64 rows a warpgroup, 128 keys a dK/dV block, 192
-# queries a dQ block) and one past 1,024.
+# queries a dQ block) and one past 1,024; then the float32 kernels (split
+# products, the same tiles) at the scaled shape and the same edges.
 FLASH_MAIN = (256, 576, 6, 64, "bfloat16")
 FLASH_TP = (256, 576, 3, 64, "bfloat16")
+FLASH_MAIN_F32 = (256, 576, 6, 64, "float32")
+FLASH_F32_SHAPES = (
+    FLASH_MAIN_F32,
+    (3, 1, 2, 64, "float32"),
+    (2, 63, 2, 64, "float32"),
+    (2, 65, 2, 64, "float32"),
+    (2, 127, 2, 64, "float32"),
+    (2, 129, 2, 64, "float32"),
+    (2, 193, 3, 64, "float32"),
+    (4, 577, 6, 64, "float32"),
+    (2, 1030, 2, 64, "float32"),
+)
+# where the faulty plain versions are held against the kernels
+FLASH_FAULT_SHAPES = (FLASH_MAIN, FLASH_TP, (4, 200, 6, 64, "bfloat16"),
+                      FLASH_MAIN_F32, (4, 577, 6, 64, "float32"))
 FLASH_SHAPES = (
     FLASH_MAIN,
     FLASH_TP,
@@ -1245,7 +1292,39 @@ FLASH_SHAPES = (
     (2, 129, 2, 64, "bfloat16"),
     (2, 193, 3, 64, "bfloat16"),
     (2, 1030, 2, 64, "bfloat16"),
-)
+) + FLASH_F32_SHAPES
+
+
+def flash_entry(kind, dtype, D):
+    """The kernels-line entry of K4's ``kind`` ("fwd", "bwd dKdV", "bwd
+    dQ") at a dtype name and head_dim: each route is an entry of its own,
+    bf16 with head_dim 64 the plain name, float32 with head_dim 64 " (f32)",
+    head_dim 16 " (d16)" and " (d16 f32)"."""
+    tag = {("bfloat16", 64): "", ("float32", 64): " (f32)",
+           ("bfloat16", 16): " (d16)", ("float32", 16): " (d16 f32)"}
+    return f"K4 {kind}{tag[(dtype, D)]}"
+
+
+def hi_only_fwd(torch, fa, q, k, v, scale):
+    """The split fault of K4's float32 forward: every product's operands
+    (q, k, p, v) rounded to bf16 once, as one bf16 pass would take them
+    (only hi · hi), float32 sums and output."""
+    qf, kf, vf = (fa._heads_first(t.to(torch.bfloat16)) for t in (q, k, v))
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, -1)
+    o = torch.matmul(p.to(torch.bfloat16).float(), vf)
+    return fa._tokens_first(o, torch.float32)
+
+
+def hi_only_bwd(torch, fa, q, k, v, do, lse, di, scale):
+    """The same fault in K4's float32 backward: (dq, dk, dv) from q, k, v,
+    do, p and ds rounded to bf16 (``_bwd_p_ds`` rounds p and ds to the
+    inputs' dtype), float32 sums and outputs."""
+    b = [t.to(torch.bfloat16) for t in (q, k, v, do)]
+    p, ds = fa._bwd_p_ds(*b, lse, di, scale)
+    qf, kf, dof = (fa._heads_first(t) for t in (b[0], b[1], b[3]))
+    return tuple(fa._tokens_first(t, torch.float32) for t in (
+        torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
+        torch.matmul(p.transpose(-1, -2), dof)))
 
 
 def flash_inputs(torch, shape, dev, g):
@@ -1273,13 +1352,19 @@ def flash_tols(torch, ref, dtype):
     return big * 2 ** -6, float(ref.float().abs().mean()) * 2 ** -8
 
 
-def compare_flash_kernels(torch, dev):
+def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
     """K4's kernels against ``flash_mha_plain``, its two plain backward
-    versions and ``_row_dot`` at FLASH_SHAPES: o and the log-sum-exp, di on
+    versions and ``_row_dot`` at ``shapes``: o and the log-sum-exp, di on
     the kernel's o, then dq, dk, dv on the kernel's own o, lse and di (so
     the backward is held alone), the backward bit-equal over two runs, the
-    autograd Function equal to the direct calls, strided views read without
-    a copy. Faulty plain versions must land outside the tolerances."""
+    autograd Function equal to the direct calls, each call on its route's
+    kernel (the counters), strided views read without a copy. On the
+    float32 route also the split pass (``K4 split``) bit-equal to its plain
+    version, a backward kernel on split copies made beforehand bit-equal to
+    one that makes its own, and one split pass a forward and one a
+    backward through the autograd Function. Faulty plain versions must
+    land outside the tolerances; on float32 also the split fault
+    (``hi_only_fwd``, ``hi_only_bwd``)."""
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(11)
@@ -1315,57 +1400,115 @@ def compare_flash_kernels(torch, dev):
         return (fa.flash_mha_bwd_dq_plain(*args),
                 *fa.flash_mha_bwd_dkv_plain(*args))
 
-    for shape in FLASH_SHAPES:
+    def routed(fn, route):
+        """``fn``'s launches since its counters were zeroed all took the
+        Hopper kernel of ``route`` (or none, for ``"mma"``)."""
+        return (fn.wgmma_launches == fn.launches * (route == "wgmma")
+                and fn.f32_launches == fn.launches * (route == "f32_wgmma"))
+
+    for shape in shapes:
         B, S, H, D, dtype = shape
         lst = list(shape)
         scale = D ** -0.5
+        e_fwd, e_dkv, e_dq = (flash_entry(kind, dtype, D)
+                              for kind in ("fwd", "bwd dKdV", "bwd dQ"))
+        route = fa.route(getattr(torch, dtype), D)
+        split_route = route == "f32_wgmma"
         q, k, v, do = flash_inputs(torch, shape, dev, g)
-        fa.flash_mha.wgmma_launches = 0
+        for fn in (fa.flash_mha, fa.flash_mha_bwd_dkv, fa.flash_mha_bwd_dq):
+            fn.launches = fn.wgmma_launches = fn.f32_launches = 0
+        fa.flash_mha_split.launches = 0
         o, lse = fa.flash_mha_fwd(q, k, v, scale)
         o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, scale)
         torch.cuda.synchronize()
-        # bf16 with head_dim 64 on the Hopper kernel, the rest on mma.sync
-        if fa.flash_mha.wgmma_launches != ((dtype, D) == ("bfloat16", 64)):
+        # bf16 and float32 with head_dim 64 on their Hopper kernels (float32
+        # after one split pass), head_dim 16 on flash_attention.cu
+        if (not routed(fa.flash_mha, route)
+                or fa.flash_mha_split.launches != split_route):
             failed.append(f"K4 fwd took the wrong kernel at {lst}")
-        tol_o = held("K4 fwd o", lst, o, o_ref, dtype, "K4 fwd")
+        tol_o = held("K4 fwd o", lst, o, o_ref, dtype, e_fwd)
         # float32 exp and log of another library on sums in another order
         record("K4 fwd lse", lst, max_err(torch, lse, lse_ref), 1e-4,
-               entry="K4 fwd")
+               entry=e_fwd)
         with torch.no_grad():
             o_nolse = fa.flash_mha(q, k, v, scale)
         record("K4 fwd without lse (bit-equal)", lst,
-               max_err(torch, o_nolse, o), 0.0, entry="K4 fwd")
+               max_err(torch, o_nolse, o), 0.0, entry=e_fwd)
 
         di, tol_di = di_held("", lst, o, do)
+        splits = fa.flash_mha_split.launches
+        # each makes its own split copies, called alone
         dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
         dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
         dq_ref, dk_ref, dv_ref = bwd_plain(q, k, v, do, lse, di, scale)
         torch.cuda.synchronize()
+        if not (routed(fa.flash_mha_bwd_dkv, route)
+                and routed(fa.flash_mha_bwd_dq, route)
+                and fa.flash_mha_split.launches - splits == 2 * split_route):
+            failed.append(f"K4 bwd took the wrong kernels at {lst}")
         # With one key the softmax has one weight and dq and dk are 0 in
         # exact arithmetic: both versions return the float32 rounding noise
         # of do·v − di times the scale, which is held to 2^-20 of the largest
         # Σ|do·v| where a share of a reference that is 0 would hold nothing.
         floor = 0.0 if S > 1 else scale * 2 ** -20 * float(
             (do.float() * v.float()).abs().sum(-1).max())
-        tol_dq = held("K4 bwd dq", lst, dq, dq_ref, dtype, "K4 bwd dQ", floor)
-        tol_dk = held("K4 bwd dk", lst, dk, dk_ref, dtype, "K4 bwd dKdV",
-                      floor)
-        tol_dv = held("K4 bwd dv", lst, dv, dv_ref, dtype, "K4 bwd dKdV")
+        tol_dq = held("K4 bwd dq", lst, dq, dq_ref, dtype, e_dq, floor)
+        tol_dk = held("K4 bwd dk", lst, dk, dk_ref, dtype, e_dkv, floor)
+        tol_dv = held("K4 bwd dv", lst, dv, dv_ref, dtype, e_dkv)
         dk2, dv2 = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale)
         dq2 = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale)
         record("K4 bwd twice (bit-equal)", lst,
                max(max_err(torch, a, b) for a, b in
-                   ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0,
-               entry="K4 bwd dKdV")
-        # the autograd Function runs the same four launches
+                   ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0, entry=e_dkv)
+        # the autograd Function runs the same four launches (on float32
+        # with one split pass a direction: the backward's shared by dK/dV
+        # and dQ)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        splits = fa.flash_mha_split.launches
         grads = torch.autograd.grad(fa.flash_mha(*leaves, scale), leaves, do)
         record("K4 through autograd (bit-equal)", lst,
                max(max_err(torch, a, b) for a, b in
-                   zip(grads, (dq, dk, dv))), 0.0, entry="K4 bwd dQ")
+                   zip(grads, (dq, dk, dv))), 0.0, entry=e_dq)
+        if fa.flash_mha_split.launches - splits != 2 * split_route:
+            failed.append(f"K4 through autograd split "
+                          f"{fa.flash_mha_split.launches - splits} times "
+                          f"at {lst}")
         del leaves, grads, dk2, dv2, dq2, o_nolse
+        if split_route:
+            # the split pass against its plain version, the forward's form
+            # and the backward's, then both backward kernels on the
+            # backward's copies made beforehand
+            for ops in ((q, k, v), (q, k, v, do)):
+                split = fa.flash_mha_split(*ops)
+                record(f"K4 split of {len(ops)} operands (bit-equal)", lst,
+                       max_err(torch, split, fa.flash_mha_split_plain(*ops)),
+                       0.0, entry="K4 split")
+            dk2, dv2 = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale,
+                                            split=split)
+            dq2 = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale,
+                                      split=split)
+            record("K4 bwd on split copies made beforehand (bit-equal)", lst,
+                   max(max_err(torch, a, b) for a, b in
+                       ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0, entry=e_dkv)
+            del split, dk2, dv2, dq2
 
-        if shape in (FLASH_MAIN, FLASH_TP, (4, 200, 6, 64, "bfloat16")):
+        if dtype == "float32" and D == 64 and shape in FLASH_FAULT_SHAPES:
+            # the split fault: only hi · hi of every product, as one bf16
+            # pass takes them
+            wrong = hi_only_fwd(torch, fa, q, k, v, scale)
+            fault_seen(faults, failed, "K4 fwd products of hi halves only",
+                       lst, outside(o, wrong, tol_o),
+                       max_abs_err=max_err(torch, o, wrong),
+                       mean_abs_err=mean_err(torch, o, wrong))
+            wrong = hi_only_bwd(torch, fa, q, k, v, do, lse, di, scale)
+            for name, got, bad_, tols in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                             wrong, (tol_dq, tol_dk, tol_dv)):
+                fault_seen(faults, failed, f"K4 bwd products of hi halves "
+                           f"only ({name})", lst, outside(got, bad_, tols),
+                           max_abs_err=max_err(torch, got, bad_),
+                           mean_abs_err=mean_err(torch, got, bad_))
+            del wrong
+        if shape in FLASH_FAULT_SHAPES:
             # faults in the forward's plain version
             bad = {"sm_scale dropped": fa.flash_mha_plain(q, k, v, 1.0)}
             p = torch.exp(torch.matmul(
@@ -1408,38 +1551,45 @@ def compare_flash_kernels(torch, dev):
             del short
         if shape == FLASH_MAIN:
             inputs["K4"] = (q, k, v, do, o, lse, di)
+        if shape == FLASH_MAIN_F32:
+            inputs["K4 f32"] = (q, k, v, do, o, lse, di)
         del q, k, v, do, o, lse, di, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
         torch.cuda.empty_cache()
 
     # q, k, v as slices of one fused projection and a transposed gradient:
-    # read through their strides, no copy
+    # read through their strides, no copy, by each head_dim-64 route
     B, S, H, D = 4, 200, 6, 64
-    qkv = torch.randn(B, S, 3, H, D, generator=g).to(dev, torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    do = torch.randn(B, H, S, D, generator=g).to(
-        dev, torch.bfloat16).permute(0, 2, 1, 3)
-    fa.flash_mha.copies = 0
-    o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
-    # di on o as a transposed view too (the saved o is contiguous in the
-    # model; do is the view that arrives in training)
-    o_view = o.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
-    di, _ = di_held(" on strided views", [B, S, H, D], o_view, do)
-    record("K4 bwd di strided views vs contiguous (bit-equal)", [B, S, H, D],
-           max_err(torch, di, fa.flash_mha_bwd_di(o, do.contiguous())), 0.0,
-           entry="K4 bwd di")
-    dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, D ** -0.5)
-    dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, D ** -0.5)
-    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
-    o_c, lse_c = fa.flash_mha_fwd(qc, kc, vc, D ** -0.5)
-    dk_c, dv_c = fa.flash_mha_bwd_dkv(qc, kc, vc, doc, lse_c, di, D ** -0.5)
-    dq_c = fa.flash_mha_bwd_dq(qc, kc, vc, doc, lse_c, di, D ** -0.5)
-    torch.cuda.synchronize()
-    record("K4 strided views vs contiguous (bit-equal)", [B, S, H, D],
-           max(max_err(torch, a, b) for a, b in
-               ((o, o_c), (dq, dq_c), (dk, dk_c), (dv, dv_c))), 0.0,
-           entry="K4 fwd")
-    if fa.flash_mha.copies:
-        failed.append(f"strided views were copied {fa.flash_mha.copies} times")
+    for dtype in sorted({shape[4] for shape in shapes if shape[3] == 64}):
+        lst, dt = [B, S, H, D, dtype], getattr(torch, dtype)
+        qkv = torch.randn(B, S, 3, H, D, generator=g).to(dev, dt)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(B, H, S, D, generator=g).to(dev, dt).permute(
+            0, 2, 1, 3)
+        fa.flash_mha.copies = 0
+        o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
+        # di on o as a transposed view too (the saved o is contiguous in the
+        # model; do is the view that arrives in training)
+        o_view = o.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        di, _ = di_held(" on strided views", lst, o_view, do)
+        record("K4 bwd di strided views vs contiguous (bit-equal)", lst,
+               max_err(torch, di, fa.flash_mha_bwd_di(o, do.contiguous())),
+               0.0, entry="K4 bwd di")
+        dk, dv = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, D ** -0.5)
+        dq = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, D ** -0.5)
+        qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+        o_c, lse_c = fa.flash_mha_fwd(qc, kc, vc, D ** -0.5)
+        dk_c, dv_c = fa.flash_mha_bwd_dkv(qc, kc, vc, doc, lse_c, di,
+                                          D ** -0.5)
+        dq_c = fa.flash_mha_bwd_dq(qc, kc, vc, doc, lse_c, di, D ** -0.5)
+        torch.cuda.synchronize()
+        record("K4 strided views vs contiguous (bit-equal)", lst,
+               max(max_err(torch, a, b) for a, b in
+                   ((o, o_c), (dq, dq_c), (dk, dk_c), (dv, dv_c))), 0.0,
+               entry=flash_entry("fwd", dtype, D))
+        if fa.flash_mha.copies:
+            failed.append(f"strided {dtype} views were copied "
+                          f"{fa.flash_mha.copies} times")
+        del qkv, q, k, v, do, o, lse, di, o_view, qc, kc, vc, doc
     # what the kernels do not take raises on the card
     for bad_q in (torch.randn(2, 8, 2, 32, device=dev, dtype=torch.bfloat16),
                   torch.randn(2, 8, 2, 64, device=dev, dtype=torch.float16)):
@@ -1632,7 +1782,8 @@ def kernel_counters():
             "K3 train": k3.convnext_mlp_train, "K4 fwd": fa.flash_mha,
             "K4 bwd dKdV": fa.flash_mha_bwd_dkv,
             "K4 bwd dQ": fa.flash_mha_bwd_dq,
-            "K4 bwd di": fa.flash_mha_bwd_di}
+            "K4 bwd di": fa.flash_mha_bwd_di,
+            "K4 split": fa.flash_mha_split}
 
 
 def zero_counters():
@@ -1646,9 +1797,10 @@ def zero_counters():
 
 
 # A wrapper with two or three kernels counts the launches of its Hopper
-# ones under these names beside ``launches`` (K3's split kernel under the
-# last).
-HOPPER_COUNTS = ("wgmma_launches", "hopper_launches", "wide_launches")
+# ones under these names beside ``launches`` (K3's split kernel under
+# ``wide_launches``, K4's float32 kernels under ``f32_launches``).
+HOPPER_COUNTS = ("wgmma_launches", "hopper_launches", "wide_launches",
+                 "f32_launches")
 
 
 def expect_launches(tag, counters, f32=False, wide=None, **expected):
@@ -1665,7 +1817,9 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
     path) the Hopper launches of K2, K2 wgrad and K3 count as ``K2 (hopper
     f32)``, ``K2 wgrad (hopper f32)``, ``K3 (wgmma f32)``, ``K3 train
     (wgmma f32)``, ``K3 (wide f32)`` and ``K3 train (wide f32)``, and
-    ``convnext_mlp.cu``'s as ``K3 (f32)``."""
+    ``convnext_mlp.cu``'s as ``K3 (f32)``. K4's forward, dK/dV and dQ (each
+    with a Hopper kernel for bf16 and one for float32, on split products)
+    split into ``K4 fwd`` and ``K4 fwd (f32)``, and so on."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1701,6 +1855,10 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
         by_entry[other] = launches[k] - on_hopper[k]
         if k in on_wide:
             by_entry[f"{k} (wide{tag32})"] = split
+    for k in ("K4 fwd", "K4 bwd dKdV", "K4 bwd dQ"):
+        if k in counters:
+            by_entry[k] = launches[k] - counters[k].f32_launches
+            by_entry[f"{k} (f32)"] = counters[k].f32_launches
     return by_entry
 
 
@@ -2124,34 +2282,31 @@ def vivit_cfg(**more):
 
 
 def flash_plain_swaps(fwd=None, dkv=None, dq=None):
-    """K4's four launches swapped for their plain twins (or for a faulty
-    twin), as ``swapped`` takes them."""
+    """K4's five launches swapped for their plain twins (or for a faulty
+    twin, which takes the launcher's arguments: the backward's also
+    ``split``), as ``swapped`` takes them."""
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
 
     return ((fa, "_launch_fwd", fwd or fa._flash_fwd_plain),
             (fa, "_launch_bwd_dkv", dkv or fa.flash_mha_bwd_dkv_plain),
             (fa, "_launch_bwd_dq", dq or fa.flash_mha_bwd_dq_plain),
-            (fa, "_launch_bwd_di", fa._row_dot))
+            (fa, "_launch_bwd_di", fa._row_dot),
+            (fa, "_launch_split", fa.flash_mha_split_plain))
 
 
-def vivit_serving(torch, dev):
-    """The scaled configuration's serving forward through
-    ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
-    uint8 batch [8, 32, 189, 336, 3]: launch counts (K1 1, K4 fwd 8, all
-    else 0), probabilities that spread, agreement with the same forward on
-    plain versions, and the softmax scale dropped in one block seen."""
+def vivit_predictor(torch, dev, cfg):
+    """Phase 9's predictor of ``cfg`` (seeded weights, on the card; biases
+    and LayerNorms redrawn as in phase 3, so a dropped one shows; the head
+    scaled by LOGIT_SCALE) and its seeded uint8 batch [8, 32, 189, 336,
+    3]."""
     from vision_collision_detection_tpu_torch.infer.predictor import (
         CollisionPredictor)
-    from vision_collision_detection_tpu_torch.ops import (
-        dequant_pad, flash_attention as fa, preprocess)
 
-    cfg = vivit_cfg()
-    pred = CollisionPredictor(cfg, None)  # seeded weights, on the card
+    pred = CollisionPredictor(cfg, None)
     if tuple(pred.model.spatial_pos.shape) != (576, 384):
         raise SystemExit(f"position table {tuple(pred.model.spatial_pos.shape)}")
     g = torch.Generator().manual_seed(12)
     with torch.no_grad():
-        # biases and LayerNorms redrawn as in phase 3, so a dropped one shows
         for name, p in pred.model.named_parameters():
             if name.endswith("bias") and p.dim() == 1:
                 p.copy_(torch.randn(p.shape, generator=g) * 0.1)
@@ -2166,6 +2321,20 @@ def vivit_serving(torch, dev):
         torch.randint(12 * i, 256 - 16 * i, (T, *VIVIT_CONTENT, 3),
                       generator=g, dtype=torch.uint8)
         for i in range(VIVIT_BATCH)]).to(dev)
+    return pred, frames
+
+
+def vivit_serving(torch, dev):
+    """The scaled configuration's serving forward through
+    ``CollisionPredictor._make_forward(folded_stride=False)`` on a seeded
+    uint8 batch [8, 32, 189, 336, 3]: launch counts (K1 1, K4 fwd 8, all
+    else 0), probabilities that spread, agreement with the same forward on
+    plain versions, and the softmax scale dropped in one block seen."""
+    from vision_collision_detection_tpu_torch.ops import (
+        dequant_pad, flash_attention as fa, preprocess)
+
+    cfg = vivit_cfg()
+    pred, frames = vivit_predictor(torch, dev, cfg)
     forward = pred._make_forward(folded_stride=False)
     torch.cuda.synchronize()
 
@@ -2413,11 +2582,11 @@ def vivit_training(torch, dev):
 
     # The comparison's power: the plain step with di left out of the dQ
     # twin's ds, and with the dK/dV twin's dv off by 10%
-    def dq_no_di(q, k, v, do, lse, di, sm_scale):
+    def dq_no_di(q, k, v, do, lse, di, sm_scale, split=None):
         return fa.flash_mha_bwd_dq_plain(q, k, v, do, lse,
                                          torch.zeros_like(di), sm_scale)
 
-    def dkv_dv_off(*args):
+    def dkv_dv_off(*args, split=None):
         dk, dv = fa.flash_mha_bwd_dkv_plain(*args)
         return dk, (dv.float() * 1.10).to(dv.dtype)
 
@@ -2576,7 +2745,7 @@ def time_flash_kernels(torch, dev, inputs):
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
         with torch.no_grad():
             fwd_ms = median_ms(torch, lambda: fa.flash_mha(q, k, v, scale))
-            with swapped((fa, "fwd_route", lambda dtype, head_dim: "mma")):
+            with swapped((fa, "route", lambda dtype, head_dim: "mma")):
                 mma_fwd = median_ms(torch, lambda: fa.flash_mha(q, k, v,
                                                                 scale))
             lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -2652,6 +2821,167 @@ def time_flash_kernels(torch, dev, inputs):
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; plain {r['plain_ms']:.4f}; library {lib})")
     return rows, by_shape
+
+
+# K4's other routes, timed at their models' shapes: float32 at the scaled
+# configuration's (FLASH_MAIN_F32) and head_dim 16 at vivit_tiny's (8 clips
+# of 32 frames of 224², 256 tokens, 4 heads of 16; 2 spatial blocks).
+FLASH_D16 = ((256, 256, 4, 16, "bfloat16"), (256, 256, 4, 16, "float32"))
+VIVIT_TINY_BLOCKS = 2
+
+
+def time_flash_routes(torch, dev, inputs):
+    """K4's float32 kernels (``"f32_wgmma"``) per launch at FLASH_MAIN_F32,
+    each on split copies made beforehand, and their split pass (``K4
+    split``: the forward's of q, k, v and the backward's of q, k, v, do,
+    one launch each); the CUDA-core kernels on the same inputs (the route
+    forced to ``"mma"``), the plain versions and
+    ``F.scaled_dot_product_attention`` forward and backward in float32
+    (``library_ms``); then head_dim 16 at FLASH_D16 in bf16 (mma.sync) and
+    float32 (CUDA cores), the routes as they stand, beside their plain
+    versions and SDPA. Bounds: the bytes of the inputs and outputs at
+    their dtype, and the function's products (2·S²·D flops each: forward
+    2, dK/dV 4, dQ 3) at the peak of the unit that can run them, whatever
+    a design issues: bf16 one tensor-core product each; float32 on split
+    products three bf16 tensor-core products each, the least a
+    float32-accurate product takes there (``design_bound_ms``: the design's
+    own count, forward 8, dK/dV 15, dQ 12); head_dim 16 in float32 one
+    scalar product each on the CUDA cores. The split pass: bytes, 4 an
+    element of each operand in and 2 of each part out. → (kernels-line
+    rows, a record per shape)."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+    rows, records = [], []
+    g = torch.Generator().manual_seed(22)
+    # products of the function, and the bf16 products the split design
+    # issues for them (ops/csrc/flash_f32.cuh: forward 3 + 5, dK/dV
+    # 3 + 6 + 3 + 3, dQ 3 + 6 + 3)
+    products = {"fwd": 2, "bwd dKdV": 4, "bwd dQ": 3}
+    issued = {"fwd": 8, "bwd dKdV": 15, "bwd dQ": 12}
+    for shape in (FLASH_MAIN_F32,) + FLASH_D16:
+        B, S, H, D, dtype = shape
+        if shape == FLASH_MAIN_F32:
+            q, k, v, do, o, lse, di = inputs["K4 f32"]
+        else:
+            q, k, v, do = flash_inputs(torch, shape, dev, g)
+            o, lse = fa.flash_mha_fwd(q, k, v, D ** -0.5)
+            di = fa.flash_mha_bwd_di(o, do)
+        scale = D ** -0.5
+        args = (q, k, v, do, lse, di, scale)
+        n, stats, heads = q.numel(), B * H * S * 4, B * H
+        size = q.element_size()
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        rec = {"shape": list(shape), "route": fa.route(q.dtype, D)}
+        split_route = rec["route"] == "f32_wgmma"
+        fwd_split = fa.flash_mha_split(q, k, v) if split_route else None
+        bwd_split = fa.flash_mha_split(q, k, v, do) if split_route else None
+        with torch.no_grad():
+            rec["fwd_ms"] = median_ms(torch, lambda: fa._launch_fwd(
+                q, k, v, scale, need_lse=False, split=fwd_split))
+            rec["library_fwd_ms"] = median_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, scale=scale))
+            rec["plain_fwd_ms"] = median_ms(
+                torch, lambda: fa.flash_mha_plain(q, k, v, scale), iters=5)
+        rec["dkv_ms"] = median_ms(torch, lambda: fa.flash_mha_bwd_dkv(
+            *args, split=bwd_split))
+        rec["dq_ms"] = median_ms(torch, lambda: fa.flash_mha_bwd_dq(
+            *args, split=bwd_split))
+        rec["plain_dkv_ms"] = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dkv_plain(*args), iters=5)
+        rec["plain_dq_ms"] = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dq_plain(*args), iters=5)
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        rec["library_bwd_ms"] = median_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dot, retain_graph=True))
+        del lib_out, leaves, fwd_split, bwd_split
+        cuda_core = None
+        if split_route:
+            split_ops = {"fwd": (q, k, v), "bwd": (q, k, v, do)}
+            rec["split_ms"] = {kind: median_ms(
+                torch, lambda ops=ops: fa.flash_mha_split(*ops))
+                for kind, ops in split_ops.items()}
+            rec["plain_split_ms"] = {kind: median_ms(
+                torch, lambda ops=ops: fa.flash_mha_split_plain(*ops),
+                iters=5) for kind, ops in split_ops.items()}
+            # the CUDA-core kernels, the route forced, on the same inputs
+            mma = lambda dtype, head_dim: "mma"  # noqa: E731
+            with swapped((fa, "route", mma)):
+                with torch.no_grad():
+                    cc_o = fa.flash_mha(q, k, v, scale)
+                    cuda_core = {"fwd": median_ms(
+                        torch, lambda: fa.flash_mha(q, k, v, scale),
+                        warmup=1, iters=3)}
+                cc_dk, cc_dv = fa.flash_mha_bwd_dkv(*args)
+                cc_dq = fa.flash_mha_bwd_dq(*args)
+                cuda_core["dkv"] = median_ms(
+                    torch, lambda: fa.flash_mha_bwd_dkv(*args), warmup=1,
+                    iters=3)
+                cuda_core["dq"] = median_ms(
+                    torch, lambda: fa.flash_mha_bwd_dq(*args), warmup=1,
+                    iters=3)
+            dk, dv = fa.flash_mha_bwd_dkv(*args)
+            rec["cuda_core_ms"] = cuda_core
+            # the yardstick computes the same function (no bound: both are
+            # held to the plain version in compare_flash_kernels)
+            rec["cuda_core_vs_split_max_abs"] = {
+                name: max_err(torch, a, b) for name, a, b in (
+                    ("o", cc_o, o), ("dq", cc_dq, fa.flash_mha_bwd_dq(*args)),
+                    ("dk", cc_dk, dk), ("dv", cc_dv, dv))}
+            del cc_o, cc_dk, cc_dv, cc_dq, dk, dv
+        work = {"fwd": ("fwd_ms", 4 * n * size, "plain_fwd_ms",
+                        "library_fwd_ms"),
+                "bwd dKdV": ("dkv_ms", 6 * n * size + 2 * stats,
+                             "plain_dkv_ms", "library_bwd_ms"),
+                "bwd dQ": ("dq_ms", 5 * n * size + 2 * stats, "plain_dq_ms",
+                           "library_bwd_ms")}
+        per = VIVIT_BLOCKS if D == 64 else VIVIT_TINY_BLOCKS
+        cuda_cores = dtype == "float32" and not split_route
+        for kind, (key, n_bytes, plain, lib) in work.items():
+            flops = 2 * products[kind] * (3 if split_route else 1)
+            b, by = bound_ms(n_bytes, flops * S * S * D * heads,
+                             F32_FLOPS if cuda_cores else BF16_FLOPS)
+            row = {"kernel": flash_entry(kind, dtype, D), "shape": list(shape),
+                   "per_forward": per, "ms": rec[key],
+                   "plain_ms": rec[plain], "library_ms": rec[lib],
+                   "bound_ms": b, "bound_by": by}
+            extra = ""
+            if split_route:
+                row["cuda_core_ms"] = cuda_core[
+                    {"fwd": "fwd", "bwd dKdV": "dkv", "bwd dQ": "dq"}[kind]]
+                row["design_bound_ms"] = bound_ms(
+                    n_bytes, 2 * issued[kind] * S * S * D * heads,
+                    BF16_FLOPS)[0]
+                extra = (f"; the design's own products "
+                         f"{row['design_bound_ms']:.4f}; the CUDA-core "
+                         f"kernel {row['cuda_core_ms']:.4f}")
+            rows.append(row)
+            log(f"[time] {row['kernel']} {list(shape)} x{per}: "
+                f"{row['ms']:.4f} ms (bound {b:.4f} ms by {by}; plain "
+                f"{row['plain_ms']:.4f}; library {row['library_ms']:.4f}"
+                f"{extra})")
+        if split_route:
+            for kind, ops, parts in (("fwd", 3, 7), ("bwd", 4, 10)):
+                # a subtraction for each part after an operand's first
+                b, by = bound_ms(4 * ops * n + 2 * parts * n,
+                                 (parts - ops) * n, F32_FLOPS)
+                row = {"kernel": "K4 split", "shape": list(shape),
+                       "operands": ops, "per_forward": VIVIT_BLOCKS,
+                       "ms": rec["split_ms"][kind],
+                       "plain_ms": rec["plain_split_ms"][kind],
+                       "library_ms": None, "bound_ms": b, "bound_by": by}
+                rows.append(row)
+                log(f"[time] K4 split of {ops} operands {list(shape)} "
+                    f"x{VIVIT_BLOCKS}: {row['ms']:.4f} ms (bound {b:.4f} ms "
+                    f"by {by}; plain {row['plain_ms']:.4f}; library none)")
+        records.append(rec)
+        if shape != FLASH_MAIN_F32:
+            del q, k, v, do, o, lse, di
+        torch.cuda.empty_cache()
+    return rows, records
 
 
 def profile_device(torch, tag, run, n, groups):
@@ -6423,6 +6753,254 @@ def f32_training_phase(torch, dev):
     return out
 
 
+# ---- 26. the float32 scaled ViViT ------------------------------------------
+
+# Phase 26's rules, stated before its first run on the card. Serving: the
+# float32 forward's probabilities (the head scaled as in phase 9) against
+# the same forward on plain versions, absolute. Everything but K4 is the
+# same float32 call on both sides (K1 bit-equal to its plain version), and
+# K4's split products put o within about 2^-16 of the largest value of the
+# plain float32 attention (phase 8 at [256, 576, 6, 64]: 1.3e-5 of it), so
+# each block's output moves by about 1e-5 of its size and the scaled
+# logits by about 1e-4; 1e-4 on a probability, where a dropped scale in
+# one block moves them by more than 0.3 (phase 9).
+VIVIT_F32_SERVE_TOL = 1e-4
+# Training: the loss relative and each gradient relative to its norm
+# (``rel_grad_errs`` with GRAD_FLOOR) against the plain float32 step: K4's
+# forward and backward within about 2^-16 of their plain versions' largest
+# value (phase 8) in each of 8 blocks, where bf16's 2^-9 roundings read up
+# to 6.3e-2 (phase 11): 2^7 less, about 5e-4 at worst, so 1e-3, where dv
+# off by 1% and di left out of dQ's ds must land outside.
+VIVIT_F32_TRAIN_TOL = 1e-3
+VIVIT_F32_FALL_STEPS = 10      # float32: no bf16 ulp of a weight to step over
+
+
+def float32_vivit_phase(torch, dev):
+    """Phase 26: the scaled ViViT in float32 (phase 9/11's configuration,
+    ``model.dtype="float32"``). Serving through ``_make_forward(False)`` on
+    phase 9's seeded uint8 batch: launches K1 1 and K4 fwd 8, all on the
+    float32 route, and K4 split 8; probabilities that spread; agreement with the forward
+    on plain versions (VIVIT_F32_SERVE_TOL), a scale dropped in block 1 or
+    8 outside; ms per batch in turns with float32 ``"xla"`` and bf16
+    ``"flash"``, peak memory. Training, one ``make_train_step`` on phase
+    11's batch (``remat=False``): K4 fwd, dK/dV, dQ and di 8 each, on the
+    float32 routes, and K4 split 16; every gradient finite, every spatial block's
+    projections nonzero; loss and gradients against the plain float32
+    step with ``remat=True`` (VIVIT_F32_TRAIN_TOL), di left out of dQ's ds
+    and dv off by 1% outside; the loss falling on a fixed batch; ms per
+    step in turns with float32 ``"xla"`` and bf16 ``"flash"``, peak
+    memory."""
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.ops import (
+        dequant_pad, flash_attention as fa, preprocess)
+    from vision_collision_detection_tpu_torch.train import (
+        TrainState, build_optimizer, create_train_state, make_train_step)
+
+    t_start = time.time()
+    out = {"launches": {}}
+    failed = []
+    f32 = {"model.dtype": "float32"}
+    cfg = vivit_cfg(**f32)
+
+    # -- serving
+    pred, frames = vivit_predictor(torch, dev, cfg)
+    forward = pred._make_forward(folded_stride=False)
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    probs = forward(frames)
+    torch.cuda.synchronize()
+    launches = expect_launches("vivit f32 serve", counters, K1=1,
+                               K4_fwd=VIVIT_BLOCKS, K4_split=VIVIT_BLOCKS)
+    if launches["K4 fwd (f32)"] != VIVIT_BLOCKS:
+        failed.append(f"the serving forward's K4 took {launches}")
+    out["launches"]["vivit_f32_serve"] = launches
+    log(f"[vivit f32 serve] probs {probs.tolist()}")
+    if tuple(probs.shape) != (VIVIT_BATCH, 3) or not bool(
+            torch.isfinite(probs).all()):
+        raise SystemExit(f"bad probabilities {probs}")
+    spread = float((probs.max(0).values - probs.min(0).values).max())
+    if spread < SPREAD_MIN:
+        failed.append(f"probabilities too alike to test with ({spread})")
+
+    def plain_forward(fwd=None):
+        with swapped(*flash_plain_swaps(fwd=fwd),
+                     (preprocess, "dequant_normalize_pad",
+                      dequant_pad.dequant_normalize_pad_plain)):
+            got = forward(frames)
+            torch.cuda.synchronize()
+        return got
+
+    def scale_dropped_in(block):
+        calls = [0]
+
+        def fwd(q, k, v, sm_scale, need_lse=True):
+            calls[0] += 1
+            return fa._flash_fwd_plain(
+                q, k, v, 1.0 if calls[0] == block else sm_scale, need_lse)
+        return fwd
+
+    err = max_err(torch, probs, plain_forward())
+    power = {f"sm_scale_dropped_in_block_{b}": max_err(
+        torch, probs, plain_forward(scale_dropped_in(b)))
+        for b in (1, VIVIT_BLOCKS)}
+    log(f"[vivit f32 serve] spread {spread:.4f}; kernels vs plain: max "
+        f"|Δprob| {err:.3e} (tol {VIVIT_F32_SERVE_TOL:.0e}); faults {power}")
+    if not err <= VIVIT_F32_SERVE_TOL:
+        failed.append(f"the float32 forward disagrees with its plain "
+                      f"version ({err})")
+    if not all(v > VIVIT_F32_SERVE_TOL for v in power.values()):
+        failed.append(f"the tolerance does not see a dropped scale: {power}")
+    sd = pred.model.state_dict()
+    variants = {
+        "float32 flash": forward,
+        "float32 xla": CollisionPredictor(
+            cfg.override({"model.attention_impl": "xla"}),
+            sd)._make_forward(False),
+        "bfloat16 flash": CollisionPredictor(vivit_cfg(),
+                                             sd)._make_forward(False)}
+    out["forward"] = in_turns(torch, "vivit f32 forward", {
+        name: (lambda fwd=fwd: fwd(frames)) for name, fwd in variants.items()},
+        lambda fn: median_ms(torch, fn, warmup=2, iters=10, queued=False),
+        VIVIT_BATCH)
+    out["serve"] = {"probs": probs.tolist(), "spread": spread,
+                    "max_abs_err_vs_plain": err, "tol": VIVIT_F32_SERVE_TOL,
+                    "faults_max_abs_err": power}
+    del pred, frames, forward, variants, sd, probs
+    torch.cuda.empty_cache()
+
+    # -- training
+    def fresh(cfg_):
+        model, state = create_train_state(
+            cfg_, torch.Generator().manual_seed(13),
+            steps_per_epoch=STEPS_PER_EPOCH)
+        return model, state, make_train_step(model, cfg_)
+
+    def grads_of(model):
+        return {n: p.grad.detach().float().clone()
+                for n, p in model.named_parameters()}
+
+    batch = vivit_noise_batch(torch, dev, cfg.data.num_frames, VIVIT_BATCH,
+                              14)
+    model, state, step = fresh(cfg)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_init = copy.deepcopy(state.optimizer.state_dict())
+
+    def run(model_, state_, step_):
+        """One step from the initial weights and optimizer state."""
+        model_.load_state_dict(init)
+        state_.optimizer.load_state_dict(opt_init)
+        state_.step = 0
+        _, m = step_(state_, *batch,
+                     torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in m.items()}, grads_of(model_)
+
+    counters = zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, grads = run(model, state, step)
+    launches = expect_launches(
+        "vivit f32 train", counters, K4_fwd=VIVIT_BLOCKS,
+        K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
+        K4_bwd_di=VIVIT_BLOCKS, K4_split=2 * VIVIT_BLOCKS)
+    if any(launches[f"{k} (f32)"] != VIVIT_BLOCKS
+           for k in ("K4 fwd", "K4 bwd dKdV", "K4 bwd dQ")):
+        failed.append(f"the step's K4 took {launches}")
+    out["launches"]["vivit_f32_train"] = launches
+    if not math.isfinite(metrics["loss"]):
+        raise SystemExit(f"non-finite loss {metrics}")
+    bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
+    attn = [n for n in grads if n.startswith("spatial_") and ".attn." in n
+            and not n.endswith(".key.bias")]
+    zero = [n for n in attn if float(grads[n].abs().max()) == 0.0]
+    log(f"[vivit f32 train] metrics {metrics}; {len(grads)} parameters; "
+        f"non-finite {bad}; {len(attn)} spatial attention parameters, zero "
+        f"{zero}")
+    if bad or zero or len(attn) != 7 * VIVIT_BLOCKS:
+        failed.append("a parameter's gradient is missing, non-finite or zero")
+
+    # the plain float32 step, remat on (phase 11: remat changes no number)
+    m_plain, s_plain, step_plain = fresh(cfg.override({"model.remat": True}))
+    with swapped(*flash_plain_swaps()):
+        plain_metrics, plain_grads = run(m_plain, s_plain, step_plain)
+    loss_err = abs(metrics["loss"] - plain_metrics["loss"]) / abs(
+        plain_metrics["loss"])
+    errs = rel_grad_errs(torch, grads, plain_grads, GRAD_FLOOR)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[vivit f32 train] kernels vs plain: loss {metrics['loss']:.7f} vs "
+        f"{plain_metrics['loss']:.7f} (rel {loss_err:.2e}); worst gradient "
+        f"errors {[(n, f'{e:.2e}') for n, e in worst]} (tol "
+        f"{VIVIT_F32_TRAIN_TOL:.0e})")
+    if loss_err > VIVIT_F32_TRAIN_TOL or worst[0][1] > VIVIT_F32_TRAIN_TOL:
+        failed.append("the float32 step disagrees with its plain version")
+
+    def dq_no_di(q, k, v, do, lse, di, sm_scale, split=None):
+        return fa.flash_mha_bwd_dq_plain(q, k, v, do, lse,
+                                         torch.zeros_like(di), sm_scale)
+
+    def dkv_dv_off(*args, split=None):
+        dk, dv = fa.flash_mha_bwd_dkv_plain(*args)
+        return dk, dv * 1.01
+
+    with swapped(*flash_plain_swaps(dq=dq_no_di, dkv=dkv_dv_off)):
+        _, fault_grads = run(m_plain, s_plain, step_plain)
+    ferrs = rel_grad_errs(torch, fault_grads, grads, GRAD_FLOOR)
+    power = {
+        "dq_without_di": min(e for n, e in ferrs.items() if n.startswith(
+            "spatial_") and n.endswith(".attn.query.weight")),
+        "dv_1pct": min(e for n, e in ferrs.items() if n.startswith(
+            "spatial_") and n.endswith(".attn.value.weight"))}
+    log(f"[vivit f32 train] faults, least relative gradient error over the "
+        f"affected parameters: {power} (must exceed tol "
+        f"{VIVIT_F32_TRAIN_TOL:.0e})")
+    if not all(v > VIVIT_F32_TRAIN_TOL for v in power.values()):
+        failed.append(f"the tolerance does not see a backward fault: {power}")
+    del m_plain, s_plain, step_plain, plain_grads, fault_grads
+    torch.cuda.empty_cache()
+
+    fixed_cfg = cfg.override({"augment.enabled": False,
+                              "augment.horizontal_flip_prob": 0.0,
+                              "optim.learning_rate": VIVIT_FALL_RATE})
+    model.load_state_dict(init)
+    fixed_state = TrainState(
+        *build_optimizer(fixed_cfg.optim, model.parameters(),
+                         STEPS_PER_EPOCH),
+        float(fixed_cfg.optim.grad_clip_norm))
+    fixed_step = make_train_step(model, fixed_cfg)
+    losses = []
+    for _ in range(VIVIT_F32_FALL_STEPS):
+        _, m = fixed_step(fixed_state, *batch,
+                          torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+        losses.append(float(m["loss"]))
+    log(f"[vivit f32 train] fixed batch, augmentation off: losses {losses}")
+    if not losses[-1] < losses[0]:
+        failed.append(f"the loss did not fall: {losses}")
+    del fixed_state, fixed_step
+
+    xla_model, xla_state, xla_step = fresh(
+        cfg.override({"model.attention_impl": "xla"}))
+    bf_model, bf_state, bf_step = fresh(vivit_cfg())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out["step"] = in_turns(torch, "vivit f32 train time", {
+        name: (lambda st=st, fn=fn: fn(st, *batch, gen))
+        for name, (st, fn) in {"float32 flash": (state, step),
+                               "float32 xla": (xla_state, xla_step),
+                               "bfloat16 flash": (bf_state, bf_step)}.items()},
+        lambda fn: median_step_ms(torch, fn, warmup=2,
+                                  iters=TRAIN_TIME_ITERS), VIVIT_BATCH)
+    out["train"] = {"metrics": metrics, "plain_metrics": plain_metrics,
+                    "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+                    "tol": VIVIT_F32_TRAIN_TOL, "faults_least_rel_err": power,
+                    "fixed_batch_losses": losses}
+    del model, state, step, xla_model, xla_state, xla_step, bf_model
+    del bf_state, bf_step
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_start
+    if failed:
+        raise SystemExit(f"the float32 ViViT: {failed}")
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -6453,8 +7031,19 @@ def kernel_line(compare_rows, launches, timing):
     ``dwconv_wgrad.cu`` on the same inputs as ``dwconv_wgrad_cu_ms``),
     ``K3 (wide f32)`` and ``K3 train (wide f32)`` (base's and large's last
     stages in float32, 3 + 3, ``convnext_mlp.cu`` as ``mma_sync_ms``) are
-    phase 25's float32 training routes. Both K4 backward kernels carry the
-    library's whole backward as library_ms: it is one call. ``K4 bwd di``
+    phase 25's float32 training routes. ``K4 fwd (f32)``, ``K4 bwd dKdV
+    (f32)`` and ``K4 bwd dQ (f32)`` are K4's float32 kernels (split
+    products; phase 26's paths, 8 launches a pass), with the CUDA-core
+    kernels timed on the same inputs as ``cuda_core_ms`` and the bound of
+    the products the design issues as ``design_bound_ms``; ``K4 split`` is
+    their split pass, one launch a forward and one a backward (16 a
+    training step; ms and bound of the 8 forward and 8 backward launches;
+    ``replaces`` names the forward's Pallas kernel, whose float32 operands
+    it prepares for all three); the ``(d16)`` and
+    ``(d16 f32)`` entries are head_dim 16's routes at vivit_tiny's shape
+    (2 launches a pass; no driven path reaches them). Both K4 backward
+    kernels carry the library's whole backward as library_ms: it is one
+    call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
     two Pallas kernels (the line ``replaces`` names), not a kernel."""
     csrc = "vision_collision_detection_tpu_torch/ops/csrc/"
@@ -6510,7 +7099,26 @@ def kernel_line(compare_rows, launches, timing):
                       tpu + "flash_attention.py:96" + lib + "1456)"),
         "K4 bwd di": ("flash_mha_bwd_di", csrc + "flash_attention_bwd.cu",
                       tpu + "flash_attention.py:96" + lib + "1664)"),
+        "K4 split": ("flash_mha_split_f32",
+                     csrc + "flash_attention_fwd_f32.cu",
+                     tpu + "flash_attention.py:96" + lib + "758)"),
     }
+    # K4's other routes, each an entry of its own: float32 with head_dim 64
+    # on the split-product Hopper kernels, head_dim 16 on the mma.sync
+    # (bf16) and CUDA-core (float32) kernels
+    for kind, name, line in (("fwd", "flash_mha_fwd", "758)"),
+                             ("bwd dKdV", "flash_mha_bwd_dkv", "1121)"),
+                             ("bwd dQ", "flash_mha_bwd_dq", "1456)")):
+        part = "fwd" if kind == "fwd" else "bwd"
+        f32 = f"flash_attention_{part}_f32.cu"
+        d16 = ("flash_attention.cu" if part == "fwd"
+               else "flash_attention_bwd.cu")
+        for tag, suffix, src in ((" (f32)", "_f32", f32),
+                                 (" (d16)", "_d16", d16),
+                                 (" (d16 f32)", "_d16_f32", d16)):
+            meta[f"K4 {kind}{tag}"] = (
+                name + suffix, csrc + src,
+                tpu + "flash_attention.py:96" + lib + line)
     out = []
     for k, (name, src, replaces) in meta.items():
         rows = [r for r in timing if r["kernel"] == k]
@@ -6534,7 +7142,8 @@ def kernel_line(compare_rows, launches, timing):
             "library_ms": total("library_ms")}
         # the kernel that still serves the other dtypes and widths, timed on
         # the same inputs
-        for key in ("mma_sync_ms", "dwconv_cu_ms", "dwconv_wgrad_cu_ms"):
+        for key in ("mma_sync_ms", "dwconv_cu_ms", "dwconv_wgrad_cu_ms",
+                    "cuda_core_ms", "design_bound_ms"):
             if total(key) is not None:
                 entry[key] = total(key)
         # K3 on float32 and on the split kernel: the stock chain on the
@@ -6556,7 +7165,31 @@ def kernel_line(compare_rows, launches, timing):
     return out
 
 
+def phase26_main() -> int:
+    """``python3 chip_smoke.py --phase 26``: phase 26 alone (the float32
+    ViViT), with the kernels built and TF32 off as ``main`` sets them."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from vision_collision_detection_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    out = float32_vivit_phase(torch, torch.device("cuda"))
+    log(f"[phase 26] {out['phase_s']:.1f} s")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "phase26.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(*sys.argv[2:4]))
+    if sys.argv[1:3] == ["--phase", "26"]:
+        sys.exit(phase26_main())
     sys.exit(main())

@@ -131,13 +131,13 @@ def main() -> int:
             scale = D ** -0.5
             with torch.no_grad():
                 t_new = median_ms(torch, lambda: fa.flash_mha(q, k, v, scale))
-                route = fa.fwd_route
-                fa.fwd_route = lambda dtype, head_dim: "mma"
+                route = fa.route
+                fa.route = lambda dtype, head_dim: "mma"
                 try:
                     t_old = median_ms(torch, lambda: fa.flash_mha(q, k, v,
                                                                   scale))
                 finally:
-                    fa.fwd_route = route
+                    fa.route = route
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 t_lib = median_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, scale=scale))

@@ -8,7 +8,10 @@ ids, as ``flash_mha`` of the JAX package pads 576 to 640), ``jax.grad`` of
 it, and the einsum branch of the JAX ``FlashSelfAttention``.
 
 The CUDA kernels run only on a card: ``python3 chip_smoke.py`` holds them
-against these plain versions there.
+against these plain versions there. The float32 kernels' split products
+(three bf16 products for each float32 one) are emulated here, against
+float64, to show before any card that they meet the float32 rule that
+``chip_smoke.py`` holds them to.
 """
 
 import jax
@@ -173,6 +176,126 @@ def test_prescaled_exponent_form_is_the_plain_backward(shape):
     assert ((p - p_ref).abs() <= p_ref * 2 ** -18 + 1e-30).all()
     assert float((ds - ds_ref).abs().max()) <= float(
         ds_ref.abs().max()) * 2 ** -18
+
+
+def _bf16_values(x):
+    """float32 values rounded to bf16 (to nearest even), as float64."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).to(torch.float64).numpy()
+
+
+def _tf32_values(x):
+    """float32 values rounded to TF32's 10 mantissa bits (to nearest
+    even), as float64."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return u.astype(np.uint32).view(np.float32).astype(np.float64)
+
+
+def _split_parts(x, parts):
+    """float32 x as ``parts`` bf16 values, each the rounding of what the
+    ones before leave (exact in float32), as float64."""
+    rest, out = np.asarray(x, np.float32), []
+    for _ in range(parts):
+        out.append(_bf16_values(rest))
+        rest = (rest - out[-1]).astype(np.float32)
+    return out
+
+
+def _emulated_product(a, b, mode, a_parts=2, b_parts=2):
+    """a @ b as the tensor cores would take float32 operands, every product
+    of two rounded values exact and every sum in float64 (the kernels'
+    float32 accumulation adds 2^-24, far under what is held here):
+    ``"split"`` the float32 kernels' bf16 products of x = hi + lo
+    (hi = bf16(x), lo = bf16(x − hi)) or, for v and do, x = hi + lo + lo2:
+    with both operands in two parts lo·hi + hi·lo + hi·hi, with one in
+    three every term down to 2^-18 (lo·lo and hi·lo2 too); ``"bf16"`` and
+    ``"tf32"`` one pass on operands rounded once; ``"exact"`` float64."""
+    if mode == "exact":
+        return np.asarray(a, np.float64) @ np.asarray(b, np.float64)
+    if mode == "split":
+        top = 2 if 3 in (a_parts, b_parts) else 1
+        pa, pb = _split_parts(a, a_parts), _split_parts(b, b_parts)
+        return sum(x @ y for i, x in enumerate(pa) for j, y in enumerate(pb)
+                   if i + j <= top)
+    rounded = _bf16_values if mode == "bf16" else _tf32_values
+    return rounded(a) @ rounded(b)
+
+
+def _emulated_attention(q, k, v, do, scale, mode, parts=3):
+    """(o, dq, dk, dv, lse, di) of one (batch, head) [S, D] with the
+    kernels' order of work: the forward's logits, o = p·v / l and the
+    log-sum-exp; the backward's p recomputed from it, dp = do·vᵀ,
+    di = Σ o·do and ds = p·(dp − di)·scale; every product by
+    ``_emulated_product`` (v and do in ``parts``), p, ds and o rounded to
+    float32 where the kernels hold them in float32."""
+    f32 = ((lambda x: x) if mode == "exact"
+           else (lambda x: np.asarray(x, np.float32).astype(np.float64)))
+    s = _emulated_product(q, k.T, mode)
+    m = s.max(-1, keepdims=True)
+    p = np.exp((s - m) * scale)
+    l = p.sum(-1, keepdims=True)
+    o = f32(_emulated_product(f32(p), v, mode, b_parts=parts) / l)
+    lse = m * scale + np.log(l)
+    di = (o * np.asarray(do, np.float64)).sum(-1, keepdims=True)
+    p = f32(np.exp(s * scale - lse))
+    dp = _emulated_product(do, v.T, mode, a_parts=parts, b_parts=parts)
+    ds = f32(p * (dp - di) * scale)
+    return (o, _emulated_product(ds, k, mode),
+            _emulated_product(ds.T, q, mode), _emulated_product(p.T, do, mode),
+            lse, di)
+
+
+@pytest.mark.parametrize("mode,meets", [("split", True), ("bf16", False),
+                                        ("tf32", False)])
+def test_split_products_meet_the_float32_rule(mode, meets):
+    """The float32 kernels' accuracy argument, before any card: at one
+    (batch, head) of the scaled configuration's shape (S = 576, D = 64) on
+    seeded inputs, the split products hold o, dq, dk and dv within
+    ``chip_smoke.py``'s float32 rule (2^-14 of the largest value, on the
+    largest and the mean error) of float64, where one bf16 pass (8
+    mantissa bits) or one TF32 pass (11) lands outside it on every one.
+    (The split read about 1.1e-5 of the largest value, 5× inside the
+    rule.)"""
+    q, k, v, do = _qkv((576, 64), seed=20, n=4)
+    scale = 64 ** -0.5
+    want = _emulated_attention(*(a.astype(np.float64) for a in (q, k, v, do)),
+                               scale, "exact")
+    got = _emulated_attention(q, k, v, do, scale, mode)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        rule = 2 ** -14 * np.abs(w).max()
+        err = np.abs(g - w)
+        if meets:
+            assert err.max() <= rule and err.mean() <= rule, name
+        else:
+            assert err.max() > rule, name
+
+
+@pytest.mark.parametrize("parts,meets", [(3, True), (2, False)])
+def test_one_key_needs_v_and_do_in_three_parts(parts, meets):
+    """With one key the softmax has one weight: dq and dk are 0 in exact
+    arithmetic, and ``chip_smoke.py`` holds the kernels there to the plain
+    backward given the kernels' own lse and di within 2^-20 of
+    scale·Σ|do·v|. di = Σ o·do comes from the forward's o: with v in two
+    parts o carries v's split residual (2^-18 of |v|) into di, and dp = do·vᵀ
+    carries do's, and the plain version (exact v and do) sees both. With v
+    and do in three parts and every term of their products down to 2^-18
+    the kernels land far inside (under a tenth); in two, outside, as an
+    H100 read it (dq 1.4e-5 against 6.2e-6 at [3, 1, 2, 64])."""
+    scale = 64 ** -0.5
+    rows = [_qkv((1, 64), seed=100 + i, n=4) for i in range(32)]
+    floor = scale * 2 ** -20 * max(
+        float(np.abs(do * v).sum()) for _, _, v, do in rows)
+    worst = 0.0
+    for q, k, v, do in rows:
+        _, dq, dk, _, lse, di = _emulated_attention(q, k, v, do, scale,
+                                                    "split", parts=parts)
+        qf, kf, vf, dof = (a.astype(np.float64) for a in (q, k, v, do))
+        p = np.exp(qf @ kf.T * scale - lse)
+        ds = p * (dof @ vf.T - di) * scale
+        worst = max(worst, np.abs(dq - ds @ kf).max(),
+                    np.abs(dk - ds.T @ qf).max())
+    assert (worst <= floor / 10) if meets else (worst > floor)
 
 
 def test_written_out_backward_is_autograd_of_the_plain_forward():

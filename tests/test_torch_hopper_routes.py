@@ -13,7 +13,9 @@ and K2's weight gradient the CUDA-core reduction of
 ``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
 ``dwconv.wgrad_route``, ``convnext_mlp.route``,
-``flash_attention.fwd_route``), and both Hopper K3 kernels
+``flash_attention.route``: K4 with head_dim 64 on its Hopper kernels in
+bf16 and, on split bf16 products, in float32, forward and backward), and
+both Hopper K3 kernels
 read W1 and W2 in
 nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
 it the weight's storage with no copy. The launches are held here with the
@@ -71,11 +73,18 @@ def test_k2_wgrad_route_rule(C, dtype):
     assert k2.wgrad_route(dtype, C) == want
 
 
+def _flash_want(dtype, head_dim):
+    """head_dim 64 takes a Hopper kernel in both dtypes (float32 on split
+    bf16 products); head_dim 16 stays on flash_attention*.cu."""
+    if head_dim == 16:
+        return "mma"
+    return "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
+
+
 @pytest.mark.parametrize("head_dim", [16, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_fwd_route_rule(head_dim, dtype):
-    want = "wgmma" if (dtype, head_dim) == (torch.bfloat16, 64) else "mma"
-    assert fa.fwd_route(dtype, head_dim) == want
+    assert fa.route(dtype, head_dim) == _flash_want(dtype, head_dim)
 
 
 def _linears(C, dtype, seed=0):
@@ -422,20 +431,225 @@ def test_k1_wrapper_passes_its_arguments_to_the_row_kernel(recorder,
     assert args[12] == (0 if out_dtype == torch.bfloat16 else 1)
 
 
+_FLASH_ENTRY_SUFFIX = {"wgmma": "_wgmma", "f32_wgmma": "_f32", "mma": ""}
+
+
+@pytest.fixture
+def flash_scratch(monkeypatch):
+    """K4's launchers with ``_kernel_view`` passing CPU tensors through and
+    each split scratch the split launcher allocates recorded."""
+    monkeypatch.setattr(fa, "_kernel_view", lambda t, name, vectors=False: t)
+    made = []
+    real = fa._launch_split
+
+    def launch_split(*args):
+        made.append(real(*args))
+        return made[-1]
+
+    monkeypatch.setattr(fa, "_launch_split", launch_split)
+    return made
+
+
+def _flash_counts(fn):
+    return fn.launches, fn.wgmma_launches, fn.f32_launches
+
+
+def _split_call(recorder, split, operands):
+    """The split pass's entry was called once with every operand, their
+    strides and ``split``, bf16 [7 or 10, B, S, H, 64]."""
+    B, S, H, _ = operands[0].shape
+    name, args = recorder.calls[0]
+    assert name == "vcd_flash_split_f32"
+    ptrs = tuple(t.data_ptr() for t in operands)
+    assert args[:4] == ptrs + (None,) * (4 - len(operands))
+    assert list(args[4]) == [x for t in operands for x in t.stride()[:3]]
+    assert split.dtype == torch.bfloat16 and split.is_contiguous()
+    assert tuple(split.shape) == (7 + 3 * (len(operands) == 4), B, S, H, 64)
+    assert args[5:9] == (split.data_ptr(), B, S, H)
+
+
 @pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
                                             (torch.bfloat16, 16),
-                                            (torch.float32, 64)])
-def test_flash_fwd_launch_takes_the_routed_entry(recorder, monkeypatch,
+                                            (torch.float32, 64),
+                                            (torch.float32, 16)])
+def test_flash_fwd_launch_takes_the_routed_entry(recorder, flash_scratch,
                                                  dtype, head_dim):
-    monkeypatch.setattr(fa, "_kernel_view", lambda t, name, vectors=False: t)
+    """The forward launches its route's entry, counted under that route;
+    float32 with head_dim 64 first launches the split pass on q, k and v
+    (7 parts: v in three) and hands ``vcd_flash_fwd_f32`` its scratch in
+    their place, with no strides and no dtype code."""
     q = torch.randn(2, 8, 2, head_dim).to(dtype)
-    before = fa.flash_mha.wgmma_launches
-    o, lse = fa._launch_fwd(q, q, q, 0.125, need_lse=True)
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    before = _flash_counts(fa.flash_mha)
+    splits = fa.flash_mha_split.launches
+    o, lse = fa._launch_fwd(q, k, v, 0.125, need_lse=True)
+    name, args = recorder.calls[-1]
+    route = _flash_want(dtype, head_dim)
+    assert name == "vcd_flash_fwd" + _FLASH_ENTRY_SUFFIX[route]
+    assert _flash_counts(fa.flash_mha) == (
+        before[0] + 1, before[1] + (route == "wgmma"),
+        before[2] + (route == "f32_wgmma"))
+    assert fa.flash_mha_split.launches == splits + (route == "f32_wgmma")
+    assert o.shape == q.shape and o.dtype == dtype and lse.shape == (2, 2, 8)
+    if route == "f32_wgmma":
+        split, = flash_scratch
+        assert len(recorder.calls) == 2
+        _split_call(recorder, split, (q, k, v))
+        assert args == (split.data_ptr(), o.data_ptr(), lse.data_ptr(), 2, 8,
+                        2, 0.125, 0)
+        return
+    assert len(recorder.calls) == 1 and not flash_scratch
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), lse.data_ptr())
+    if route == "wgmma":
+        assert args[6:9] == (2, 8, 2) and len(args) == 11
+    else:
+        assert args[6:10] == (2, 8, 2, head_dim)
+        assert args[11] == (0 if dtype == torch.bfloat16 else 1)
+
+
+def _bwd_args(dtype, head_dim, B=2, S=8, H=2):
+    g = torch.Generator().manual_seed(head_dim)
+    q, k, v, do = (torch.randn(B, S, H, head_dim, generator=g).to(dtype)
+                   for _ in range(4))
+    return q, k, v, do, torch.zeros(B, H, S), torch.zeros(B, H, S)
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
+                                            (torch.bfloat16, 16),
+                                            (torch.float32, 64),
+                                            (torch.float32, 16)])
+def test_flash_bwd_launch_takes_the_routed_entry(recorder, flash_scratch,
+                                                 dtype, head_dim, kernel):
+    """dK/dV and dQ launch their route's entry (``route``), counted under
+    that route: bf16 with head_dim 64 ``*_wgmma``, float32 with head_dim
+    64 ``*_f32`` after the split pass on q, k, v and do (10 parts: v and
+    do in three), whose scratch it reads in their place; head_dim 16 the
+    entry of ``flash_attention_bwd.cu`` with head_dim and the dtype code
+    (0 bf16, 1 float32)."""
+    q, k, v, do, lse, di = _bwd_args(dtype, head_dim)
+    fn = fa.flash_mha_bwd_dkv if kernel == "dkv" else fa.flash_mha_bwd_dq
+    launch = fa._launch_bwd_dkv if kernel == "dkv" else fa._launch_bwd_dq
+    before = _flash_counts(fn)
+    outs = launch(q, k, v, do, lse, di, 0.125)
+    outs = outs if kernel == "dkv" else (outs,)
+    name, args = recorder.calls[-1]
+    route = _flash_want(dtype, head_dim)
+    assert name == f"vcd_flash_bwd_{kernel}" + _FLASH_ENTRY_SUFFIX[route]
+    assert _flash_counts(fn) == (
+        before[0] + 1, before[1] + (route == "wgmma"),
+        before[2] + (route == "f32_wgmma"))
+    n_out = len(outs)
+    assert all(t.shape == q.shape and t.dtype == dtype for t in outs)
+    B, S, H = q.shape[:3]
+    if route == "f32_wgmma":
+        split, = flash_scratch
+        assert len(recorder.calls) == 2
+        _split_call(recorder, split, (q, k, v, do))
+        assert args == ((split.data_ptr(), lse.data_ptr(), di.data_ptr())
+                        + tuple(t.data_ptr() for t in outs)
+                        + (B, S, H, 0.125, 0))
+        return
+    assert len(recorder.calls) == 1 and not flash_scratch
+    assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, do))
+    assert args[4:6] == (lse.data_ptr(), di.data_ptr())
+    assert args[6:6 + n_out] == tuple(t.data_ptr() for t in outs)
+    rest = args[7 + n_out:]  # after the strides
+    if route == "wgmma":
+        assert rest[:3] == (B, S, H) and len(rest) == 5
+    else:
+        assert rest[:4] == (B, S, H, head_dim)
+        assert rest[5] == (0 if dtype == torch.bfloat16 else 1)
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_flash_bwd_reads_a_given_split(recorder, flash_scratch, kernel):
+    """A float32 backward kernel given the split copies launches no split
+    pass and reads them; copies of another shape or dtype are refused."""
+    q, k, v, do, lse, di = _bwd_args(torch.float32, 64)
+    fn = fa.flash_mha_bwd_dkv if kernel == "dkv" else fa.flash_mha_bwd_dq
+    launch = fa._launch_bwd_dkv if kernel == "dkv" else fa._launch_bwd_dq
+    split = torch.empty((10,) + tuple(q.shape), dtype=torch.bfloat16)
+    before = fn.f32_launches
+    launch(q, k, v, do, lse, di, 0.125, split=split)
     (name, args), = recorder.calls
-    hopper = (dtype, head_dim) == (torch.bfloat16, 64)
-    assert name == ("vcd_flash_fwd_wgmma" if hopper else "vcd_flash_fwd")
-    assert fa.flash_mha.wgmma_launches == before + hopper
-    assert o.shape == q.shape and lse.shape == (2, 2, 8)
+    assert name == f"vcd_flash_bwd_{kernel}_f32" and not flash_scratch
+    assert args[0] == split.data_ptr() and fn.f32_launches == before + 1
+    for bad in (split[:7], split.float(), split.transpose(1, 2)):
+        with pytest.raises(ValueError, match="split must be"):
+            launch(q, k, v, do, lse, di, 0.125, split=bad)
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_route_rule(recorder, flash_scratch, monkeypatch, head_dim,
+                              dtype):
+    """A whole pass through the autograd Function (meta tensors, the kernel
+    library recorded) takes one route, ``route``'s, in both directions;
+    on the float32 route the backward launches the split pass once, and
+    its dK/dV and dQ kernels both read those copies."""
+    given = []
+    real = fa._split_of
+    monkeypatch.setattr(fa, "_split_of", lambda split, *ops: (
+        given.append(split is not None) or real(split, *ops)))
+    q, k, v = (torch.empty(2, 8, 2, head_dim, dtype=dtype, device="meta",
+                           requires_grad=True) for _ in range(3))
+    o = fa.flash_mha(q, k, v, head_dim ** -0.5)
+    torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
+    route = _flash_want(dtype, head_dim)
+    sfx = _FLASH_ENTRY_SUFFIX[route]
+    want = ["vcd_flash_fwd" + sfx, "vcd_flash_bwd_di",
+            "vcd_flash_bwd_dkv" + sfx, "vcd_flash_bwd_dq" + sfx]
+    if route == "f32_wgmma":
+        want = want[:2] + ["vcd_flash_split_f32"] + want[2:]
+        want.insert(0, "vcd_flash_split_f32")
+    assert [name for name, _ in recorder.calls] == want
+    assert given == ([False, True, True] if route == "f32_wgmma" else [])
+
+
+@pytest.mark.parametrize("with_do", [False, True])
+def test_flash_split_plain_layout(with_do):
+    """The split copies in the order the float32 kernels read them: q, k
+    in hi and lo, v and do in hi, lo and lo2, where hi = bf16(x),
+    lo = bf16(x − hi), lo2 = bf16(x − hi − lo); on the CPU the wrapper
+    gives the plain version."""
+    g = torch.Generator().manual_seed(3)
+    ops = [torch.randn(2, 5, 3, 64, generator=g) * 10.0 ** i
+           for i in range(4 if with_do else 3)]
+    split = fa.flash_mha_split(*ops)
+    assert torch.equal(split, fa.flash_mha_split_plain(*ops))
+    assert split.dtype == torch.bfloat16
+    assert tuple(split.shape) == (10 if with_do else 7, 2, 5, 3, 64)
+    at = 0
+    for x, n in zip(ops, (2, 2, 3, 3)):
+        parts = split[at:at + n].float()
+        at += n
+        assert torch.equal(parts[0], x.to(torch.bfloat16).float())
+        assert torch.equal(parts[1], (x - parts[0]).to(torch.bfloat16).float())
+        # what is left after the parts: 2^-17 of |x| with two, 2^-25 with
+        # three (each part rounds what is left to 8 bits)
+        left = (x.double() - parts.double().sum(0)).abs()
+        assert bool((left <= x.double().abs() * 2.0 ** (1 - 8 * n)).all())
+
+
+@pytest.mark.parametrize("with_do", [False, True])
+def test_flash_split_refuses_what_the_kernels_do_not_take(recorder,
+                                                          flash_scratch,
+                                                          with_do):
+    """The split pass takes float32 with head_dim 64 and one shape for
+    every operand, else raises before any launch."""
+    n = 4 if with_do else 3
+    for shape, dtype in (((2, 8, 2, 64), torch.bfloat16),
+                         ((2, 8, 2, 16), torch.float32)):
+        ops = [torch.zeros(shape, dtype=dtype) for _ in range(n)]
+        with pytest.raises(ValueError, match="split pass takes"):
+            fa._launch_split(*ops)
+    ops = [torch.zeros(2, 8, 2, 64) for _ in range(n)]
+    ops[-1] = torch.zeros(2, 9, 2, 64)
+    with pytest.raises(ValueError, match="one shape"):
+        fa._launch_split(*ops)
+    assert not recorder.calls
 
 
 @pytest.mark.parametrize("approximate", [True, False])

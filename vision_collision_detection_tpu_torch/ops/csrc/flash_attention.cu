@@ -20,9 +20,11 @@
 // configuration's S = 576, a hair under the card's ridge of ~295 (bytes
 // bind there, operations from S = 592 on).
 //
-// bf16 with head_dim 64 takes the Hopper kernel of
-// flash_attention_fwd_wgmma.cu (the Python wrapper's `fwd_route`); this
-// file serves head_dim 16 and float32.
+// With head_dim 64, bf16 takes the Hopper kernel of
+// flash_attention_fwd_wgmma.cu and float32 that of
+// flash_attention_fwd_f32.cu (the Python wrapper's `fwd_route`); this file
+// serves head_dim 16, and its float32 kernel at head_dim 64 only where the
+// route is forced, as the card's yardstick.
 //
 // Design (bf16). One block of 4 warps takes 64 queries of one (batch,
 // head); each warp keeps its 16 query rows as mma A fragments in registers
@@ -36,9 +38,8 @@
 // read with ldmatrix.trans as the [k][n] operand). The output is divided
 // by the row sum once, at the end.
 //
-// float32 inputs (a dtype="float32" model) take a plain CUDA-core kernel,
-// one thread per query row, every product in float32: it exists to be
-// right at small shapes, not to be fast.
+// float32 inputs take a plain CUDA-core kernel, one thread per query row,
+// every product in float32: it exists to be right, not to be fast.
 #include "flash_common.cuh"
 
 namespace {

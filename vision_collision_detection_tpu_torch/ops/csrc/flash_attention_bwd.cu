@@ -25,9 +25,11 @@
 // do v^T in each, which is the price of sums without atomics.
 //
 // bf16 with head_dim 64, the scaled ViViT configuration's case, takes the
-// wgmma kernels of flash_attention_bwd_wgmma.cu (their design is described
-// there). This file holds the C entries, the row kernel for di, and the
-// kernels of the cases off the main path:
+// wgmma kernels of flash_attention_bwd_wgmma.cu and float32 with head_dim
+// 64 the split-product kernels of flash_attention_bwd_f32.cu (their designs
+// are described there), each through its own C entry: the Python wrapper's
+// `bwd_route` names the entry. This file holds the row kernel for di and
+// the kernels of the cases off the main paths, with their C entries:
 //
 // bf16, head_dim 16 (mma.sync). dK/dV: one block of 4 warps takes 64 keys
 // of one (batch, head), each warp keeping its 16 rows of K and V as mma A
@@ -39,8 +41,10 @@
 // keys the same way: p, dp, ds, dq += dS K. Rows past S are zero-filled in
 // shared memory and left out of p.
 //
-// float32 inputs take plain CUDA-core kernels, one thread per key (dK/dV)
-// or query (dQ), every product in float32.
+// float32 inputs, head_dim 16 (and 64 where the route is forced, as the
+// card's yardstick beside the split-product kernels), take plain CUDA-core
+// kernels, one thread per key (dK/dV) or query (dQ), every product in
+// float32.
 #include "flash_bwd_args.cuh"
 
 namespace {
@@ -364,47 +368,37 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   for (int d = 0; d < D; ++d) out[d] = dq_acc[d];
 }
 
-// dQ/dK/dV: bf16 with head_dim 64 takes the wgmma kernels, bf16 with
-// head_dim 16 the mma.sync kernels above, float32 the CUDA-core kernels.
+// dQ/dK/dV of this file: bf16 (head_dim 16) on the mma.sync kernels above,
+// float32 on the CUDA-core kernels.
 template <int D>
 int launch_dkv(const BwdArgs& a, void* dk, void* dv) {
   const dim3 grid((a.S + 63) / 64, a.H, a.B);
-  if (a.dtype == 0) {
-    if constexpr (D == 64) {
-      return launch_bwd_dkv_wgmma(a, dk, dv);
-    } else {
-      flash_bwd_dkv_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
-          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-          (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
-          (bf16*)dk, (bf16*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-    }
-  } else {
+  if (a.dtype == 0)
+    flash_bwd_dkv_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
+        (bf16*)dk, (bf16*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+  else
     flash_bwd_dkv_f32_kernel<D><<<grid, 64, 0, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dout, (const float*)a.lse, (const float*)a.di,
         (float*)dk, (float*)dv, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-  }
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dq(const BwdArgs& a, void* dq) {
   const dim3 grid((a.S + 63) / 64, a.H, a.B);
-  if (a.dtype == 0) {
-    if constexpr (D == 64) {
-      return launch_bwd_dq_wgmma(a, dq);
-    } else {
-      flash_bwd_dq_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
-          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-          (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
-          (bf16*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-    }
-  } else {
+  if (a.dtype == 0)
+    flash_bwd_dq_kernel<D><<<grid, FlashTile<D>::THREADS, 0, a.stream>>>(
+        (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+        (const bf16*)a.dout, (const float*)a.lse, (const float*)a.di,
+        (bf16*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
+  else
     flash_bwd_dq_f32_kernel<D><<<grid, 64, 0, a.stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v,
         (const float*)a.dout, (const float*)a.lse, (const float*)a.di,
         (float*)dq, a.sq, a.sk, a.sv, a.sd, a.S, a.H, a.scale);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -453,9 +447,12 @@ int launch_di(const void* o, const void* dout, void* di, const int64_t* s,
   return (int)cudaGetLastError();
 }
 
+// bf16 with head_dim 64 has no kernel in this file (its route is the wgmma
+// entries').
 bool valid(const BwdArgs& a, int D) {
-  return (a.dtype == 0 || a.dtype == 1) && (D == 16 || D == 64) && a.B >= 1 &&
-         a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535;
+  return ((a.dtype == 0 && D == 16) ||
+          (a.dtype == 1 && (D == 16 || D == 64))) &&
+         a.B >= 1 && a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535;
 }
 
 }  // namespace
@@ -464,17 +461,14 @@ bool valid(const BwdArgs& a, int D) {
 // with element strides `strides[12]` = (batch, sequence, head) of q, k, v,
 // dout, the last axis contiguous and, for bf16, every row 16-byte aligned.
 // lse, di: float32 [B, H, S]. dk, dv (and dq below): contiguous
-// [B, S, H, D] of `dtype`. D is 16 or 64.
+// [B, S, H, D] of `dtype`. D is 16 (bf16, float32) or 64 (float32).
 extern "C" int vcd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* di, void* dk, void* dv,
                                  const int64_t* strides, int B, int S, int H,
                                  int D, float scale, int dtype, void* stream) {
-  const int64_t* s = strides;
-  const BwdArgs a{q, k, v, dout, lse, di,
-               {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
-               {s[9], s[10], s[11]}, B, S, H, scale, dtype,
-               (cudaStream_t)stream};
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, strides, B, S, H, scale,
+                             dtype, stream);
   if (!valid(a, D)) return (int)cudaErrorInvalidValue;
   return D == 64 ? launch_dkv<64>(a, dk, dv) : launch_dkv<16>(a, dk, dv);
 }
@@ -484,11 +478,8 @@ extern "C" int vcd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* di, void* dq,
                                 const int64_t* strides, int B, int S, int H,
                                 int D, float scale, int dtype, void* stream) {
-  const int64_t* s = strides;
-  const BwdArgs a{q, k, v, dout, lse, di,
-               {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
-               {s[9], s[10], s[11]}, B, S, H, scale, dtype,
-               (cudaStream_t)stream};
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, strides, B, S, H, scale,
+                             dtype, stream);
   if (!valid(a, D)) return (int)cudaErrorInvalidValue;
   return D == 64 ? launch_dq<64>(a, dq) : launch_dq<16>(a, dq);
 }

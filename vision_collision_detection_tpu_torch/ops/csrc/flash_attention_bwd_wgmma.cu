@@ -469,14 +469,34 @@ int launch(Kernel kernel, const BwdArgs& a, Outs... outs) {
 
 }  // namespace
 
-namespace vcd {
-
-int launch_bwd_dkv_wgmma(const BwdArgs& a, void* dk, void* dv) {
-  return launch<DKV_NWG>(flash_bwd_dkv_kernel, a, (bf16*)dk, (bf16*)dv);
+// q, k, v, dout: bf16 [B, S, H, 64] given with element strides
+// `strides[12]` = (batch, sequence, head) of q, k, v, dout, the last axis
+// contiguous, every row and stride 16-byte aligned. lse, di: float32
+// [B, H, S]. dk, dv (and dq below): contiguous bf16 [B, S, H, 64]. Each
+// returns a cudaError_t as int: a tensor map that cannot be encoded, a
+// refused attribute or launch.
+extern "C" int vcd_flash_bwd_dkv_wgmma(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* di,
+                                       void* dk, void* dv,
+                                       const int64_t* strides, int B, int S,
+                                       int H, float scale, void* stream) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  return launch<DKV_NWG>(flash_bwd_dkv_kernel,
+                         bwd_args(q, k, v, dout, lse, di, strides, B, S, H,
+                                  scale, 0, stream),
+                         (bf16*)dk, (bf16*)dv);
 }
 
-int launch_bwd_dq_wgmma(const BwdArgs& a, void* dq) {
-  return launch<DQ_NWG>(flash_bwd_dq_kernel, a, (bf16*)dq);
+extern "C" int vcd_flash_bwd_dq_wgmma(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* di,
+                                      void* dq, const int64_t* strides, int B,
+                                      int S, int H, float scale,
+                                      void* stream) {
+  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  return launch<DQ_NWG>(flash_bwd_dq_kernel,
+                        bwd_args(q, k, v, dout, lse, di, strides, B, S, H,
+                                 scale, 0, stream),
+                        (bf16*)dq);
 }
-
-}  // namespace vcd

@@ -1,6 +1,4 @@
-// What K4's backward launchers share: the operands of one call, and the
-// entry points of the bf16, head_dim 64 kernels (flash_attention_bwd_wgmma.cu)
-// that the C launchers of flash_attention_bwd.cu route to.
+// What K4's backward C entries share: the operands of one call.
 #pragma once
 
 #include "flash_common.cuh"
@@ -16,10 +14,16 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-// bf16 [B, S, H, 64] operands; dk, dv, dq contiguous. Each returns a
-// cudaError_t as int: a tensor map that cannot be encoded, a refused
-// attribute or launch.
-int launch_bwd_dkv_wgmma(const BwdArgs& a, void* dk, void* dv);
-int launch_bwd_dq_wgmma(const BwdArgs& a, void* dq);
+// The operands of an entry that takes q, k, v, dout with element strides
+// `s[12]` = (batch, sequence, head) of each.
+inline BwdArgs bwd_args(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* di,
+                        const int64_t* s, int B, int S, int H, float scale,
+                        int dtype, void* stream) {
+  return {q, k, v, dout, lse, di,
+          {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
+          {s[9], s[10], s[11]}, B, S, H, scale, dtype,
+          (cudaStream_t)stream};
+}
 
 }  // namespace vcd

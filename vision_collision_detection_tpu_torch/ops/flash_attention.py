@@ -17,8 +17,11 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
   Hopper (``ops/csrc/flash_attention_fwd_wgmma.cu``: a persistent block of
   three consumer warpgroups, 192 queries, K and V tiles streamed by TMA,
   two key tiles a step so that one tile's softmax runs under the other's
-  products); head_dim 16 and float32 keep the ``mma.sync`` and CUDA-core
-  kernels of ``ops/csrc/flash_attention.cu``. ``fwd_route`` is the rule.
+  products), and for float32 with head_dim 64 too
+  (``ops/csrc/flash_attention_fwd_f32.cu``: the same design on split
+  products, below); head_dim 16 keeps the ``mma.sync`` (bf16) and
+  CUDA-core (float32) kernels of ``ops/csrc/flash_attention.cu``.
+  ``route`` is the rule, for the backward too.
 - backward dK/dV and backward dQ: each recomputes p from q, k and the saved
   log-sum-exp; no float atomics, so two runs agree bit for bit. Bound:
   operations, 8·S²·D flops per (batch, head) for dK/dV and 6·S²·D for dQ
@@ -27,10 +30,12 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
   for Hopper (``ops/csrc/flash_attention_bwd_wgmma.cu``): warpgroup products
   (``wgmma``) on 128-byte-swizzled tiles that TMA writes from one tensor map
   per operand, a producer warp and ``mbarrier``s around a ring of tiles,
-  blocks of 128 keys (dK/dV) or 192 queries (dQ). head_dim 16 and float32
-  keep the ``mma.sync`` and CUDA-core kernels of
-  ``ops/csrc/flash_attention_bwd.cu``; the choice is by dtype and head_dim
-  in the C launcher.
+  blocks of 128 keys (dK/dV) or 192 queries (dQ); float32 with head_dim
+  64 on the same design with split products
+  (``ops/csrc/flash_attention_bwd_f32.cu``). head_dim 16 keeps the
+  ``mma.sync`` (bf16) and CUDA-core (float32) kernels of
+  ``ops/csrc/flash_attention_bwd.cu``. Each route has its own C entry,
+  so no C launcher chooses.
 - ``di = Σ(o ⊙ do)``, the row term of ds, by the row kernel
   ``vcd_flash_bwd_di`` (``ops/csrc/flash_attention_bwd.cu``; bound: bytes, o
   and do read once). In the library it is ``jnp`` outside the Pallas
@@ -40,6 +45,21 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
 Numerics, shared by the kernels and the plain versions: logits, softmax and
 every accumulation in float32; p (and, in the backward, ds) rounded to the
 inputs' dtype before its product with v (do, q, k).
+
+**float32 on the tensor cores.** The float32 kernels for head_dim 64 take
+each float32 operand x as hi + lo, hi = bf16(x) and lo = bf16(x − hi), and
+each product a·b as lo_a·hi_b + hi_a·lo_b + hi_a·hi_b: three bf16 products
+into a float32 accumulator (989 TFLOP/s where scalar float32 has 67), each
+within about 3·2^-18 of a·b. q, k, v and do are split by a pass that writes
+hi and lo bf16 copies into scratch the wrapper allocates
+(``flash_mha_split``, one launch for every operand): once a forward, and
+once a backward, whose dK/dV and dQ kernels read the same copies. p and ds
+are split in registers. One bf16 or one TF32
+product alone (2^-9, 2^-11) would miss the float32 rule of 2^-14 of the
+largest value that ``chip_smoke.py`` holds them to. v and do are split in
+three, and p·v and do·vᵀ keep every term down to 2^-18 (five and six
+products): ds subtracts di = Σ o·do from do·vᵀ, and where the softmax
+weighs one key the two nearly cancel (``ops/csrc/flash_f32.cuh``).
 
 q, k, v come as ``[B, S, H, D]``, the projections' own layout, and are read
 through their strides: the TPU wrapper's ``swapaxes`` and its zero-padding
@@ -83,9 +103,11 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).permute(0, 2, 1, 3)
 
 
-def _flash_fwd_plain(q, k, v, sm_scale: float, need_lse: bool = True):
+def _flash_fwd_plain(q, k, v, sm_scale: float, need_lse: bool = True,
+                     split=None):
     """(o [B, S, H, D] in q's dtype, lse float32 [B, H, S]); the signature
-    of ``_launch_fwd``, whose plain twin it is."""
+    of ``_launch_fwd``, whose plain twin it is (``split``, the float32
+    kernels' copies of q, k, v, is not read)."""
     s = torch.matmul(_heads_first(q), _heads_first(k).transpose(-1, -2))
     s = s * sm_scale
     lse = torch.logsumexp(s, dim=-1)
@@ -126,20 +148,25 @@ def _tokens_first(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.permute(0, 2, 1, 3).to(dtype).contiguous()
 
 
-def flash_mha_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale: float):
+def flash_mha_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale: float,
+                            split=None):
     """Plain PyTorch version of K4's dK/dV kernel, written out after the
     library's ``mha_reference_bwd`` with the kernel's roundings: (dk, dv),
     each [B, S, H, D] in q's dtype. ``lse`` is the forward's log-sum-exp and
-    ``di`` = Σ_d o·do, both float32 [B, H, S]."""
+    ``di`` = Σ_d o·do, both float32 [B, H, S]. ``split`` (the float32
+    kernels' copies of q, k, v, do) is not read: it is there so that the
+    plain version takes its launcher's arguments."""
     p, ds = _bwd_p_ds(q, k, v, do, lse, di, sm_scale)
     dv = torch.matmul(p.transpose(-1, -2), _heads_first(do))
     dk = torch.matmul(ds.transpose(-1, -2), _heads_first(q))
     return _tokens_first(dk, q.dtype), _tokens_first(dv, q.dtype)
 
 
-def flash_mha_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float):
+def flash_mha_bwd_dq_plain(q, k, v, do, lse, di, sm_scale: float,
+                           split=None):
     """Plain PyTorch version of K4's dQ kernel: dq [B, S, H, D] in q's
-    dtype, from the same p and ds as ``flash_mha_bwd_dkv_plain``."""
+    dtype, from the same p and ds as ``flash_mha_bwd_dkv_plain`` (which
+    says why it takes ``split``)."""
     _, ds = _bwd_p_ds(q, k, v, do, lse, di, sm_scale)
     return _tokens_first(torch.matmul(ds, _heads_first(k)), q.dtype)
 
@@ -181,38 +208,136 @@ def _kernel_dims(q: torch.Tensor):
     return B, S, H, D
 
 
-def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which forward kernel a CUDA call takes: ``"wgmma"`` (the Hopper
-    kernel) for bf16 with head_dim 64, ``"mma"`` (``flash_attention.cu``)
-    for the other dtypes and head_dims the kernels take."""
-    return ("wgmma" if dtype == torch.bfloat16 and head_dim == 64
-            else "mma")
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels a CUDA call takes, forward and backward alike:
+    ``"wgmma"`` (``flash_attention_fwd_wgmma.cu``,
+    ``flash_attention_bwd_wgmma.cu``) for bf16 with head_dim 64,
+    ``"f32_wgmma"`` (``flash_attention_fwd_f32.cu``,
+    ``flash_attention_bwd_f32.cu``: split products) for float32 with
+    head_dim 64, ``"mma"`` (``flash_attention.cu``,
+    ``flash_attention_bwd.cu``: mma.sync for bf16, CUDA cores for float32)
+    for head_dim 16."""
+    if head_dim != 64:
+        return "mma"
+    return "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
 
 
-def _launch_fwd(q, k, v, sm_scale: float, need_lse: bool):
-    """The forward kernel on CUDA tensors: (o, lse or None)."""
+# parts of each operand in the split copies: q and k in two (hi, lo), v and
+# do in three (hi, lo, lo2)
+_SPLIT_PARTS = (2, 2, 3, 3)
+_SPLIT_NAMES = ("q", "k", "v", "do")
+
+
+def flash_mha_split_plain(q, k, v, do=None) -> torch.Tensor:
+    """Plain version of the float32 kernels' split pass: bf16
+    [7, B, S, H, D] (q hi, lo; k hi, lo; v hi, lo, lo2) or, with do,
+    [10, B, S, H, D] (do's hi, lo, lo2 after): hi = bf16(x),
+    lo = bf16(x − hi), lo2 = bf16(x − hi − lo), each difference exact in
+    float32."""
+    parts = []
+    for t, n in zip((q, k, v, do), _SPLIT_PARTS):
+        if t is None:
+            break
+        rest = t.to(torch.float32)
+        for _ in range(n):
+            part = rest.to(torch.bfloat16)
+            parts.append(part)
+            rest = rest - part.to(torch.float32)
+    return torch.stack(parts)
+
+
+def _launch_split(q, k, v, do=None) -> torch.Tensor:
+    """The split pass on CUDA tensors: one launch for every operand."""
     B, S, H, D = _kernel_dims(q)
-    q, k, v = (_kernel_view(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    if q.dtype != torch.float32 or D != 64:
+        raise ValueError(f"the split pass takes float32 with head_dim 64, "
+                         f"got {q.dtype} with {D}")
+    ops = [t for t in (q, k, v, do) if t is not None]
+    if any(t.shape != q.shape or t.dtype != q.dtype for t in ops):
+        raise ValueError(f"q, k, v, do must be one shape and dtype, got "
+                         f"{[(tuple(t.shape), t.dtype) for t in ops]}")
+    ops = [_kernel_view(t, n, vectors=True) for t, n in zip(ops, _SPLIT_NAMES)]
+    split = torch.empty((sum(_SPLIT_PARTS[:len(ops)]), B, S, H, D),
+                        dtype=torch.bfloat16, device=q.device)
+    ptrs = [t.data_ptr() for t in ops] + [None] * (4 - len(ops))
+    err = _build.lib().vcd_flash_split_f32(
+        *ptrs, _strides(*ops), split.data_ptr(), B, S, H,
+        _build.stream_ptr(q.device))
+    _build.check(err, "vcd_flash_split_f32")
+    flash_mha_split.launches += 1
+    return split
+
+
+def flash_mha_split(q, k, v, do=None) -> torch.Tensor:
+    """The split copies that K4's float32 kernels read (``route``
+    ``"f32_wgmma"``): of q, k, v for the forward, of q, k, v, do for the
+    backward, whose dK/dV and dQ kernels share them; the layout of
+    ``flash_mha_split_plain``. A CPU tensor takes the plain version; a CUDA
+    tensor launches the split pass."""
+    if q.device.type == "cpu":
+        return flash_mha_split_plain(q, k, v, do)
+    return _launch_split(q, k, v, do)
+
+
+flash_mha_split.launches = 0
+
+
+def _split_of(split, *operands) -> torch.Tensor:
+    """``split``, checked against the layout the float32 kernels read, or
+    where it is None the split copies of ``operands`` (CUDA tensors), made
+    here."""
+    if split is None:
+        return _launch_split(*operands)
+    B, S, H, D = operands[0].shape
+    want = (sum(_SPLIT_PARTS[:len(operands)]), B, S, H, D)
+    if (tuple(split.shape) != want or split.dtype != torch.bfloat16
+            or not split.is_contiguous()
+            or split.device != operands[0].device):
+        raise ValueError(f"split must be contiguous bf16 {want} on "
+                         f"{operands[0].device}, got {split.dtype} "
+                         f"{tuple(split.shape)} on {split.device}")
+    return split
+
+
+def _launch_fwd(q, k, v, sm_scale: float, need_lse: bool, split=None):
+    """The forward kernel on CUDA tensors: (o, lse or None). ``split``: the
+    float32 route's split copies of q, k, v (``flash_mha_split``), made
+    here where not given."""
+    B, S, H, D = _kernel_dims(q)
+    kernels = route(q.dtype, D)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if need_lse else None, _strides(q, k, v))
-    stream = _build.stream_ptr(q.device)
-    if fwd_route(q.dtype, D) == "wgmma":
-        err = _build.lib().vcd_flash_fwd_wgmma(*ptrs, B, S, H,
-                                               float(sm_scale), stream)
-        _build.check(err, "vcd_flash_fwd_wgmma")
-        flash_mha.wgmma_launches += 1
+    lse_ptr = lse.data_ptr() if need_lse else None
+    if kernels == "f32_wgmma":
+        split = _split_of(split, q, k, v)
+        err = _build.lib().vcd_flash_fwd_f32(
+            split.data_ptr(), o.data_ptr(), lse_ptr, B, S, H,
+            float(sm_scale), _build.stream_ptr(q.device))
+        _build.check(err, "vcd_flash_fwd_f32")
+        flash_mha.f32_launches += 1
     else:
-        err = _build.lib().vcd_flash_fwd(*ptrs, B, S, H, D, float(sm_scale),
-                                         _DTYPE_CODE[q.dtype], stream)
-        _build.check(err, "vcd_flash_fwd")
+        q, k, v = (_kernel_view(t, n) for t, n in ((q, "q"), (k, "k"),
+                                                    (v, "v")))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse_ptr, _strides(q, k, v))
+        stream = _build.stream_ptr(q.device)
+        if kernels == "wgmma":
+            err = _build.lib().vcd_flash_fwd_wgmma(*ptrs, B, S, H,
+                                                   float(sm_scale), stream)
+            _build.check(err, "vcd_flash_fwd_wgmma")
+            flash_mha.wgmma_launches += 1
+        else:
+            err = _build.lib().vcd_flash_fwd(*ptrs, B, S, H, D,
+                                             float(sm_scale),
+                                             _DTYPE_CODE[q.dtype], stream)
+            _build.check(err, "vcd_flash_fwd")
     flash_mha.launches += 1
     return o, lse
 
 
-def _bwd_operands(q, k, v, do, lse, di):
+def _bwd_dims(q, do, lse, di):
+    """(B, S, H, D) of a backward call, its arguments checked."""
     B, S, H, D = _kernel_dims(q)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do must be {tuple(q.shape)} {q.dtype}, got "
@@ -222,35 +347,60 @@ def _bwd_operands(q, k, v, do, lse, di):
             raise ValueError(f"{name} must be float32 {(B, H, S)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         _build.require_cuda(t, name)
-    views = [_kernel_view(t, n)
-             for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))]
-    return views, (B, S, H, D)
+    return B, S, H, D
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
+def _launch_bwd(fn, name: str, operands, lse, di, outs, sm_scale: float,
+                split) -> None:
+    """One backward kernel on CUDA tensors, through the C entry of its
+    route (``name`` + ``_wgmma``, ``_f32`` or none), counted on ``fn``.
+    The float32 route reads ``split``, the split copies of q, k, v, do
+    (made here where it is None); the others read the operands through
+    their strides."""
+    B, S, H, D = outs[0].shape
+    kernels = route(operands[0].dtype, D)
+    tail = ([lse.data_ptr(), di.data_ptr()]
+            + [t.data_ptr() for t in outs])
+    if kernels == "f32_wgmma":
+        name += "_f32"
+        split = _split_of(split, *operands)
+        args = [split.data_ptr()] + tail + [B, S, H, float(sm_scale)]
+        device = split.device
+    else:
+        views = [_kernel_view(t, n) for t, n in zip(operands, _SPLIT_NAMES)]
+        args = ([t.data_ptr() for t in views] + tail + [_strides(*views)]
+                + [B, S, H])
+        if kernels == "wgmma":
+            name += "_wgmma"
+            args += [float(sm_scale)]
+        else:
+            args += [D, float(sm_scale), _DTYPE_CODE[views[0].dtype]]
+        device = views[0].device
+    err = getattr(_build.lib(), name)(*args, _build.stream_ptr(device))
+    _build.check(err, name)
+    fn.launches += 1
+    if kernels == "wgmma":
+        fn.wgmma_launches += 1
+    elif kernels == "f32_wgmma":
+        fn.f32_launches += 1
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, di, sm_scale: float, split=None):
     """The dK/dV kernel on CUDA tensors: (dk, dv)."""
-    views, (B, S, H, D) = _bwd_operands(q, k, v, do, lse, di)
-    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dims = _bwd_dims(q, do, lse, di)
+    dk = torch.empty(dims, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    err = _build.lib().vcd_flash_bwd_dkv(
-        *[t.data_ptr() for t in views], lse.data_ptr(), di.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _strides(*views), B, S, H, D,
-        float(sm_scale), _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
-    _build.check(err, "vcd_flash_bwd_dkv")
-    flash_mha_bwd_dkv.launches += 1
+    _launch_bwd(flash_mha_bwd_dkv, "vcd_flash_bwd_dkv", (q, k, v, do), lse,
+                di, (dk, dv), sm_scale, split)
     return dk, dv
 
 
-def _launch_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
+def _launch_bwd_dq(q, k, v, do, lse, di, sm_scale: float, split=None):
     """The dQ kernel on CUDA tensors: dq."""
-    views, (B, S, H, D) = _bwd_operands(q, k, v, do, lse, di)
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    err = _build.lib().vcd_flash_bwd_dq(
-        *[t.data_ptr() for t in views], lse.data_ptr(), di.data_ptr(),
-        dq.data_ptr(), _strides(*views), B, S, H, D, float(sm_scale),
-        _DTYPE_CODE[q.dtype], _build.stream_ptr(q.device))
-    _build.check(err, "vcd_flash_bwd_dq")
-    flash_mha_bwd_dq.launches += 1
+    dims = _bwd_dims(q, do, lse, di)
+    dq = torch.empty(dims, dtype=q.dtype, device=q.device)
+    _launch_bwd(flash_mha_bwd_dq, "vcd_flash_bwd_dq", (q, k, v, do), lse, di,
+                (dq,), sm_scale, split)
     return dq
 
 
@@ -283,26 +433,34 @@ def flash_mha_bwd_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 flash_mha_bwd_di.launches = 0
 
 
-def flash_mha_bwd_dkv(q, k, v, do, lse, di, sm_scale: float):
+def flash_mha_bwd_dkv(q, k, v, do, lse, di, sm_scale: float, split=None):
     """K4's dK/dV backward: (dk, dv). A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel."""
+    a CUDA tensor launches the kernel. ``split``: on the float32 route, the
+    split copies of q, k, v, do (``flash_mha_split``) that the dQ kernel
+    shares; made here where not given."""
     if q.device.type == "cpu":
         return flash_mha_bwd_dkv_plain(q, k, v, do, lse, di, sm_scale)
-    return _launch_bwd_dkv(q, k, v, do, lse, di, sm_scale)
+    return _launch_bwd_dkv(q, k, v, do, lse, di, sm_scale, split=split)
 
 
 flash_mha_bwd_dkv.launches = 0
+# the launches among them on the Hopper kernels (``route``): bf16 and
+# float32 (split products)
+flash_mha_bwd_dkv.wgmma_launches = 0
+flash_mha_bwd_dkv.f32_launches = 0
 
 
-def flash_mha_bwd_dq(q, k, v, do, lse, di, sm_scale: float):
+def flash_mha_bwd_dq(q, k, v, do, lse, di, sm_scale: float, split=None):
     """K4's dQ backward. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel."""
+    tensor launches the kernel (``split`` as for ``flash_mha_bwd_dkv``)."""
     if q.device.type == "cpu":
         return flash_mha_bwd_dq_plain(q, k, v, do, lse, di, sm_scale)
-    return _launch_bwd_dq(q, k, v, do, lse, di, sm_scale)
+    return _launch_bwd_dq(q, k, v, do, lse, di, sm_scale, split=split)
 
 
 flash_mha_bwd_dq.launches = 0
+flash_mha_bwd_dq.wgmma_launches = 0
+flash_mha_bwd_dq.f32_launches = 0
 
 
 def flash_mha_fwd(q, k, v, sm_scale: float):
@@ -318,7 +476,8 @@ def flash_mha_fwd(q, k, v, sm_scale: float):
 class _FlashMHA(torch.autograd.Function):
     """K4 with the JAX library's ``custom_vjp``: the forward saves q, k, v,
     o and the log-sum-exp; the backward runs the row kernel for di, then the
-    dK/dV and the dQ kernel."""
+    dK/dV and the dQ kernel (on the float32 route after one split pass
+    whose copies both read)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
@@ -331,8 +490,10 @@ class _FlashMHA(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         args = (q, k, v, do, lse, flash_mha_bwd_di(o, do), ctx.sm_scale)
-        dk, dv = flash_mha_bwd_dkv(*args)
-        return flash_mha_bwd_dq(*args), dk, dv, None
+        split = (flash_mha_split(q, k, v, do) if q.device.type != "cpu"
+                 and route(q.dtype, q.shape[-1]) == "f32_wgmma" else None)
+        dk, dv = flash_mha_bwd_dkv(*args, split=split)
+        return flash_mha_bwd_dq(*args, split=split), dk, dv, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -363,8 +524,10 @@ def _forward(q, k, v, sm_scale: float) -> torch.Tensor:
 
 
 flash_mha.launches = 0
-# the launches among them that took the Hopper kernel (``fwd_route``)
+# the launches among them that took the Hopper kernels (``route``):
+# bf16, and float32 on split products
 flash_mha.wgmma_launches = 0
+flash_mha.f32_launches = 0
 flash_mha.copies = 0
 
 
