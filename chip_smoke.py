@@ -92,18 +92,19 @@ failure:
    a float32 copy of g against summed as read, timed at the stage shapes.
 
 8. Hold K4's kernels (flash attention forward, backward dK/dV, backward
-   dQ, and the backward's row kernel di = Σ o·do; with head_dim 64 on the
-   Hopper kernels, bf16 and, as split bf16 products, float32; with
-   head_dim 16 on the mma.sync (bf16) and CUDA-core (float32) kernels of
-   ``flash_attention.cu`` and ``flash_attention_bwd.cu``; the counters
-   showing which) against
+   dQ, and the backward's row kernel di = Σ o·do; at head_dim 64 and 16
+   on Hopper kernels, bf16 and, as split bf16 products, float32; the
+   counters showing which route each call took) against
    ``flash_mha_plain``, its written-out backward and ``_row_dot`` at
    [256, 576, 6, 64] bf16 (the scaled ViViT configuration), [64, 576, 6,
    64], [16, 1024, 6, 64], [8, 576, 12, 64], ragged lengths 577 and 200,
    the lengths on the edges of the backward's 64-, 128- and 192-row tiles
-   (1, 63, 65, 127, 129, 193, 1030), a length of 4, head_dim 16 and
-   float32 inputs, then float32 at [256, 576, 6, 64] and the same
-   lengths: o and the log-sum-exp, dq, dk, dv on their largest and mean
+   (1, 63, 65, 127, 129, 193, 1030), float32 inputs, then float32 at
+   [256, 576, 6, 64] and the same lengths, then head_dim 16 in bf16 and
+   float32 at vivit_tiny's [256, 256, 4, 16], on the edges of its
+   kernels' 64- and 128-row tiles (1, 63, 65, 127, 129, 255, 257, 385), at
+   200 and at a length of 4: o and the log-sum-exp, dq, dk, dv on their
+   largest and mean
    error (FLASH tolerances in ``flash_tols``; float32 2^-14 of the
    largest value), di within 2^-20 of Σ|o·do|, the backward bit-equal
    over two runs, strided views read without a copy (bf16 and float32),
@@ -125,8 +126,11 @@ failure:
     split copies made beforehand, their split pass (``K4 split``, the
     forward's of q, k, v and the backward's of q, k, v, do) and the
     CUDA-core kernels on the same inputs (``cuda_core_ms``), beside SDPA
-    in float32; head_dim 16 at
-    vivit_tiny's [256, 256, 4, 16] in bf16 and float32 as routed; the
+    in float32; head_dim 16's Hopper kernels at vivit_tiny's [256, 256,
+    4, 16] in bf16 and float32, beside the kernels they replaced on the
+    same inputs (the route forced: ``mma_sync_ms``, ``cuda_core_ms``),
+    their split pass, SDPA, their bounds and the exponentials' floor
+    (``exp_floor_ms``, at ``nvidia-smi``'s largest SM clock); the
     ViViT forward with "flash" and "xla" attention in turns, its peak
     memory and profile.
 11. Run one training step of the scaled configuration
@@ -340,6 +344,19 @@ failure:
     plain float32 step (remat on), where di left out of dQ's ds and dv off
     by 1% must not be; the loss falling on a fixed batch; ms per step in
     turns with float32 "xla" and bf16 "flash", peak memory.
+27. vivit_tiny with ``attention_impl="flash"`` (phase 9's configuration
+    with ``model.backbone="vivit_tiny"`` and 224² frames: 256 tokens, 4
+    heads of 16, 2 spatial blocks; ``python3 chip_smoke.py --phase 27``
+    runs it alone), in bf16 and in float32: serving on a seeded uint8
+    batch [8, 32, 126, 224, 3] (launches K1 1 and K4 fwd 2 on the
+    head_dim-16 Hopper kernels; float32 also K4 split 2), probabilities
+    that spread, within 2e-2 (bf16) and 1e-4 (float32) of the forward on
+    plain versions, the scale dropped in block 1 or 2 outside; one
+    training step on phase 11's batch at 224² (K4 fwd, dK/dV, dQ and di 2
+    each; float32 also K4 split 4) against the plain step (bf16 4e-2, the
+    temporal query/key 1e-1; float32 1e-3), di left out of dQ's ds and dv
+    off (× 1.10 bf16, × 1.01 float32) outside; the forward and the step
+    in turns with "xla", peak memory.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -598,6 +615,11 @@ def main() -> int:
     report["vivit_f32"] = vivit32
     launches.update(vivit32["launches"])
     log(f"[phase 26] {vivit32['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    tiny = vivit_tiny_phase(torch, dev)
+    report["vivit_tiny"] = tiny
+    launches.update(tiny["launches"])
+    log(f"[phase 27] {tiny['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
@@ -1255,10 +1277,22 @@ def check_k2_wgrad(torch, x, gy, record, failed, faults=None):
 # (vivit_tiny) and float32 inputs; then the lengths on the edges of the
 # backward kernels' tiles (64 rows a warpgroup, 128 keys a dK/dV block, 192
 # queries a dQ block) and one past 1,024; then the float32 kernels (split
-# products, the same tiles) at the scaled shape and the same edges.
+# products, the same tiles) at the scaled shape and the same edges; then
+# head_dim 16 (FLASH_D16_SHAPES).
 FLASH_MAIN = (256, 576, 6, 64, "bfloat16")
 FLASH_TP = (256, 576, 3, 64, "bfloat16")
 FLASH_MAIN_F32 = (256, 576, 6, 64, "float32")
+# head_dim 16 at vivit_tiny's shape (8 clips of 32 frames of 224², 256
+# tokens, 4 heads of 16; 2 spatial blocks) in bf16 and float32, then the
+# lengths on the edges of its kernels' tiles (64 rows a warpgroup and a
+# backward ring tile, 128 rows an item and a forward key tile, two key
+# tiles a forward step) and a length of 4, in both dtypes
+FLASH_D16 = ((256, 256, 4, 16, "bfloat16"), (256, 256, 4, 16, "float32"))
+FLASH_D16_SHAPES = FLASH_D16 + tuple(
+    (B, S, H, 16, dtype) for dtype in ("bfloat16", "float32")
+    for B, S, H in ((3, 1, 2), (3, 4, 4), (2, 63, 2), (2, 65, 2), (2, 127, 2),
+                    (2, 129, 2), (2, 255, 2), (2, 257, 3), (2, 385, 2),
+                    (4, 200, 4)))
 FLASH_F32_SHAPES = (
     FLASH_MAIN_F32,
     (3, 1, 2, 64, "float32"),
@@ -1272,7 +1306,7 @@ FLASH_F32_SHAPES = (
 )
 # where the faulty plain versions are held against the kernels
 FLASH_FAULT_SHAPES = (FLASH_MAIN, FLASH_TP, (4, 200, 6, 64, "bfloat16"),
-                      FLASH_MAIN_F32, (4, 577, 6, 64, "float32"))
+                      FLASH_MAIN_F32, (4, 577, 6, 64, "float32")) + FLASH_D16
 FLASH_SHAPES = (
     FLASH_MAIN,
     FLASH_TP,
@@ -1281,9 +1315,6 @@ FLASH_SHAPES = (
     (8, 576, 12, 64, "bfloat16"),
     (4, 577, 6, 64, "bfloat16"),
     (4, 200, 6, 64, "bfloat16"),
-    (3, 4, 4, 16, "bfloat16"),
-    (4, 200, 4, 16, "bfloat16"),
-    (2, 200, 4, 16, "float32"),
     (2, 130, 6, 64, "float32"),
     (3, 1, 2, 64, "bfloat16"),
     (2, 63, 2, 64, "bfloat16"),
@@ -1292,14 +1323,17 @@ FLASH_SHAPES = (
     (2, 129, 2, 64, "bfloat16"),
     (2, 193, 3, 64, "bfloat16"),
     (2, 1030, 2, 64, "bfloat16"),
-) + FLASH_F32_SHAPES
+) + FLASH_F32_SHAPES + FLASH_D16_SHAPES
 
 
 def flash_entry(kind, dtype, D):
     """The kernels-line entry of K4's ``kind`` ("fwd", "bwd dKdV", "bwd
-    dQ") at a dtype name and head_dim: each route is an entry of its own,
-    bf16 with head_dim 64 the plain name, float32 with head_dim 64 " (f32)",
-    head_dim 16 " (d16)" and " (d16 f32)"."""
+    dQ", "split": float32 only) at a dtype name and head_dim: each route is
+    an entry of its own, bf16 with head_dim 64 the plain name, float32 with
+    head_dim 64 " (f32)", head_dim 16 " (d16)" and " (d16 f32)"; the split
+    pass "K4 split" and, at head_dim 16, "K4 split (d16)"."""
+    if kind == "split":
+        return "K4 split" if D == 64 else "K4 split (d16)"
     tag = {("bfloat16", 64): "", ("float32", 64): " (f32)",
            ("bfloat16", 16): " (d16)", ("float32", 16): " (d16 f32)"}
     return f"K4 {kind}{tag[(dtype, D)]}"
@@ -1400,11 +1434,14 @@ def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
         return (fa.flash_mha_bwd_dq_plain(*args),
                 *fa.flash_mha_bwd_dkv_plain(*args))
 
+    counts = [c for _, c in fa._ROUTES.values() if c]
+
     def routed(fn, route):
         """``fn``'s launches since its counters were zeroed all took the
-        Hopper kernel of ``route`` (or none, for ``"mma"``)."""
-        return (fn.wgmma_launches == fn.launches * (route == "wgmma")
-                and fn.f32_launches == fn.launches * (route == "f32_wgmma"))
+        Hopper kernel of ``route``."""
+        mine = fa._ROUTES[route][1]
+        return all(getattr(fn, c) == fn.launches * (c == mine)
+                   for c in counts)
 
     for shape in shapes:
         B, S, H, D, dtype = shape
@@ -1413,16 +1450,18 @@ def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
         e_fwd, e_dkv, e_dq = (flash_entry(kind, dtype, D)
                               for kind in ("fwd", "bwd dKdV", "bwd dQ"))
         route = fa.route(getattr(torch, dtype), D)
-        split_route = route == "f32_wgmma"
+        split_route = route in fa._SPLIT_ROUTES
         q, k, v, do = flash_inputs(torch, shape, dev, g)
         for fn in (fa.flash_mha, fa.flash_mha_bwd_dkv, fa.flash_mha_bwd_dq):
-            fn.launches = fn.wgmma_launches = fn.f32_launches = 0
+            fn.launches = 0
+            for c in counts:
+                setattr(fn, c, 0)
         fa.flash_mha_split.launches = 0
         o, lse = fa.flash_mha_fwd(q, k, v, scale)
         o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, scale)
         torch.cuda.synchronize()
-        # bf16 and float32 with head_dim 64 on their Hopper kernels (float32
-        # after one split pass), head_dim 16 on flash_attention.cu
+        # bf16 and float32 at both head dims on their route's Hopper kernel
+        # (float32 after one split pass)
         if (not routed(fa.flash_mha, route)
                 or fa.flash_mha_split.launches != split_route):
             failed.append(f"K4 fwd took the wrong kernel at {lst}")
@@ -1482,7 +1521,7 @@ def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
                 split = fa.flash_mha_split(*ops)
                 record(f"K4 split of {len(ops)} operands (bit-equal)", lst,
                        max_err(torch, split, fa.flash_mha_split_plain(*ops)),
-                       0.0, entry="K4 split")
+                       0.0, entry=flash_entry("split", dtype, D))
             dk2, dv2 = fa.flash_mha_bwd_dkv(q, k, v, do, lse, di, scale,
                                             split=split)
             dq2 = fa.flash_mha_bwd_dq(q, k, v, do, lse, di, scale,
@@ -1492,7 +1531,7 @@ def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
                        ((dq, dq2), (dk, dk2), (dv, dv2))), 0.0, entry=e_dkv)
             del split, dk2, dv2, dq2
 
-        if dtype == "float32" and D == 64 and shape in FLASH_FAULT_SHAPES:
+        if dtype == "float32" and shape in FLASH_FAULT_SHAPES:
             # the split fault: only hi · hi of every product, as one bf16
             # pass takes them
             wrong = hi_only_fwd(torch, fa, q, k, v, scale)
@@ -1557,9 +1596,10 @@ def compare_flash_kernels(torch, dev, shapes=FLASH_SHAPES):
         torch.cuda.empty_cache()
 
     # q, k, v as slices of one fused projection and a transposed gradient:
-    # read through their strides, no copy, by each head_dim-64 route
-    B, S, H, D = 4, 200, 6, 64
-    for dtype in sorted({shape[4] for shape in shapes if shape[3] == 64}):
+    # read through their strides, no copy, by each route
+    B, S = 4, 200
+    for D, dtype in sorted({shape[3:] for shape in shapes}):
+        H = 6 if D == 64 else 4
         lst, dt = [B, S, H, D, dtype], getattr(torch, dtype)
         qkv = torch.randn(B, S, 3, H, D, generator=g).to(dev, dt)
         q, k, v = qkv.unbind(2)
@@ -1798,9 +1838,10 @@ def zero_counters():
 
 # A wrapper with two or three kernels counts the launches of its Hopper
 # ones under these names beside ``launches`` (K3's split kernel under
-# ``wide_launches``, K4's float32 kernels under ``f32_launches``).
+# ``wide_launches``, K4's float32 kernels under ``f32_launches``, its
+# head_dim-16 kernels under ``d16_launches`` and ``d16_f32_launches``).
 HOPPER_COUNTS = ("wgmma_launches", "hopper_launches", "wide_launches",
-                 "f32_launches")
+                 "f32_launches", "d16_launches", "d16_f32_launches")
 
 
 def expect_launches(tag, counters, f32=False, wide=None, **expected):
@@ -1818,8 +1859,11 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
     f32)``, ``K2 wgrad (hopper f32)``, ``K3 (wgmma f32)``, ``K3 train
     (wgmma f32)``, ``K3 (wide f32)`` and ``K3 train (wide f32)``, and
     ``convnext_mlp.cu``'s as ``K3 (f32)``. K4's forward, dK/dV and dQ (each
-    with a Hopper kernel for bf16 and one for float32, on split products)
-    split into ``K4 fwd`` and ``K4 fwd (f32)``, and so on."""
+    with a Hopper kernel for bf16 and one for float32, on split products,
+    at each head_dim) split into ``K4 fwd``, ``K4 fwd (f32)``, ``K4 fwd
+    (d16)`` and ``K4 fwd (d16 f32)``, and so on; on a path whose float32
+    K4 launches took the head_dim-16 kernels the split pass counts as
+    ``K4 split (d16)``."""
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {k.replace(" ", "_"): 0 for k in counters}
     want.update(expected)
@@ -1857,8 +1901,14 @@ def expect_launches(tag, counters, f32=False, wide=None, **expected):
             by_entry[f"{k} (wide{tag32})"] = split
     for k in ("K4 fwd", "K4 bwd dKdV", "K4 bwd dQ"):
         if k in counters:
-            by_entry[k] = launches[k] - counters[k].f32_launches
-            by_entry[f"{k} (f32)"] = counters[k].f32_launches
+            fn = counters[k]
+            by_entry[k] = fn.wgmma_launches
+            by_entry[f"{k} (f32)"] = fn.f32_launches
+            by_entry[f"{k} (d16)"] = fn.d16_launches
+            by_entry[f"{k} (d16 f32)"] = fn.d16_f32_launches
+    if "K4 split" in by_entry and any(
+            by_entry.get(f"{k} (d16 f32)") for k in ("K4 fwd", "K4 bwd dKdV")):
+        by_entry["K4 split (d16)"] = by_entry.pop("K4 split")
     return by_entry
 
 
@@ -2294,16 +2344,18 @@ def flash_plain_swaps(fwd=None, dkv=None, dq=None):
             (fa, "_launch_split", fa.flash_mha_split_plain))
 
 
-def vivit_predictor(torch, dev, cfg):
+def vivit_predictor(torch, dev, cfg, content=VIVIT_CONTENT,
+                    table=(576, 384)):
     """Phase 9's predictor of ``cfg`` (seeded weights, on the card; biases
     and LayerNorms redrawn as in phase 3, so a dropped one shows; the head
-    scaled by LOGIT_SCALE) and its seeded uint8 batch [8, 32, 189, 336,
-    3]."""
+    scaled by LOGIT_SCALE) and its seeded uint8 batch [8, 32, *content,
+    3] ([8, 32, 189, 336, 3]); ``table``: the spatial position table's
+    shape (tokens, dim) the configuration must build."""
     from vision_collision_detection_tpu_torch.infer.predictor import (
         CollisionPredictor)
 
     pred = CollisionPredictor(cfg, None)
-    if tuple(pred.model.spatial_pos.shape) != (576, 384):
+    if tuple(pred.model.spatial_pos.shape) != table:
         raise SystemExit(f"position table {tuple(pred.model.spatial_pos.shape)}")
     g = torch.Generator().manual_seed(12)
     with torch.no_grad():
@@ -2318,7 +2370,7 @@ def vivit_predictor(torch, dev, cfg):
     if pred._fold_stride() != 1 or T != 32:
         raise SystemExit(f"fold stride {pred._fold_stride()}, T {T}")
     frames = torch.stack([
-        torch.randint(12 * i, 256 - 16 * i, (T, *VIVIT_CONTENT, 3),
+        torch.randint(12 * i, 256 - 16 * i, (T, *content, 3),
                       generator=g, dtype=torch.uint8)
         for i in range(VIVIT_BATCH)]).to(dev)
     return pred, frames
@@ -2809,7 +2861,9 @@ def time_flash_kernels(torch, dev, inputs):
                           "mma_sync_ms": mma_fwd if kernel == "K4 fwd"
                           else None,
                           "plain_ms": plain[kernel], "library_ms": lib,
-                          "bound_ms": b, "bound_by": by})
+                          "bound_ms": b, "bound_by": by,
+                          "exp_floor_ms": None if kernel == "K4 bwd di"
+                          else exp_floor_ms(S * S * heads)})
         if main:
             rows.extend(krows)
         else:
@@ -2824,31 +2878,32 @@ def time_flash_kernels(torch, dev, inputs):
 
 
 # K4's other routes, timed at their models' shapes: float32 at the scaled
-# configuration's (FLASH_MAIN_F32) and head_dim 16 at vivit_tiny's (8 clips
-# of 32 frames of 224², 256 tokens, 4 heads of 16; 2 spatial blocks).
-FLASH_D16 = ((256, 256, 4, 16, "bfloat16"), (256, 256, 4, 16, "float32"))
+# configuration's (FLASH_MAIN_F32) and head_dim 16 at vivit_tiny's
+# (FLASH_D16; 2 spatial blocks).
 VIVIT_TINY_BLOCKS = 2
 
 
-def time_flash_routes(torch, dev, inputs):
-    """K4's float32 kernels (``"f32_wgmma"``) per launch at FLASH_MAIN_F32,
-    each on split copies made beforehand, and their split pass (``K4
-    split``: the forward's of q, k, v and the backward's of q, k, v, do,
-    one launch each); the CUDA-core kernels on the same inputs (the route
-    forced to ``"mma"``), the plain versions and
-    ``F.scaled_dot_product_attention`` forward and backward in float32
-    (``library_ms``); then head_dim 16 at FLASH_D16 in bf16 (mma.sync) and
-    float32 (CUDA cores), the routes as they stand, beside their plain
-    versions and SDPA. Bounds: the bytes of the inputs and outputs at
-    their dtype, and the function's products (2·S²·D flops each: forward
-    2, dK/dV 4, dQ 3) at the peak of the unit that can run them, whatever
-    a design issues: bf16 one tensor-core product each; float32 on split
-    products three bf16 tensor-core products each, the least a
-    float32-accurate product takes there (``design_bound_ms``: the design's
-    own count, forward 8, dK/dV 15, dQ 12); head_dim 16 in float32 one
-    scalar product each on the CUDA cores. The split pass: bytes, 4 an
-    element of each operand in and 2 of each part out. → (kernels-line
-    rows, a record per shape)."""
+def time_flash_routes(torch, dev, inputs,
+                      shapes=(FLASH_MAIN_F32,) + FLASH_D16):
+    """K4's float32 kernels (``"f32_wgmma"``) per launch at FLASH_MAIN_F32
+    and head_dim 16's kernels (``"wgmma_d16"``, ``"f32_wgmma_d16"``) at
+    FLASH_D16, each float32 kernel on split copies made beforehand, and
+    the split pass (``K4 split``, ``K4 split (d16)``: the forward's of q,
+    k, v and the backward's of q, k, v, do, one launch each); the kernels
+    these routes replaced on the same inputs (the route forced to
+    ``"mma"``: ``cuda_core_ms`` on float32, ``mma_sync_ms`` on bf16), the
+    plain versions and ``F.scaled_dot_product_attention`` forward and
+    backward in the same dtype (``library_ms``). Bounds: the bytes of the
+    inputs and outputs at their dtype, and the function's products
+    (2·S²·D flops each: forward 2, dK/dV 4, dQ 3) at the peak of the unit
+    that can run them, whatever a design issues: bf16 one tensor-core
+    product each; float32 three bf16 tensor-core products each, the least
+    a float32-accurate product takes there (``design_bound_ms``: the split
+    design's own count, forward 8, dK/dV 15, dQ 12). Beside them
+    ``exp_floor_ms``: the S² exponentials a (batch, head) that each kernel
+    evaluates, at the special-function unit's rate. The split pass: bytes,
+    4 an element of each operand in and 2 of each part out. →
+    (kernels-line rows, a record per shape)."""
     import torch.nn.functional as F
 
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
@@ -2860,7 +2915,8 @@ def time_flash_routes(torch, dev, inputs):
     # 3 + 6 + 3 + 3, dQ 3 + 6 + 3)
     products = {"fwd": 2, "bwd dKdV": 4, "bwd dQ": 3}
     issued = {"fwd": 8, "bwd dKdV": 15, "bwd dQ": 12}
-    for shape in (FLASH_MAIN_F32,) + FLASH_D16:
+    mma = lambda dtype, head_dim: "mma"  # noqa: E731
+    for shape in shapes:
         B, S, H, D, dtype = shape
         if shape == FLASH_MAIN_F32:
             q, k, v, do, o, lse, di = inputs["K4 f32"]
@@ -2874,7 +2930,7 @@ def time_flash_routes(torch, dev, inputs):
         size = q.element_size()
         qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
         rec = {"shape": list(shape), "route": fa.route(q.dtype, D)}
-        split_route = rec["route"] == "f32_wgmma"
+        split_route = rec["route"] in fa._SPLIT_ROUTES
         fwd_split = fa.flash_mha_split(q, k, v) if split_route else None
         bwd_split = fa.flash_mha_split(q, k, v, do) if split_route else None
         with torch.no_grad():
@@ -2898,7 +2954,6 @@ def time_flash_routes(torch, dev, inputs):
         rec["library_bwd_ms"] = median_ms(torch, lambda: torch.autograd.grad(
             lib_out, leaves, dot, retain_graph=True))
         del lib_out, leaves, fwd_split, bwd_split
-        cuda_core = None
         if split_route:
             split_ops = {"fwd": (q, k, v), "bwd": (q, k, v, do)}
             rec["split_ms"] = {kind: median_ms(
@@ -2907,31 +2962,30 @@ def time_flash_routes(torch, dev, inputs):
             rec["plain_split_ms"] = {kind: median_ms(
                 torch, lambda ops=ops: fa.flash_mha_split_plain(*ops),
                 iters=5) for kind, ops in split_ops.items()}
-            # the CUDA-core kernels, the route forced, on the same inputs
-            mma = lambda dtype, head_dim: "mma"  # noqa: E731
-            with swapped((fa, "route", mma)):
-                with torch.no_grad():
-                    cc_o = fa.flash_mha(q, k, v, scale)
-                    cuda_core = {"fwd": median_ms(
-                        torch, lambda: fa.flash_mha(q, k, v, scale),
-                        warmup=1, iters=3)}
-                cc_dk, cc_dv = fa.flash_mha_bwd_dkv(*args)
-                cc_dq = fa.flash_mha_bwd_dq(*args)
-                cuda_core["dkv"] = median_ms(
-                    torch, lambda: fa.flash_mha_bwd_dkv(*args), warmup=1,
-                    iters=3)
-                cuda_core["dq"] = median_ms(
-                    torch, lambda: fa.flash_mha_bwd_dq(*args), warmup=1,
-                    iters=3)
-            dk, dv = fa.flash_mha_bwd_dkv(*args)
-            rec["cuda_core_ms"] = cuda_core
-            # the yardstick computes the same function (no bound: both are
-            # held to the plain version in compare_flash_kernels)
-            rec["cuda_core_vs_split_max_abs"] = {
-                name: max_err(torch, a, b) for name, a, b in (
-                    ("o", cc_o, o), ("dq", cc_dq, fa.flash_mha_bwd_dq(*args)),
-                    ("dk", cc_dk, dk), ("dv", cc_dv, dv))}
-            del cc_o, cc_dk, cc_dv, cc_dq, dk, dv
+        # the kernels the route replaced (mma.sync for bf16, the CUDA cores
+        # for float32), the route forced, on the same inputs
+        yard_key = "cuda_core_ms" if dtype == "float32" else "mma_sync_ms"
+        with swapped((fa, "route", mma)):
+            with torch.no_grad():
+                old_o = fa.flash_mha(q, k, v, scale)
+                old = {"fwd": median_ms(
+                    torch, lambda: fa.flash_mha(q, k, v, scale), warmup=1,
+                    iters=5)}
+            old_dk, old_dv = fa.flash_mha_bwd_dkv(*args)
+            old_dq = fa.flash_mha_bwd_dq(*args)
+            old["dkv"] = median_ms(
+                torch, lambda: fa.flash_mha_bwd_dkv(*args), warmup=1, iters=5)
+            old["dq"] = median_ms(
+                torch, lambda: fa.flash_mha_bwd_dq(*args), warmup=1, iters=5)
+        dk, dv = fa.flash_mha_bwd_dkv(*args)
+        rec[yard_key] = old
+        # the yardstick computes the same function (no bound: both are held
+        # to the plain version in compare_flash_kernels)
+        rec["old_kernel_vs_route_max_abs"] = {
+            name: max_err(torch, a, b) for name, a, b in (
+                ("o", old_o, o), ("dq", old_dq, fa.flash_mha_bwd_dq(*args)),
+                ("dk", old_dk, dk), ("dv", old_dv, dv))}
+        del old_o, old_dk, old_dv, old_dq, dk, dv
         work = {"fwd": ("fwd_ms", 4 * n * size, "plain_fwd_ms",
                         "library_fwd_ms"),
                 "bwd dKdV": ("dkv_ms", 6 * n * size + 2 * stats,
@@ -2939,49 +2993,72 @@ def time_flash_routes(torch, dev, inputs):
                 "bwd dQ": ("dq_ms", 5 * n * size + 2 * stats, "plain_dq_ms",
                            "library_bwd_ms")}
         per = VIVIT_BLOCKS if D == 64 else VIVIT_TINY_BLOCKS
-        cuda_cores = dtype == "float32" and not split_route
+        exp_floor = exp_floor_ms(S * S * heads)
         for kind, (key, n_bytes, plain, lib) in work.items():
             flops = 2 * products[kind] * (3 if split_route else 1)
-            b, by = bound_ms(n_bytes, flops * S * S * D * heads,
-                             F32_FLOPS if cuda_cores else BF16_FLOPS)
+            b, by = bound_ms(n_bytes, flops * S * S * D * heads, BF16_FLOPS)
             row = {"kernel": flash_entry(kind, dtype, D), "shape": list(shape),
                    "per_forward": per, "ms": rec[key],
                    "plain_ms": rec[plain], "library_ms": rec[lib],
-                   "bound_ms": b, "bound_by": by}
+                   "bound_ms": b, "bound_by": by, "exp_floor_ms": exp_floor,
+                   yard_key: old[{"fwd": "fwd", "bwd dKdV": "dkv",
+                                  "bwd dQ": "dq"}[kind]]}
             extra = ""
             if split_route:
-                row["cuda_core_ms"] = cuda_core[
-                    {"fwd": "fwd", "bwd dKdV": "dkv", "bwd dQ": "dq"}[kind]]
                 row["design_bound_ms"] = bound_ms(
                     n_bytes, 2 * issued[kind] * S * S * D * heads,
                     BF16_FLOPS)[0]
                 extra = (f"; the design's own products "
-                         f"{row['design_bound_ms']:.4f}; the CUDA-core "
-                         f"kernel {row['cuda_core_ms']:.4f}")
+                         f"{row['design_bound_ms']:.4f}")
             rows.append(row)
             log(f"[time] {row['kernel']} {list(shape)} x{per}: "
-                f"{row['ms']:.4f} ms (bound {b:.4f} ms by {by}; plain "
-                f"{row['plain_ms']:.4f}; library {row['library_ms']:.4f}"
-                f"{extra})")
+                f"{row['ms']:.4f} ms (bound {b:.4f} ms by {by}; exp floor "
+                f"{exp_floor:.4f}; plain {row['plain_ms']:.4f}; library "
+                f"{row['library_ms']:.4f}; the kernel it replaced "
+                f"{row[yard_key]:.4f}{extra})")
         if split_route:
             for kind, ops, parts in (("fwd", 3, 7), ("bwd", 4, 10)):
                 # a subtraction for each part after an operand's first
                 b, by = bound_ms(4 * ops * n + 2 * parts * n,
                                  (parts - ops) * n, F32_FLOPS)
-                row = {"kernel": "K4 split", "shape": list(shape),
-                       "operands": ops, "per_forward": VIVIT_BLOCKS,
-                       "ms": rec["split_ms"][kind],
+                row = {"kernel": flash_entry("split", dtype, D),
+                       "shape": list(shape), "operands": ops,
+                       "per_forward": per, "ms": rec["split_ms"][kind],
                        "plain_ms": rec["plain_split_ms"][kind],
                        "library_ms": None, "bound_ms": b, "bound_by": by}
                 rows.append(row)
-                log(f"[time] K4 split of {ops} operands {list(shape)} "
-                    f"x{VIVIT_BLOCKS}: {row['ms']:.4f} ms (bound {b:.4f} ms "
-                    f"by {by}; plain {row['plain_ms']:.4f}; library none)")
+                log(f"[time] {row['kernel']} of {ops} operands "
+                    f"{list(shape)} x{per}: {row['ms']:.4f} ms (bound "
+                    f"{b:.4f} ms by {by}; plain {row['plain_ms']:.4f}; "
+                    f"library none)")
         records.append(rec)
         if shape != FLASH_MAIN_F32:
             del q, k, v, do, o, lse, di
         torch.cuda.empty_cache()
     return rows, records
+
+
+# The special-function unit's rate: 16 ex2 a clock per SM (4 a clock in
+# each of an SM's four quadrants), 132 SMs on the H100 SXM.
+EX2_PER_CLOCK_SM = 16
+H100_SMS = 132
+
+
+def sm_clock_hz():
+    """The card's largest SM clock, as ``nvidia-smi --query-gpu=
+    clocks.max.sm`` reads it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def exp_floor_ms(n_exp):
+    """The least time for ``n_exp`` exponentials on the special-function
+    unit at the card's largest SM clock: a floor beside a K4 kernel's
+    bound, not a bound of its own (the bound counts bytes and products)."""
+    return n_exp / (EX2_PER_CLOCK_SM * H100_SMS * sm_clock_hz()) * 1e3
 
 
 def profile_device(torch, tag, run, n, groups):
@@ -5689,10 +5766,10 @@ def dp_trainer_served(torch, dev, tmp):
     return {"max_abs_err": err}
 
 
-def vivit_noise_batch(torch, dev, T, B, seed):
+def vivit_noise_batch(torch, dev, T, B, seed, content=VIVIT_CONTENT):
     """Phase 11's ViViT batch: noise frames, each of its own brightness."""
     g = torch.Generator().manual_seed(seed)
-    noise = torch.randint(48, 208, (B, T, *VIVIT_CONTENT, 3), generator=g,
+    noise = torch.randint(48, 208, (B, T, *content, 3), generator=g,
                           dtype=torch.int16)
     level = torch.randint(-48, 48, (B, T, 1, 1, 1), generator=g,
                           dtype=torch.int16)
@@ -7001,6 +7078,248 @@ def float32_vivit_phase(torch, dev):
     return out
 
 
+# ---- 27. vivit_tiny with "flash" (K4 at head_dim 16) -----------------------
+
+# vivit_tiny, the JAX package's own preset (dim 64, 2 spatial blocks and 1
+# temporal block, 4 heads of 16), at phase 9's configuration with 224²
+# frames: patch 14 gives 256 tokens a frame, so K4 runs on [256, 256, 4,
+# 16] (FLASH_D16), 2 launches a pass.
+VIVIT_TINY_OVERRIDES = {"model.backbone": "vivit_tiny",
+                        "data.frame_size": 224}
+VIVIT_TINY_CONTENT = (126, 224)  # 16:9 source letterboxed into 224²
+VIVIT_TINY_TABLE = (256, 64)     # spatial position table: tokens, dim
+# Tolerances, stated before the first run on the card, by the rules of the
+# phases whose shape this is at another width:
+# - serving (head ×10, probabilities): bf16 phase 9's 2e-2 (bf16 flips in
+#   each block's activations), float32 phase 26's 1e-4 (VIVIT_F32_SERVE_TOL);
+#   the scale dropped in block 1 or 2 must land outside;
+# - training, the loss relative and each gradient relative to its norm:
+#   bf16 phase 11's VIVIT_TRAIN_TOL (4e-2; the temporal block's query and
+#   key VIVIT_TEMPORAL_QK_TOL, 1e-1), with di left out of dQ's ds and dv
+#   × 1.10 outside (a bf16 step's own spread against its plain version
+#   reaches 2e-2, phase 11, so a 1% fault in dv cannot be told from it);
+#   float32 phase 26's VIVIT_F32_TRAIN_TOL (1e-3), with di left out and dv
+#   × 1.01 outside.
+VIVIT_TINY_DV_FAULT = {"bfloat16": 1.10, "float32": 1.01}
+
+
+def vivit_tiny_phase(torch, dev):
+    """Phase 27: vivit_tiny with ``attention_impl="flash"`` served and
+    trained on the card in bf16 and in float32, K4 on its head_dim-16
+    Hopper kernels. Per dtype: phase 9's predictor and batch (content
+    [8, 32, 126, 224, 3]) through ``_make_forward(False)``: launches K1 1
+    and K4 fwd 2 on the dtype's head_dim-16 route (float32 also K4 split
+    2); probabilities that spread; agreement with the forward on plain
+    versions, the scale dropped in block 1 or 2 outside; ms and peak memory
+    in turns with ``"xla"``. Then one ``make_train_step`` on phase 11's
+    batch (blur off): K4 fwd, dK/dV, dQ and di 2 each (float32 also K4
+    split 4), every gradient finite and every spatial block's projections
+    nonzero; the step against the plain step, di left out of dQ's ds and
+    dv off (VIVIT_TINY_DV_FAULT) outside; ms and peak memory in turns with
+    ``"xla"``."""
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.ops import (
+        dequant_pad, flash_attention as fa, preprocess)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    t_start = time.time()
+    out = {"launches": {}}
+    failed = []
+    blocks = VIVIT_TINY_BLOCKS
+    for dtype in ("bfloat16", "float32"):
+        f32 = dtype == "float32"
+        cfg = vivit_cfg(**VIVIT_TINY_OVERRIDES, **{"model.dtype": dtype})
+        tag = f"vivit_tiny {dtype}"
+        key = "vivit_tiny" + ("_f32" if f32 else "")
+        rec = out[dtype] = {}
+        fwd_entry = flash_entry("fwd", dtype, 16)
+        split = {"K4_split": blocks} if f32 else {}
+
+        # -- serving
+        pred, frames = vivit_predictor(torch, dev, cfg, VIVIT_TINY_CONTENT,
+                                       VIVIT_TINY_TABLE)
+        forward = pred._make_forward(folded_stride=False)
+        torch.cuda.synchronize()
+        counters = zero_counters()
+        probs = forward(frames)
+        torch.cuda.synchronize()
+        launches = expect_launches(f"{tag} serve", counters, K1=1,
+                                   K4_fwd=blocks, **split)
+        if launches[fwd_entry] != blocks:
+            failed.append(f"{tag}: the serving forward's K4 took {launches}")
+        out["launches"][f"{key}_serve"] = launches
+        log(f"[{tag} serve] probs {probs.tolist()}")
+        if tuple(probs.shape) != (VIVIT_BATCH, 3) or not bool(
+                torch.isfinite(probs).all()):
+            raise SystemExit(f"{tag}: bad probabilities {probs}")
+        row_err = float((probs.sum(-1) - 1).abs().max())
+        spread = float((probs.max(0).values - probs.min(0).values).max())
+        if row_err > 1e-5 or spread < SPREAD_MIN:
+            failed.append(f"{tag}: probability rows off by {row_err} or "
+                          f"too alike to test with ({spread})")
+
+        def plain_forward(fwd=None):
+            with swapped(*flash_plain_swaps(fwd=fwd),
+                         (preprocess, "dequant_normalize_pad",
+                          dequant_pad.dequant_normalize_pad_plain)):
+                got = forward(frames)
+                torch.cuda.synchronize()
+            return got
+
+        def scale_dropped_in(block):
+            calls = [0]
+
+            def fwd(q, k, v, sm_scale, need_lse=True, split=None):
+                calls[0] += 1
+                return fa._flash_fwd_plain(
+                    q, k, v, 1.0 if calls[0] == block else sm_scale, need_lse)
+            return fwd
+
+        tol = VIVIT_F32_SERVE_TOL if f32 else SERVE_TOL
+        err = max_err(torch, probs, plain_forward())
+        power = {f"sm_scale_dropped_in_block_{b}": max_err(
+            torch, probs, plain_forward(scale_dropped_in(b)))
+            for b in (1, blocks)}
+        log(f"[{tag} serve] spread {spread:.4f}; kernels vs plain: max "
+            f"|Δprob| {err:.3e} (tol {tol:.0e}); faults {power}")
+        if not err <= tol:
+            failed.append(f"{tag}: the forward disagrees with its plain "
+                          f"version ({err})")
+        if not all(v > tol for v in power.values()):
+            failed.append(f"{tag}: the tolerance does not see a dropped "
+                          f"scale: {power}")
+        xla = CollisionPredictor(cfg.override({"model.attention_impl": "xla"}),
+                                 pred.model.state_dict())._make_forward(False)
+        rec["forward"] = in_turns(torch, f"{tag} forward", {
+            name: (lambda fwd=fwd: fwd(frames))
+            for name, fwd in {"flash": forward, "xla": xla}.items()},
+            lambda fn: median_ms(torch, fn, warmup=2, iters=10,
+                                 queued=False), VIVIT_BATCH)
+        rec["serve"] = {"probs": probs.tolist(), "spread": spread,
+                        "row_sum_err": row_err, "max_abs_err_vs_plain": err,
+                        "tol": tol, "faults_max_abs_err": power}
+        del pred, frames, forward, xla, probs
+        torch.cuda.empty_cache()
+
+        # -- training
+        def fresh(cfg_):
+            model, state = create_train_state(
+                cfg_, torch.Generator().manual_seed(13),
+                steps_per_epoch=STEPS_PER_EPOCH)
+            return model, state, make_train_step(model, cfg_)
+
+        def grads_of(model):
+            return {n: p.grad.detach().float().clone()
+                    for n, p in model.named_parameters()}
+
+        batch = vivit_noise_batch(torch, dev, cfg.data.num_frames,
+                                  VIVIT_BATCH, 14, VIVIT_TINY_CONTENT)
+        model, state, step = fresh(cfg)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        opt_init = copy.deepcopy(state.optimizer.state_dict())
+
+        def run():
+            """One step from the initial weights and optimizer state."""
+            model.load_state_dict(init)
+            state.optimizer.load_state_dict(opt_init)
+            state.step = 0
+            _, m = step(state, *batch,
+                        torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+            torch.cuda.synchronize()
+            return {k: float(v) for k, v in m.items()}, grads_of(model)
+
+        counters = zero_counters()
+        metrics, grads = run()
+        launches = expect_launches(
+            f"{tag} train", counters, K4_fwd=blocks,
+            K4_bwd_dKdV=blocks, K4_bwd_dQ=blocks, K4_bwd_di=blocks,
+            **({"K4_split": 2 * blocks} if f32 else {}))
+        if any(launches[flash_entry(kind, dtype, 16)] != blocks
+               for kind in ("fwd", "bwd dKdV", "bwd dQ")):
+            failed.append(f"{tag}: the step's K4 took {launches}")
+        out["launches"][f"{key}_train"] = launches
+        if not math.isfinite(metrics["loss"]):
+            raise SystemExit(f"{tag}: non-finite loss {metrics}")
+        bad = [n for n, v in grads.items()
+               if not bool(torch.isfinite(v).all())]
+        attn = [n for n in grads if n.startswith("spatial_")
+                and ".attn." in n and not n.endswith(".key.bias")]
+        zero = [n for n in attn if float(grads[n].abs().max()) == 0.0]
+        log(f"[{tag} train] metrics {metrics}; {len(grads)} parameters; "
+            f"non-finite {bad}; {len(attn)} spatial attention parameters, "
+            f"zero {zero}")
+        if bad or zero or len(attn) != 7 * blocks:
+            failed.append(f"{tag}: a parameter's gradient is missing, "
+                          f"non-finite or zero")
+
+        with swapped(*flash_plain_swaps()):
+            plain_metrics, plain_grads = run()
+        loss_err = abs(metrics["loss"] - plain_metrics["loss"]) / abs(
+            plain_metrics["loss"])
+        errs = rel_grad_errs(torch, grads, plain_grads, GRAD_FLOOR)
+        tol = VIVIT_F32_TRAIN_TOL if f32 else VIVIT_TRAIN_TOL
+        loose = ({} if f32 else {
+            n: e for n, e in errs.items() if n.startswith("temporal_")
+            and (".attn.query." in n or ".attn.key." in n)})
+        worst = max(((n, e) for n, e in errs.items() if n not in loose),
+                    key=lambda kv: kv[1])
+        worst_loose = max(loose.items(), key=lambda kv: kv[1],
+                          default=("none", 0.0))
+        log(f"[{tag} train] kernels vs plain: loss {metrics['loss']:.7f} vs "
+            f"{plain_metrics['loss']:.7f} (rel {loss_err:.2e}); worst "
+            f"gradient {worst} (tol {tol:.0e}); temporal query/key "
+            f"{worst_loose} (tol {VIVIT_TEMPORAL_QK_TOL:.0e})")
+        if (loss_err > tol or worst[1] > tol
+                or worst_loose[1] > VIVIT_TEMPORAL_QK_TOL):
+            failed.append(f"{tag}: the step disagrees with its plain version")
+
+        def dq_no_di(q, k, v, do, lse, di, sm_scale, split=None):
+            return fa.flash_mha_bwd_dq_plain(q, k, v, do, lse,
+                                             torch.zeros_like(di), sm_scale)
+
+        def dkv_dv_off(*args, split=None):
+            dk, dv = fa.flash_mha_bwd_dkv_plain(*args)
+            return dk, (dv.float() * VIVIT_TINY_DV_FAULT[dtype]).to(dv.dtype)
+
+        with swapped(*flash_plain_swaps(dq=dq_no_di, dkv=dkv_dv_off)):
+            _, fault_grads = run()
+        ferrs = rel_grad_errs(torch, fault_grads, grads, GRAD_FLOOR)
+        power = {
+            "dq_without_di": min(e for n, e in ferrs.items() if n.startswith(
+                "spatial_") and n.endswith(".attn.query.weight")),
+            f"dv_x{VIVIT_TINY_DV_FAULT[dtype]}": min(
+                e for n, e in ferrs.items() if n.startswith("spatial_")
+                and n.endswith(".attn.value.weight"))}
+        log(f"[{tag} train] faults, least relative gradient error over the "
+            f"affected parameters: {power} (must exceed tol {tol:.0e})")
+        if not all(v > tol for v in power.values()):
+            failed.append(f"{tag}: the tolerance does not see a backward "
+                          f"fault: {power}")
+        del plain_grads, fault_grads
+
+        xla_model, xla_state, xla_step = fresh(
+            cfg.override({"model.attention_impl": "xla"}))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rec["step"] = in_turns(torch, f"{tag} train time", {
+            name: (lambda st=st, fn=fn: fn(st, *batch, gen))
+            for name, (st, fn) in {"flash": (state, step),
+                                   "xla": (xla_state, xla_step)}.items()},
+            lambda fn: median_step_ms(torch, fn, warmup=2,
+                                      iters=TRAIN_TIME_ITERS), VIVIT_BATCH)
+        rec["train"] = {"metrics": metrics, "plain_metrics": plain_metrics,
+                        "loss_rel_err": loss_err, "worst_grad_rel_err": worst,
+                        "worst_temporal_qk": worst_loose, "tol": tol,
+                        "faults_least_rel_err": power}
+        del model, state, step, xla_model, xla_state, xla_step, batch, grads
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_start
+    if failed:
+        raise SystemExit(f"vivit_tiny: {failed}")
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -7039,9 +7358,13 @@ def kernel_line(compare_rows, launches, timing):
     their split pass, one launch a forward and one a backward (16 a
     training step; ms and bound of the 8 forward and 8 backward launches;
     ``replaces`` names the forward's Pallas kernel, whose float32 operands
-    it prepares for all three); the ``(d16)`` and
-    ``(d16 f32)`` entries are head_dim 16's routes at vivit_tiny's shape
-    (2 launches a pass; no driven path reaches them). Both K4 backward
+    it prepares for all three); the ``(d16)`` and ``(d16 f32)`` entries are
+    head_dim 16's Hopper kernels (bf16 and float32, phase 27's paths:
+    vivit_tiny's 2 launches a pass), with the kernels they replaced on the
+    same inputs as ``mma_sync_ms`` and ``cuda_core_ms``, and ``K4 split
+    (d16)`` their split pass. Every K4 kernel carries ``exp_floor_ms``, the
+    least time of its exponentials on the special-function unit, beside
+    its bound. Both K4 backward
     kernels carry the library's whole backward as library_ms: it is one
     call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
@@ -7102,20 +7425,22 @@ def kernel_line(compare_rows, launches, timing):
         "K4 split": ("flash_mha_split_f32",
                      csrc + "flash_attention_fwd_f32.cu",
                      tpu + "flash_attention.py:96" + lib + "758)"),
+        "K4 split (d16)": ("flash_mha_split_f32_d16",
+                           csrc + "flash_attention_fwd_f32.cu",
+                           tpu + "flash_attention.py:96" + lib + "758)"),
     }
     # K4's other routes, each an entry of its own: float32 with head_dim 64
-    # on the split-product Hopper kernels, head_dim 16 on the mma.sync
-    # (bf16) and CUDA-core (float32) kernels
+    # on the split-product Hopper kernels, head_dim 16 on its own Hopper
+    # kernels (flash_d16.cuh) in the same files, bf16 and float32
     for kind, name, line in (("fwd", "flash_mha_fwd", "758)"),
                              ("bwd dKdV", "flash_mha_bwd_dkv", "1121)"),
                              ("bwd dQ", "flash_mha_bwd_dq", "1456)")):
         part = "fwd" if kind == "fwd" else "bwd"
         f32 = f"flash_attention_{part}_f32.cu"
-        d16 = ("flash_attention.cu" if part == "fwd"
-               else "flash_attention_bwd.cu")
+        bf16 = f"flash_attention_{part}_wgmma.cu"
         for tag, suffix, src in ((" (f32)", "_f32", f32),
-                                 (" (d16)", "_d16", d16),
-                                 (" (d16 f32)", "_d16_f32", d16)):
+                                 (" (d16)", "_d16", bf16),
+                                 (" (d16 f32)", "_d16_f32", f32)):
             meta[f"K4 {kind}{tag}"] = (
                 name + suffix, csrc + src,
                 tpu + "flash_attention.py:96" + lib + line)
@@ -7143,7 +7468,7 @@ def kernel_line(compare_rows, launches, timing):
         # the kernel that still serves the other dtypes and widths, timed on
         # the same inputs
         for key in ("mma_sync_ms", "dwconv_cu_ms", "dwconv_wgrad_cu_ms",
-                    "cuda_core_ms", "design_bound_ms"):
+                    "cuda_core_ms", "design_bound_ms", "exp_floor_ms"):
             if total(key) is not None:
                 entry[key] = total(key)
         # K3 on float32 and on the split kernel: the stock chain on the
@@ -7165,11 +7490,20 @@ def kernel_line(compare_rows, launches, timing):
     return out
 
 
-def phase26_main() -> int:
-    """``python3 chip_smoke.py --phase 26``: phase 26 alone (the float32
-    ViViT), with the kernels built and TF32 off as ``main`` sets them."""
+# the phases that run alone: ``python3 chip_smoke.py --phase N``
+ALONE = {"26": lambda: float32_vivit_phase, "27": lambda: vivit_tiny_phase}
+
+
+def phase_main(n) -> int:
+    """``python3 chip_smoke.py --phase N``: phase 26 (the float32 ViViT)
+    or 27 (vivit_tiny) alone, with the kernels built and TF32 off as
+    ``main`` sets them; its record in ``chiprun_out/phaseN.json``."""
     import torch
 
+    if n not in ALONE:
+        print(f"chip_smoke: --phase takes one of {sorted(ALONE)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -7179,10 +7513,10 @@ def phase26_main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.lib()
-    out = float32_vivit_phase(torch, torch.device("cuda"))
-    log(f"[phase 26] {out['phase_s']:.1f} s")
+    out = ALONE[n]()(torch, torch.device("cuda"))
+    log(f"[phase {n}] {out['phase_s']:.1f} s")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "phase26.json"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", f"phase{n}.json"), "w") as f:
         json.dump(out, f, indent=1)
     return 0
 
@@ -7190,6 +7524,6 @@ def phase26_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(*sys.argv[2:4]))
-    if sys.argv[1:3] == ["--phase", "26"]:
-        sys.exit(phase26_main())
+    if sys.argv[1:2] == ["--phase"]:
+        sys.exit(phase_main(sys.argv[2] if len(sys.argv) > 2 else ""))
     sys.exit(main())

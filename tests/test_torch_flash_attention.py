@@ -246,19 +246,34 @@ def _emulated_attention(q, k, v, do, scale, mode, parts=3):
             lse, di)
 
 
+def _held_to_split_pass(q, k, v, do):
+    """The emulation's operand parts are those of the float32 kernels'
+    split pass: ``flash_mha_split_plain`` of the same [S, D] operands."""
+    split = fa.flash_mha_split_plain(
+        *(torch.from_numpy(a)[None, :, None] for a in (q, k, v, do)))
+    want = [x for a, n in zip((q, k, v, do), (2, 2, 3, 3))
+            for x in _split_parts(a, n)]
+    assert len(want) == split.shape[0]
+    for i, w in enumerate(want):
+        assert np.array_equal(split[i, 0, :, 0].double().numpy(), w)
+
+
+@pytest.mark.parametrize("S,D", [(576, 64), (256, 16)])
 @pytest.mark.parametrize("mode,meets", [("split", True), ("bf16", False),
                                         ("tf32", False)])
-def test_split_products_meet_the_float32_rule(mode, meets):
+def test_split_products_meet_the_float32_rule(mode, meets, S, D):
     """The float32 kernels' accuracy argument, before any card: at one
-    (batch, head) of the scaled configuration's shape (S = 576, D = 64) on
-    seeded inputs, the split products hold o, dq, dk and dv within
-    ``chip_smoke.py``'s float32 rule (2^-14 of the largest value, on the
-    largest and the mean error) of float64, where one bf16 pass (8
+    (batch, head) of the scaled configuration's shape (S = 576, D = 64)
+    and of vivit_tiny's (S = 256, D = 16) on seeded inputs, split by the
+    split pass's plain version, the split products hold o, dq, dk and dv
+    within ``chip_smoke.py``'s float32 rule (2^-14 of the largest value, on
+    the largest and the mean error) of float64, where one bf16 pass (8
     mantissa bits) or one TF32 pass (11) lands outside it on every one.
-    (The split read about 1.1e-5 of the largest value, 5× inside the
-    rule.)"""
-    q, k, v, do = _qkv((576, 64), seed=20, n=4)
-    scale = 64 ** -0.5
+    (At D = 64 the split read about 1.1e-5 of the largest value, 5× inside
+    the rule.)"""
+    q, k, v, do = _qkv((S, D), seed=20, n=4)
+    _held_to_split_pass(q, k, v, do)
+    scale = D ** -0.5
     want = _emulated_attention(*(a.astype(np.float64) for a in (q, k, v, do)),
                                scale, "exact")
     got = _emulated_attention(q, k, v, do, scale, mode)
@@ -271,8 +286,9 @@ def test_split_products_meet_the_float32_rule(mode, meets):
             assert err.max() > rule, name
 
 
+@pytest.mark.parametrize("D", [64, 16])
 @pytest.mark.parametrize("parts,meets", [(3, True), (2, False)])
-def test_one_key_needs_v_and_do_in_three_parts(parts, meets):
+def test_one_key_needs_v_and_do_in_three_parts(parts, meets, D):
     """With one key the softmax has one weight: dq and dk are 0 in exact
     arithmetic, and ``chip_smoke.py`` holds the kernels there to the plain
     backward given the kernels' own lse and di within 2^-20 of
@@ -281,9 +297,11 @@ def test_one_key_needs_v_and_do_in_three_parts(parts, meets):
     carries do's, and the plain version (exact v and do) sees both. With v
     and do in three parts and every term of their products down to 2^-18
     the kernels land far inside (under a tenth); in two, outside, as an
-    H100 read it (dq 1.4e-5 against 6.2e-6 at [3, 1, 2, 64])."""
-    scale = 64 ** -0.5
-    rows = [_qkv((1, 64), seed=100 + i, n=4) for i in range(32)]
+    H100 read it (dq 1.4e-5 against 6.2e-6 at [3, 1, 2, 64]). At head_dim
+    64 and 16."""
+    scale = D ** -0.5
+    rows = [_qkv((1, D), seed=100 + i, n=4) for i in range(32)]
+    _held_to_split_pass(*rows[0])
     floor = scale * 2 ** -20 * max(
         float(np.abs(do * v).sum()) for _, _, v, do in rows)
     worst = 0.0

@@ -13,8 +13,10 @@ and K2's weight gradient the CUDA-core reduction of
 ``dwconv_wgrad.cu`` for the rest.
 The choice is a rule on dtype and width (``dwconv.route``,
 ``dwconv.wgrad_route``, ``convnext_mlp.route``,
-``flash_attention.route``: K4 with head_dim 64 on its Hopper kernels in
-bf16 and, on split bf16 products, in float32, forward and backward), and
+``flash_attention.route``: K4 with head_dim 64 and with head_dim 16 on
+Hopper kernels of its own in bf16 and, on split bf16 products, in
+float32, forward and backward; the older kernels only where a caller
+forces the route), and
 both Hopper K3 kernels
 read W1 and W2 in
 nn.Linear's own layout, so a block that passes ``pwconv1.weight.t()`` hands
@@ -74,17 +76,18 @@ def test_k2_wgrad_route_rule(C, dtype):
 
 
 def _flash_want(dtype, head_dim):
-    """head_dim 64 takes a Hopper kernel in both dtypes (float32 on split
-    bf16 products); head_dim 16 stays on flash_attention*.cu."""
-    if head_dim == 16:
-        return "mma"
-    return "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
+    """Both head dims take a Hopper kernel of their own in both dtypes
+    (float32 on split bf16 products): head_dim 16 the ``_d16`` routes."""
+    want = "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
+    return want + "_d16" if head_dim == 16 else want
 
 
 @pytest.mark.parametrize("head_dim", [16, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_fwd_route_rule(head_dim, dtype):
     assert fa.route(dtype, head_dim) == _flash_want(dtype, head_dim)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.route(dtype, 32)
 
 
 def _linears(C, dtype, seed=0):
@@ -431,7 +434,14 @@ def test_k1_wrapper_passes_its_arguments_to_the_row_kernel(recorder,
     assert args[12] == (0 if out_dtype == torch.bfloat16 else 1)
 
 
-_FLASH_ENTRY_SUFFIX = {"wgmma": "_wgmma", "f32_wgmma": "_f32", "mma": ""}
+_FLASH_ENTRY_SUFFIX = {"wgmma": "_wgmma", "f32_wgmma": "_f32",
+                       "wgmma_d16": "_wgmma_d16", "f32_wgmma_d16": "_f32_d16",
+                       "mma": ""}
+_FLASH_COUNTERS = ("wgmma_launches", "f32_launches", "d16_launches",
+                   "d16_f32_launches")
+_FLASH_ROUTE_COUNTER = dict(zip(("wgmma", "f32_wgmma", "wgmma_d16",
+                                 "f32_wgmma_d16"), _FLASH_COUNTERS))
+_FLASH_SPLIT_ROUTES = ("f32_wgmma", "f32_wgmma_d16")
 
 
 @pytest.fixture
@@ -451,21 +461,29 @@ def flash_scratch(monkeypatch):
 
 
 def _flash_counts(fn):
-    return fn.launches, fn.wgmma_launches, fn.f32_launches
+    return (fn.launches,) + tuple(getattr(fn, c) for c in _FLASH_COUNTERS)
+
+
+def _counted(before, route):
+    """The counts after one launch on ``route``: ``launches`` and that
+    route's own counter one up, the other routes' as they were."""
+    mine = _FLASH_ROUTE_COUNTER.get(route)
+    return (before[0] + 1,) + tuple(
+        n + (c == mine) for n, c in zip(before[1:], _FLASH_COUNTERS))
 
 
 def _split_call(recorder, split, operands):
     """The split pass's entry was called once with every operand, their
-    strides and ``split``, bf16 [7 or 10, B, S, H, 64]."""
-    B, S, H, _ = operands[0].shape
+    strides and ``split``, bf16 [7 or 10, B, S, H, D], and head_dim."""
+    B, S, H, D = operands[0].shape
     name, args = recorder.calls[0]
     assert name == "vcd_flash_split_f32"
     ptrs = tuple(t.data_ptr() for t in operands)
     assert args[:4] == ptrs + (None,) * (4 - len(operands))
     assert list(args[4]) == [x for t in operands for x in t.stride()[:3]]
     assert split.dtype == torch.bfloat16 and split.is_contiguous()
-    assert tuple(split.shape) == (7 + 3 * (len(operands) == 4), B, S, H, 64)
-    assert args[5:9] == (split.data_ptr(), B, S, H)
+    assert tuple(split.shape) == (7 + 3 * (len(operands) == 4), B, S, H, D)
+    assert args[5:10] == (split.data_ptr(), B, S, H, D)
 
 
 @pytest.mark.parametrize("dtype,head_dim", [(torch.bfloat16, 64),
@@ -475,9 +493,11 @@ def _split_call(recorder, split, operands):
 def test_flash_fwd_launch_takes_the_routed_entry(recorder, flash_scratch,
                                                  dtype, head_dim):
     """The forward launches its route's entry, counted under that route;
-    float32 with head_dim 64 first launches the split pass on q, k and v
-    (7 parts: v in three) and hands ``vcd_flash_fwd_f32`` its scratch in
-    their place, with no strides and no dtype code."""
+    float32 (either head_dim) first launches the split pass on q, k and v
+    (7 parts: v in three) and hands ``vcd_flash_fwd_f32`` (``_f32_d16``)
+    its scratch in their place, with no strides and no dtype code; bf16
+    hands its ``_wgmma`` (``_wgmma_d16``) entry the tensors and their
+    strides."""
     q = torch.randn(2, 8, 2, head_dim).to(dtype)
     k, v = torch.randn_like(q), torch.randn_like(q)
     before = _flash_counts(fa.flash_mha)
@@ -485,13 +505,12 @@ def test_flash_fwd_launch_takes_the_routed_entry(recorder, flash_scratch,
     o, lse = fa._launch_fwd(q, k, v, 0.125, need_lse=True)
     name, args = recorder.calls[-1]
     route = _flash_want(dtype, head_dim)
+    split_route = route in _FLASH_SPLIT_ROUTES
     assert name == "vcd_flash_fwd" + _FLASH_ENTRY_SUFFIX[route]
-    assert _flash_counts(fa.flash_mha) == (
-        before[0] + 1, before[1] + (route == "wgmma"),
-        before[2] + (route == "f32_wgmma"))
-    assert fa.flash_mha_split.launches == splits + (route == "f32_wgmma")
+    assert _flash_counts(fa.flash_mha) == _counted(before, route)
+    assert fa.flash_mha_split.launches == splits + split_route
     assert o.shape == q.shape and o.dtype == dtype and lse.shape == (2, 2, 8)
-    if route == "f32_wgmma":
+    if split_route:
         split, = flash_scratch
         assert len(recorder.calls) == 2
         _split_call(recorder, split, (q, k, v))
@@ -501,11 +520,8 @@ def test_flash_fwd_launch_takes_the_routed_entry(recorder, flash_scratch,
     assert len(recorder.calls) == 1 and not flash_scratch
     assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         o.data_ptr(), lse.data_ptr())
-    if route == "wgmma":
-        assert args[6:9] == (2, 8, 2) and len(args) == 11
-    else:
-        assert args[6:10] == (2, 8, 2, head_dim)
-        assert args[11] == (0 if dtype == torch.bfloat16 else 1)
+    assert list(args[5]) == [x for t in (q, k, v) for x in t.stride()[:3]]
+    assert args[6:9] == (2, 8, 2) and len(args) == 11
 
 
 def _bwd_args(dtype, head_dim, B=2, S=8, H=2):
@@ -523,11 +539,9 @@ def _bwd_args(dtype, head_dim, B=2, S=8, H=2):
 def test_flash_bwd_launch_takes_the_routed_entry(recorder, flash_scratch,
                                                  dtype, head_dim, kernel):
     """dK/dV and dQ launch their route's entry (``route``), counted under
-    that route: bf16 with head_dim 64 ``*_wgmma``, float32 with head_dim
-    64 ``*_f32`` after the split pass on q, k, v and do (10 parts: v and
-    do in three), whose scratch it reads in their place; head_dim 16 the
-    entry of ``flash_attention_bwd.cu`` with head_dim and the dtype code
-    (0 bf16, 1 float32)."""
+    that route: bf16 ``*_wgmma`` (``*_wgmma_d16`` at head_dim 16), float32
+    ``*_f32`` (``*_f32_d16``) after the split pass on q, k, v and do (10
+    parts: v and do in three), whose scratch it reads in their place."""
     q, k, v, do, lse, di = _bwd_args(dtype, head_dim)
     fn = fa.flash_mha_bwd_dkv if kernel == "dkv" else fa.flash_mha_bwd_dq
     launch = fa._launch_bwd_dkv if kernel == "dkv" else fa._launch_bwd_dq
@@ -537,13 +551,11 @@ def test_flash_bwd_launch_takes_the_routed_entry(recorder, flash_scratch,
     name, args = recorder.calls[-1]
     route = _flash_want(dtype, head_dim)
     assert name == f"vcd_flash_bwd_{kernel}" + _FLASH_ENTRY_SUFFIX[route]
-    assert _flash_counts(fn) == (
-        before[0] + 1, before[1] + (route == "wgmma"),
-        before[2] + (route == "f32_wgmma"))
+    assert _flash_counts(fn) == _counted(before, route)
     n_out = len(outs)
     assert all(t.shape == q.shape and t.dtype == dtype for t in outs)
     B, S, H = q.shape[:3]
-    if route == "f32_wgmma":
+    if route in _FLASH_SPLIT_ROUTES:
         split, = flash_scratch
         assert len(recorder.calls) == 2
         _split_call(recorder, split, (q, k, v, do))
@@ -555,27 +567,56 @@ def test_flash_bwd_launch_takes_the_routed_entry(recorder, flash_scratch,
     assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, do))
     assert args[4:6] == (lse.data_ptr(), di.data_ptr())
     assert args[6:6 + n_out] == tuple(t.data_ptr() for t in outs)
+    assert list(args[6 + n_out]) == [x for t in (q, k, v, do)
+                                     for x in t.stride()[:3]]
     rest = args[7 + n_out:]  # after the strides
-    if route == "wgmma":
-        assert rest[:3] == (B, S, H) and len(rest) == 5
-    else:
-        assert rest[:4] == (B, S, H, head_dim)
-        assert rest[5] == (0 if dtype == torch.bfloat16 else 1)
+    assert rest[:3] == (B, S, H) and len(rest) == 5
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forced_mma_route_takes_the_old_entries(recorder, flash_scratch,
+                                                      monkeypatch, dtype):
+    """The kernels the routes replaced stay reachable for a caller that
+    forces the route to ``"mma"`` (the card's yardstick): their entries
+    take head_dim and the dtype code (0 bf16, 1 float32) and count on
+    ``launches`` alone."""
+    monkeypatch.setattr(fa, "route", lambda dtype, head_dim: "mma")
+    q, k, v, do, lse, di = _bwd_args(dtype, 16)
+    code = 0 if dtype == torch.bfloat16 else 1
+    before = {fn: _flash_counts(fn) for fn in (
+        fa.flash_mha, fa.flash_mha_bwd_dkv, fa.flash_mha_bwd_dq)}
+    fa._launch_fwd(q, k, v, 0.125, need_lse=True)
+    fa._launch_bwd_dkv(q, k, v, do, lse, di, 0.125)
+    fa._launch_bwd_dq(q, k, v, do, lse, di, 0.125)
+    assert [name for name, _ in recorder.calls] == [
+        "vcd_flash_fwd", "vcd_flash_bwd_dkv", "vcd_flash_bwd_dq"]
+    fwd, dkv, dq = (args for _, args in recorder.calls)
+    assert fwd[6:10] == (2, 8, 2, 16) and fwd[11] == code
+    assert dkv[9:13] == (2, 8, 2, 16) and dkv[14] == code
+    assert dq[8:12] == (2, 8, 2, 16) and dq[13] == code
+    assert not flash_scratch
+    for fn, counts in before.items():
+        assert _flash_counts(fn) == _counted(counts, "mma")
+
+
+@pytest.mark.parametrize("head_dim", [16, 64])
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
-def test_flash_bwd_reads_a_given_split(recorder, flash_scratch, kernel):
+def test_flash_bwd_reads_a_given_split(recorder, flash_scratch, kernel,
+                                       head_dim):
     """A float32 backward kernel given the split copies launches no split
     pass and reads them; copies of another shape or dtype are refused."""
-    q, k, v, do, lse, di = _bwd_args(torch.float32, 64)
+    q, k, v, do, lse, di = _bwd_args(torch.float32, head_dim)
     fn = fa.flash_mha_bwd_dkv if kernel == "dkv" else fa.flash_mha_bwd_dq
     launch = fa._launch_bwd_dkv if kernel == "dkv" else fa._launch_bwd_dq
     split = torch.empty((10,) + tuple(q.shape), dtype=torch.bfloat16)
-    before = fn.f32_launches
+    route = _flash_want(torch.float32, head_dim)
+    before = _flash_counts(fn)
     launch(q, k, v, do, lse, di, 0.125, split=split)
     (name, args), = recorder.calls
-    assert name == f"vcd_flash_bwd_{kernel}_f32" and not flash_scratch
-    assert args[0] == split.data_ptr() and fn.f32_launches == before + 1
+    assert name == (f"vcd_flash_bwd_{kernel}" + _FLASH_ENTRY_SUFFIX[route])
+    assert not flash_scratch
+    assert args[0] == split.data_ptr()
+    assert _flash_counts(fn) == _counted(before, route)
     for bad in (split[:7], split.float(), split.transpose(1, 2)):
         with pytest.raises(ValueError, match="split must be"):
             launch(q, k, v, do, lse, di, 0.125, split=bad)
@@ -601,26 +642,28 @@ def test_flash_bwd_route_rule(recorder, flash_scratch, monkeypatch, head_dim,
     sfx = _FLASH_ENTRY_SUFFIX[route]
     want = ["vcd_flash_fwd" + sfx, "vcd_flash_bwd_di",
             "vcd_flash_bwd_dkv" + sfx, "vcd_flash_bwd_dq" + sfx]
-    if route == "f32_wgmma":
+    split_route = route in _FLASH_SPLIT_ROUTES
+    if split_route:
         want = want[:2] + ["vcd_flash_split_f32"] + want[2:]
         want.insert(0, "vcd_flash_split_f32")
     assert [name for name, _ in recorder.calls] == want
-    assert given == ([False, True, True] if route == "f32_wgmma" else [])
+    assert given == ([False, True, True] if split_route else [])
 
 
+@pytest.mark.parametrize("head_dim", [16, 64])
 @pytest.mark.parametrize("with_do", [False, True])
-def test_flash_split_plain_layout(with_do):
+def test_flash_split_plain_layout(with_do, head_dim):
     """The split copies in the order the float32 kernels read them: q, k
     in hi and lo, v and do in hi, lo and lo2, where hi = bf16(x),
     lo = bf16(x − hi), lo2 = bf16(x − hi − lo); on the CPU the wrapper
     gives the plain version."""
     g = torch.Generator().manual_seed(3)
-    ops = [torch.randn(2, 5, 3, 64, generator=g) * 10.0 ** i
+    ops = [torch.randn(2, 5, 3, head_dim, generator=g) * 10.0 ** i
            for i in range(4 if with_do else 3)]
     split = fa.flash_mha_split(*ops)
     assert torch.equal(split, fa.flash_mha_split_plain(*ops))
     assert split.dtype == torch.bfloat16
-    assert tuple(split.shape) == (10 if with_do else 7, 2, 5, 3, 64)
+    assert tuple(split.shape) == (10 if with_do else 7, 2, 5, 3, head_dim)
     at = 0
     for x, n in zip(ops, (2, 2, 3, 3)):
         parts = split[at:at + n].float()
@@ -637,13 +680,16 @@ def test_flash_split_plain_layout(with_do):
 def test_flash_split_refuses_what_the_kernels_do_not_take(recorder,
                                                           flash_scratch,
                                                           with_do):
-    """The split pass takes float32 with head_dim 64 and one shape for
-    every operand, else raises before any launch."""
+    """The split pass takes float32 with head_dim 64 or 16 and one shape
+    for every operand, else raises before any launch."""
     n = 4 if with_do else 3
-    for shape, dtype in (((2, 8, 2, 64), torch.bfloat16),
-                         ((2, 8, 2, 16), torch.float32)):
+    for shape, dtype, why in (((2, 8, 2, 64), torch.bfloat16,
+                               "split pass takes"),
+                              ((2, 8, 2, 16), torch.bfloat16,
+                               "split pass takes"),
+                              ((2, 8, 2, 32), torch.float32, "head_dim")):
         ops = [torch.zeros(shape, dtype=dtype) for _ in range(n)]
-        with pytest.raises(ValueError, match="split pass takes"):
+        with pytest.raises(ValueError, match=why):
             fa._launch_split(*ops)
     ops = [torch.zeros(2, 8, 2, 64) for _ in range(n)]
     ops[-1] = torch.zeros(2, 9, 2, 64)

@@ -230,6 +230,34 @@ def test_scaled_config_builds_a_576_token_model():
         build_model(cfg.model, device="cpu", frame_size=100)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tiny_config_builds_a_256_token_model(dtype):
+    """``chip_smoke.py`` phase 27's configuration: phase 9's with vivit_tiny
+    and 224² frames builds 256 tokens a frame, 2 spatial blocks of 4 heads
+    of 16 on K4 and 1 temporal block, whose K4 calls take the head_dim-16
+    Hopper routes on the card."""
+    cfg = ExperimentConfig().override({
+        "model.backbone": "vivit_tiny", "model.temporal_mode": "attention",
+        "model.patch_size": 14, "data.fps": 8, "data.duration": 4,
+        "data.frame_size": 224, "augment.blur_sigma": 0.0,
+        "model.attention_impl": "flash", "model.dtype": dtype})
+    assert cfg.data.num_frames == 32
+    model, _ = create_train_state(cfg, torch.Generator().manual_seed(0), 10,
+                                  device="cpu")
+    pred = CollisionPredictor(cfg, model.state_dict(), device="cpu")
+    for m in (model, pred.model):
+        assert m.spatial_pos.shape == (256, 64)
+        assert m.spatial_layers == 2 and m.temporal_layers == 1
+        assert m.spatial_0.attn.num_heads == 4
+        assert m.spatial_0.attn.head_dim == 16
+        assert m.spatial_0.attention_impl == "flash"
+        assert m.temporal_0.attention_impl == "xla"
+        assert m.spatial_0.attn.dtype == getattr(torch, dtype)
+    want = "wgmma_d16" if dtype == "bfloat16" else "f32_wgmma_d16"
+    assert fa.route(getattr(torch, dtype), 16) == want
+    assert pred._fold_stride() == 1
+
+
 def test_flash_with_dropout_raises_and_xla_draws_from_the_generator():
     block = TransformerBlock(32, 4, dropout=0.1, attention_impl="flash")
     with pytest.raises(ValueError, match="dropout"):
@@ -372,9 +400,10 @@ def test_training_step_matches_jax(case):
     assert not model.training and out["probs"].shape == (2, 3)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("impl", ["xla", "flash"])
-def test_predictor_matches_jax_predictor(impl):
-    overrides, side = _overrides("tiny", impl, "bfloat16")
+def test_predictor_matches_jax_predictor(impl, dtype):
+    overrides, side = _overrides("tiny", impl, dtype)
     _, params = _flax_params(overrides, side, seed=15)
     jpred = JaxPredictor(JaxConfig().override(overrides), params)
     tpred = CollisionPredictor(ExperimentConfig().override(overrides),
@@ -387,8 +416,10 @@ def test_predictor_matches_jax_predictor(impl):
     assert got.shape == ref.shape == (2, 3)
     np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
     # tolerance: bf16 activations through three blocks, the two frameworks
-    # rounding at other places, a head scaled by 3: probabilities to 2e-2
-    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2)
+    # rounding at other places, a head scaled by 3: probabilities to 2e-2;
+    # float32: sums in another order, probabilities to 1e-5
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
     # a ViViT never subsamples, so the decoder may not fold frames away for
     # it. The JAX predictor's _fold_stride answers by frame_subsample for
     # every backbone, which would hand this model half its frames; the port

@@ -51,14 +51,20 @@ _SIGNATURES = {
     "vcd_convnext_mlp_wide": [_P] * 14 + [_I] * 5 + [_P],
     "vcd_flash_fwd": [_P] * 5 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_fwd_wgmma": [_P] * 5 + [_STRIDES, _I, _I, _I, _F, _P],
+    "vcd_flash_fwd_wgmma_d16": [_P] * 5 + [_STRIDES, _I, _I, _I, _F, _P],
     "vcd_flash_fwd_f32": [_P] * 3 + [_I, _I, _I, _F, _P],
-    "vcd_flash_split_f32": [_P] * 4 + [_STRIDES, _P, _I, _I, _I, _P],
+    "vcd_flash_fwd_f32_d16": [_P] * 3 + [_I, _I, _I, _F, _P],
+    "vcd_flash_split_f32": [_P] * 4 + [_STRIDES, _P, _I, _I, _I, _I, _P],
     "vcd_flash_bwd_dkv": [_P] * 8 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_dq": [_P] * 7 + [_STRIDES, _I, _I, _I, _I, _F, _I, _P],
     "vcd_flash_bwd_dkv_wgmma": [_P] * 8 + [_STRIDES, _I, _I, _I, _F, _P],
     "vcd_flash_bwd_dq_wgmma": [_P] * 7 + [_STRIDES, _I, _I, _I, _F, _P],
+    "vcd_flash_bwd_dkv_wgmma_d16": [_P] * 8 + [_STRIDES, _I, _I, _I, _F, _P],
+    "vcd_flash_bwd_dq_wgmma_d16": [_P] * 7 + [_STRIDES, _I, _I, _I, _F, _P],
     "vcd_flash_bwd_dkv_f32": [_P] * 5 + [_I, _I, _I, _F, _P],
     "vcd_flash_bwd_dq_f32": [_P] * 4 + [_I, _I, _I, _F, _P],
+    "vcd_flash_bwd_dkv_f32_d16": [_P] * 5 + [_I, _I, _I, _F, _P],
+    "vcd_flash_bwd_dq_f32_d16": [_P] * 4 + [_I, _I, _I, _F, _P],
     "vcd_flash_bwd_di": [_P] * 3 + [_STRIDES, _I, _I, _I, _I, _I, _P],
 }
 

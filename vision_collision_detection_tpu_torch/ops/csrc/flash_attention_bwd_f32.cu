@@ -1,7 +1,9 @@
 // K4 backward for float32 and head_dim 64 (a float32 ViViT with
 // attention_impl="flash" in training): dK/dV and dQ on Hopper's warpgroup
 // products (wgmma) fed by the Tensor Memory Accelerator, with float32
-// accuracy from split bf16 products (flash_f32.cuh).
+// accuracy from split bf16 products (flash_f32.cuh); and, at the end,
+// float32 with head_dim 16 (vivit_tiny), the design of flash_d16.cuh on
+// the split copies.
 //
 // Replace the same TPU kernels as flash_attention_bwd.cu (the JAX library's
 // `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`, which run a
@@ -50,7 +52,7 @@
 // dq += dS K; dK/dV: dv += P^T dO, dk += dS^T Q), three split products
 // each, then waits again. No group stays in flight across the loop's back
 // edge.
-#include "flash_f32.cuh"
+#include "flash_d16.cuh"
 
 namespace {
 
@@ -402,8 +404,8 @@ __device__ __forceinline__ void bwd_block(const Maps& maps,
     // free for the next item's
     __syncwarp();
     if (threadIdx.x % 32 == 0) mbar_arrive(base + L::FREE);
-    store_rows_f32(out_a, acc_a, it.b, it.h, row0, S, H, ln);
-    if (DKV) store_rows_f32(out_b, acc_b, it.b, it.h, row0, S, H, ln);
+    store_rows<64>(out_a, acc_a, it.b, it.h, row0, S, H, ln);
+    if (DKV) store_rows<64>(out_b, acc_b, it.b, it.h, row0, S, H, ln);
   }
 }
 
@@ -496,4 +498,60 @@ extern "C" int vcd_flash_bwd_dq_f32(const void* split, const void* lse,
   return launch<false, DQ_NWG, DQ_STAGES>(
       flash_bwd_dq_f32_wgmma_kernel, split, lse, di, B, S, H, scale,
       (cudaStream_t)stream, (float*)dq);
+}
+
+namespace {
+
+constexpr int D16_DKV_NWG = d16::BWD_NWG<true, true>;
+constexpr int D16_DQ_NWG = d16::BWD_NWG<false, true>;
+
+__global__ void __launch_bounds__(d16::Block<D16_DKV_NWG>::THREADS, 1)
+flash_bwd_dkv_f32_d16_kernel(const __grid_constant__ d16::Maps<true> maps,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             float scale, int items, int row_blocks, int S,
+                             int H) {
+  d16::bwd_block<true, true, D16_DKV_NWG>(maps, lse, di, dk, dv, items,
+                                          row_blocks, S, H, scale);
+}
+
+__global__ void __launch_bounds__(d16::Block<D16_DQ_NWG>::THREADS, 1)
+flash_bwd_dq_f32_d16_kernel(const __grid_constant__ d16::Maps<true> maps,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di,
+                            float* __restrict__ dq, float scale, int items,
+                            int row_blocks, int S, int H) {
+  d16::bwd_block<false, true, D16_DQ_NWG>(maps, lse, di, dq, (float*)nullptr,
+                                          items, row_blocks, S, H, scale);
+}
+
+auto bwd16_split_maps(const void* split, int B, int S, int H) {
+  return [=](d16::Maps<true>& m) {
+    return d16::split_maps(m, split, 4, B, S, H, d16::ST, d16::ST);
+  };
+}
+
+}  // namespace
+
+// The same two for head_dim 16: split, contiguous bf16 [10, B, S, H, 16];
+// dk, dv (and dq) contiguous float32 [B, S, H, 16].
+extern "C" int vcd_flash_bwd_dkv_f32_d16(const void* split, const void* lse,
+                                         const void* di, void* dk, void* dv,
+                                         int B, int S, int H, float scale,
+                                         void* stream) {
+  return d16::launch<d16::Maps<true>, D16_DKV_NWG>(
+      flash_bwd_dkv_f32_d16_kernel, d16::BwdLayout<true, D16_DKV_NWG>::DYNAMIC,
+      B, S, H, (cudaStream_t)stream, bwd16_split_maps(split, B, S, H),
+      (const float*)lse, (const float*)di, (float*)dk, (float*)dv, scale);
+}
+
+extern "C" int vcd_flash_bwd_dq_f32_d16(const void* split, const void* lse,
+                                        const void* di, void* dq, int B,
+                                        int S, int H, float scale,
+                                        void* stream) {
+  return d16::launch<d16::Maps<true>, D16_DQ_NWG>(
+      flash_bwd_dq_f32_d16_kernel, d16::BwdLayout<true, D16_DQ_NWG>::DYNAMIC,
+      B, S, H, (cudaStream_t)stream, bwd16_split_maps(split, B, S, H),
+      (const float*)lse, (const float*)di, (float*)dq, scale);
 }

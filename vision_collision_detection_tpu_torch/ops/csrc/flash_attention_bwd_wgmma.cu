@@ -1,6 +1,7 @@
 // K4 backward for bf16 and head_dim 64, the scaled ViViT configuration's
 // case: dK/dV and dQ on Hopper's warpgroup products (wgmma) fed by the
-// Tensor Memory Accelerator.
+// Tensor Memory Accelerator; and, at the end, bf16 with head_dim 16
+// (vivit_tiny), the design of flash_d16.cuh.
 //
 // Replace the same TPU kernels as flash_attention_bwd.cu (the JAX library's
 // `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel` behind
@@ -47,7 +48,7 @@
 // registers to the consumers (232 a thread with two consumer warpgroups,
 // 160 with three).
 #include "flash_bwd_args.cuh"
-#include "flash_wgmma.cuh"
+#include "flash_d16.cuh"
 
 namespace {
 
@@ -499,4 +500,80 @@ extern "C" int vcd_flash_bwd_dq_wgmma(const void* q, const void* k,
                         bwd_args(q, k, v, dout, lse, di, strides, B, S, H,
                                  scale, 0, stream),
                         (bf16*)dq);
+}
+
+namespace {
+
+constexpr int D16_DKV_NWG = d16::BWD_NWG<true, false>;
+constexpr int D16_DQ_NWG = d16::BWD_NWG<false, false>;
+
+__global__ void __launch_bounds__(d16::Block<D16_DKV_NWG>::THREADS, 1)
+flash_bwd_dkv_wgmma_d16_kernel(const __grid_constant__ d16::Maps<false> maps,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ di,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv,
+                               float scale, int items, int row_blocks, int S,
+                               int H) {
+  d16::bwd_block<true, false, D16_DKV_NWG>(maps, lse, di, dk, dv, items,
+                                           row_blocks, S, H, scale);
+}
+
+__global__ void __launch_bounds__(d16::Block<D16_DQ_NWG>::THREADS, 1)
+flash_bwd_dq_wgmma_d16_kernel(const __grid_constant__ d16::Maps<false> maps,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              bf16* __restrict__ dq, float scale, int items,
+                              int row_blocks, int S, int H) {
+  d16::bwd_block<false, false, D16_DQ_NWG>(maps, lse, di, dq, (bf16*)nullptr,
+                                           items, row_blocks, S, H, scale);
+}
+
+// The maps of q, k, v, dout through their own strides, boxes of 64 rows.
+auto bwd16_maps(const BwdArgs& a) {
+  return [a](d16::Maps<false>& m) {
+    cudaError_t err;
+    if ((err = make_map16(&m.q[0], a.q, a.sq, a.B, a.S, a.H, d16::ST)) !=
+            cudaSuccess ||
+        (err = make_map16(&m.k[0], a.k, a.sk, a.B, a.S, a.H, d16::ST)) !=
+            cudaSuccess ||
+        (err = make_map16(&m.v[0], a.v, a.sv, a.B, a.S, a.H, d16::ST)) !=
+            cudaSuccess)
+      return err;
+    return make_map16(&m.dout[0], a.dout, a.sd, a.B, a.S, a.H, d16::ST);
+  };
+}
+
+}  // namespace
+
+// The same two for head_dim 16: q, k, v, dout bf16 [B, S, H, 16] with
+// element strides `strides[12]`, every stride 16-byte aligned; dk, dv
+// (and dq) contiguous bf16 [B, S, H, 16].
+extern "C" int vcd_flash_bwd_dkv_wgmma_d16(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* di,
+                                           void* dk, void* dv,
+                                           const int64_t* strides, int B,
+                                           int S, int H, float scale,
+                                           void* stream) {
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, strides, B, S, H, scale,
+                             0, stream);
+  return d16::launch<d16::Maps<false>, D16_DKV_NWG>(
+      flash_bwd_dkv_wgmma_d16_kernel,
+      d16::BwdLayout<false, D16_DKV_NWG>::DYNAMIC, B, S, H, a.stream,
+      bwd16_maps(a), (const float*)lse, (const float*)di, (bf16*)dk,
+      (bf16*)dv, scale);
+}
+
+extern "C" int vcd_flash_bwd_dq_wgmma_d16(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* di,
+                                          void* dq, const int64_t* strides,
+                                          int B, int S, int H, float scale,
+                                          void* stream) {
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, di, strides, B, S, H, scale,
+                             0, stream);
+  return d16::launch<d16::Maps<false>, D16_DQ_NWG>(
+      flash_bwd_dq_wgmma_d16_kernel,
+      d16::BwdLayout<false, D16_DQ_NWG>::DYNAMIC, B, S, H, a.stream,
+      bwd16_maps(a), (const float*)lse, (const float*)di, (bf16*)dq, scale);
 }

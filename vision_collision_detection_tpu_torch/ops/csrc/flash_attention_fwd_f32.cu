@@ -1,8 +1,10 @@
 // K4 forward for float32 and head_dim 64 (a float32 ViViT with
 // attention_impl="flash"), on Hopper's warpgroup products (wgmma) fed by the
 // Tensor Memory Accelerator, with float32 accuracy from split bf16
-// products (flash_f32.cuh); and the split pass that K4's float32 kernels
-// read their operands through.
+// products (flash_f32.cuh); the split pass that K4's float32 kernels read
+// their operands through (head_dim 64 and 16); and, at the end, float32
+// with head_dim 16 (vivit_tiny), the design of flash_d16.cuh on the split
+// copies.
 //
 // Replaces the same TPU kernel as flash_attention.cu (the JAX library's
 // `_flash_attention_impl`, whose pallas_call runs the float32 operands of a
@@ -40,7 +42,7 @@
 // tensor cores meanwhile (one key tile at a time keeps q, o, s and p's two
 // halves within 160 registers). No wgmma group stays in flight across the
 // loop's back edge.
-#include "flash_f32.cuh"
+#include "flash_d16.cuh"
 
 namespace {
 
@@ -295,7 +297,7 @@ flash_fwd_f32_wgmma_kernel(const __grid_constant__ Maps maps,
         lse[((int64_t)it.b * H + it.h) * S + row] =
             st.m[half] * scale + logf(l);
     }
-    store_rows_f32(o_out, o, it.b, it.h, row0, S, H, ln);
+    store_rows<64>(o_out, o, it.b, it.h, row0, S, H, ln);
   }
 }
 
@@ -309,13 +311,14 @@ struct SplitOperands {
 };
 
 // The split pass: operand blockIdx.y; one thread takes 8 neighbouring
-// values of a row (two 16-byte loads) and writes their hi and lo parts
-// (16 bytes each), and lo2 where the operand has it.
+// values of a row of D (64 or 16; two 16-byte loads) and writes their hi
+// and lo parts (16 bytes each), and lo2 where the operand has it.
 __global__ void __launch_bounds__(256)
-flash_split_f32_kernel(SplitOperands ops, int S, int H, int64_t rows) {
+flash_split_f32_kernel(SplitOperands ops, int S, int H, int D,
+                       int64_t rows) {
   const int64_t gid = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  const int64_t row = gid / 8;
-  const int col = (int)(gid % 8) * 8;
+  const int64_t row = gid / (D / 8);
+  const int col = (int)(gid % (D / 8)) * 8;
   if (row >= rows) return;
   const int op = blockIdx.y;
   const Strides st = ops.st[op];
@@ -342,31 +345,43 @@ flash_split_f32_kernel(SplitOperands ops, int S, int H, int64_t rows) {
           pack_bf16(v[2 * i] - hf.x - lf.x, v[2 * i + 1] - hf.y - lf.y);
     }
   }
-  *reinterpret_cast<uint4*>(hi + row * 64 + col) =
+  *reinterpret_cast<uint4*>(hi + row * D + col) =
       make_uint4(p_hi[0], p_hi[1], p_hi[2], p_hi[3]);
-  *reinterpret_cast<uint4*>(lo + row * 64 + col) =
+  *reinterpret_cast<uint4*>(lo + row * D + col) =
       make_uint4(p_lo[0], p_lo[1], p_lo[2], p_lo[3]);
   if (lo2 != nullptr)
-    *reinterpret_cast<uint4*>(lo2 + row * 64 + col) =
+    *reinterpret_cast<uint4*>(lo2 + row * D + col) =
         make_uint4(p_lo2[0], p_lo2[1], p_lo2[2], p_lo2[3]);
+}
+
+using D16Layout = d16::FwdLayout<true, d16::FWD_NWG, d16::FWD_KT>;
+
+__global__ void __launch_bounds__(d16::Block<d16::FWD_NWG>::THREADS, 1)
+flash_fwd_f32_d16_kernel(const __grid_constant__ d16::Maps<true> maps,
+                         float* __restrict__ o, float* __restrict__ lse,
+                         float scale, int items, int row_blocks, int S,
+                         int H) {
+  d16::fwd_block<true, d16::FWD_NWG, d16::FWD_KT>(maps, o, lse, items,
+                                                  row_blocks, S, H, scale);
 }
 
 }  // namespace
 
-// q, k, v and dout (or null): float32 [B, S, H, 64] given with element
-// strides `strides[3 * operands]` = (batch, sequence, head) of each, the
-// last axis contiguous, every row 16-byte aligned. split: contiguous bf16
-// [7 or 10, B, S, H, 64], in this order: q and k hi, lo; v (and dout) hi,
-// lo, lo2. One launch splits every operand.
+// q, k, v and dout (or null): float32 [B, S, H, D] (D 64 or 16) given
+// with element strides `strides[3 * operands]` = (batch, sequence, head)
+// of each, the last axis contiguous, every row 16-byte aligned. split:
+// contiguous bf16 [7 or 10, B, S, H, D], in this order: q and k hi, lo; v
+// (and dout) hi, lo, lo2. One launch splits every operand.
 extern "C" int vcd_flash_split_f32(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const int64_t* strides, void* split,
-                                   int B, int S, int H, void* stream) {
-  if (B < 1 || S < 1 || H < 1) return (int)cudaErrorInvalidValue;
+                                   int B, int S, int H, int D, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || (D != 64 && D != 16))
+    return (int)cudaErrorInvalidValue;
   const void* const src[4] = {q, k, v, dout};
   const int n_parts[4] = {Q_PARTS, K_PARTS, V_PARTS, DO_PARTS};
   const int operands = dout != nullptr ? 4 : 3;
-  const int64_t n = split_elems(B, S, H);
+  const int64_t n = (int64_t)B * S * H * D;
   SplitOperands ops{};
   bf16* at = (bf16*)split;
   for (int i = 0; i < operands; ++i) {
@@ -376,10 +391,10 @@ extern "C" int vcd_flash_split_f32(const void* q, const void* k,
     at += n_parts[i] * n;
   }
   const int64_t rows = (int64_t)B * S * H;
-  const int64_t blocks = (rows * 8 + 255) / 256;
+  const int64_t blocks = (rows * (D / 8) + 255) / 256;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   flash_split_f32_kernel<<<dim3((unsigned)blocks, operands), 256, 0,
-                           (cudaStream_t)stream>>>(ops, S, H, rows);
+                           (cudaStream_t)stream>>>(ops, S, H, D, rows);
   return (int)cudaGetLastError();
 }
 
@@ -419,4 +434,20 @@ extern "C" int vcd_flash_fwd_f32(const void* split, void* o, void* lse,
   flash_fwd_f32_wgmma_kernel<<<grid, L::THREADS, L::DYNAMIC, st>>>(
       maps, (float*)o, (float*)lse, (int)items, row_blocks, S, H, scale);
   return (int)cudaGetLastError();
+}
+
+// The same for head_dim 16: split, contiguous bf16 [7, B, S, H, 16]; o
+// contiguous float32 [B, S, H, 16].
+extern "C" int vcd_flash_fwd_f32_d16(const void* split, void* o, void* lse,
+                                     int B, int S, int H, float scale,
+                                     void* stream) {
+  return d16::launch<d16::Maps<true>, d16::FWD_NWG>(
+      flash_fwd_f32_d16_kernel, D16Layout::DYNAMIC, B, S, H,
+      (cudaStream_t)stream,
+      [&](d16::Maps<true>& m) {
+        return d16::split_maps(m, split, 3, B, S, H,
+                               d16::Block<d16::FWD_NWG>::ITEM_ROWS,
+                               d16::FWD_KT);
+      },
+      (float*)o, (float*)lse, scale);
 }

@@ -1,6 +1,7 @@
 // K4 forward for bf16 and head_dim 64, the scaled ViViT configuration's
 // case, on Hopper's warpgroup products (wgmma) fed by the Tensor Memory
-// Accelerator.
+// Accelerator; and, at the end, bf16 with head_dim 16 (vivit_tiny), the
+// design of flash_d16.cuh.
 //
 // Replaces the same TPU kernel as flash_attention.cu (the JAX library's
 // `_flash_attention_kernel_single_batch` behind
@@ -33,7 +34,7 @@
 // ex2 of logits scaled by scale * log2(e) minus the running max so scaled,
 // one FMA each; the running max is kept in unscaled logits. Only the last
 // tile of a length that is no multiple of 64 pays for the key mask.
-#include "flash_wgmma.cuh"
+#include "flash_d16.cuh"
 
 namespace {
 
@@ -381,4 +382,44 @@ extern "C" int vcd_flash_fwd_wgmma(const void* q, const void* k,
                            (cudaStream_t)stream>>>(
       mq, mk, mv, (bf16*)o, (float*)lse, (int)items, row_blocks, S, H, scale);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+using D16Layout = d16::FwdLayout<false, d16::FWD_NWG, d16::FWD_KT>;
+
+__global__ void __launch_bounds__(d16::Block<d16::FWD_NWG>::THREADS, 1)
+flash_fwd_wgmma_d16_kernel(const __grid_constant__ d16::Maps<false> maps,
+                           bf16* __restrict__ o, float* __restrict__ lse,
+                           float scale, int items, int row_blocks, int S,
+                           int H) {
+  d16::fwd_block<false, d16::FWD_NWG, d16::FWD_KT>(maps, o, lse, items,
+                                                   row_blocks, S, H, scale);
+}
+
+}  // namespace
+
+// The same for head_dim 16: q, k, v bf16 [B, S, H, 16] given with element
+// strides `strides[9]`, the last axis contiguous, every stride 16-byte
+// aligned; o contiguous bf16 [B, S, H, 16]; lse float32 [B, H, S] or null.
+extern "C" int vcd_flash_fwd_wgmma_d16(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       const int64_t* strides, int B, int S,
+                                       int H, float scale, void* stream) {
+  const int64_t* s = strides;
+  return d16::launch<d16::Maps<false>, d16::FWD_NWG>(
+      flash_fwd_wgmma_d16_kernel, D16Layout::DYNAMIC, B, S, H,
+      (cudaStream_t)stream,
+      [&](d16::Maps<false>& m) {
+        cudaError_t err;
+        if ((err = make_map16(&m.q[0], q, {s[0], s[1], s[2]}, B, S, H,
+                              d16::Block<d16::FWD_NWG>::ITEM_ROWS)) !=
+                cudaSuccess ||
+            (err = make_map16(&m.k[0], k, {s[3], s[4], s[5]}, B, S, H,
+                              d16::FWD_KT)) != cudaSuccess)
+          return err;
+        return make_map16(&m.v[0], v, {s[6], s[7], s[8]}, B, S, H,
+                          d16::FWD_KT);
+      },
+      (bf16*)o, (float*)lse, scale);
 }

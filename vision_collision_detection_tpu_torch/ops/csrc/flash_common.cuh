@@ -109,20 +109,20 @@ __device__ __forceinline__ void load_a(unsigned (&a)[D / 16][4],
 }
 
 // A warp's 16 x D float32 accumulators -> rows of a contiguous [B, S, H, D]
-// bf16 tensor, rows past S left out.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 8][4],
+// tensor of T (bf16, rounded, or float), rows past S left out.
+template <int D, typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 8][4],
                                            int b, int h, int row0, int S, int H,
                                            const Lanes& L) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + L.g + 8 * half;
     if (row >= S) continue;
-    bf16* p = out + (((int64_t)b * S + row) * H + h) * D + 2 * L.tg;
+    T* p = out + (((int64_t)b * S + row) * H + h) * D + 2 * L.tg;
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(p + nt * 8) =
-          __floats2bfloat162_rn(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      Pair<T>::store(p + nt * 8,
+                     make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]));
   }
 }
 

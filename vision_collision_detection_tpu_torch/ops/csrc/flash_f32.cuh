@@ -46,13 +46,14 @@ __device__ __forceinline__ void split_pack(float a, float b, unsigned& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
-// A warp's 16 x 64 float32 accumulator tile as hi and lo A fragments (the
-// layout of acc_to_a).
-__device__ __forceinline__ void acc_to_a_split(const float (&acc)[8][4],
-                                               unsigned (&hi)[4][4],
-                                               unsigned (&lo)[4][4]) {
+// A warp's 16 x 8·NT float32 accumulator tile as hi and lo A fragments
+// (the layout of acc_to_a).
+template <int NT>
+__device__ __forceinline__ void acc_to_a_split(const float (&acc)[NT][4],
+                                               unsigned (&hi)[NT / 2][4],
+                                               unsigned (&lo)[NT / 2][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NT / 2; ++j) {
     split_pack(acc[2 * j][0], acc[2 * j][1], hi[j][0], lo[j][0]);
     split_pack(acc[2 * j][2], acc[2 * j][3], hi[j][1], lo[j][1]);
     split_pack(acc[2 * j + 1][0], acc[2 * j + 1][1], hi[j][2], lo[j][2]);
@@ -127,24 +128,6 @@ __device__ __forceinline__ void split_ab5(float (&d)[8][4],
   wgmma_tile_ab(d, a_hi, b_lo2);
   wgmma_tile_ab(d, a_lo, b_lo);
   split_ab(d, a_hi, a_lo, b_hi, b_lo);
-}
-
-// A warp's 16 x 64 float32 accumulators -> rows of a contiguous
-// [B, S, H, 64] float32 tensor, rows past S left out.
-__device__ __forceinline__ void store_rows_f32(float* out,
-                                               const float (&acc)[8][4],
-                                               int b, int h, int row0, int S,
-                                               int H, const Lanes& L) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + L.g + 8 * half;
-    if (row >= S) continue;
-    float* p = out + (((int64_t)b * S + row) * H + h) * 64 + 2 * L.tg;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<float2*>(p + nt * 8) =
-          make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
-  }
 }
 
 // Parts of each operand in the split scratch: q, k in two, v, do in three.

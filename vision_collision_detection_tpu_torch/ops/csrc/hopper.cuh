@@ -19,6 +19,16 @@
 // A operands come from registers (ldmatrix reads them out of a tile by the
 // same rule) or from a tile in shared memory, read K-major like B.
 //
+// Head_dim 16 (K4 at vivit_tiny's width) has rows of 16 bf16, 32 bytes,
+// in tiles of the 32-byte swizzle: row r at 32·r, its 16-byte chunk c at
+// chunk c ^ ((r / 4) % 2), the pattern repeating every 256 bytes (8 rows),
+// the tile 256-byte aligned. CU_TENSOR_MAP_SWIZZLE_32B writes it;
+// `sw32_chunk` is the rule, `sw32_desc` the descriptor (32-byte swizzle,
+// 256 bytes from one group of eight rows to the next). One row is one
+// k-step of 16, so as a K-major B (logits over head_dim 16) a product is
+// one wgmma; read MN-major (N = 16 along the row, the k index down the
+// rows) the k-th step of 16 rows starts 512·k bytes in.
+//
 // Host side: tensor maps of bf16 operands (and of float32 ones, whose
 // 128-byte rows hold 32 values), encoded through libcuda's
 // cuTensorMapEncodeTiled (found with dlsym: the kernels link against the
@@ -53,6 +63,21 @@ __device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
          | (uint64_t)1 << 62;                // 128-byte swizzle
 }
 
+// Byte offset of 16-byte chunk `c` (0-1) of row `r` in a tile of the
+// 32-byte swizzle.
+__device__ __forceinline__ int sw32_chunk(int r, int c) {
+  return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+}
+
+// wgmma matrix descriptor of a 32-byte-swizzled tile (or a k-step inside
+// it) at shared address `addr`.
+__device__ __forceinline__ uint64_t sw32_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4)  // start address / 16
+         | (uint64_t)1 << 16                 // leading offset: one atom, unused
+         | (uint64_t)(256 >> 4) << 32        // stride between 8-row groups
+         | (uint64_t)3 << 62;                // 32-byte swizzle
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -85,6 +110,19 @@ __device__ __forceinline__ void acc_fence(float (&d)[4][4]) {
                : VCD_ACC8(d, 0), VCD_ACC8(d, 1), VCD_ACC8(d, 2),
                  VCD_ACC8(d, 3)::"memory");
 }
+__device__ __forceinline__ void acc_fence(float (&d)[2][4]) {
+  asm volatile("" : VCD_ACC8(d, 0), VCD_ACC8(d, 1)::"memory");
+}
+__device__ __forceinline__ void acc_fence(float (&d)[16][4]) {
+  asm volatile(""
+               : VCD_ACC8(d, 0), VCD_ACC8(d, 1), VCD_ACC8(d, 2),
+                 VCD_ACC8(d, 3), VCD_ACC8(d, 4), VCD_ACC8(d, 5),
+                 VCD_ACC8(d, 6), VCD_ACC8(d, 7)::"memory");
+  asm volatile(""
+               : VCD_ACC8(d, 8), VCD_ACC8(d, 9), VCD_ACC8(d, 10),
+                 VCD_ACC8(d, 11), VCD_ACC8(d, 12), VCD_ACC8(d, 13),
+                 VCD_ACC8(d, 14), VCD_ACC8(d, 15)::"memory");
+}
 
 // d[64 x 64] (+)= A[64 x 16] · B[16 x 64], float32 += bf16 · bf16, started by
 // the four warps of a warpgroup together and asynchronous until wgmma_wait.
@@ -103,6 +141,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VCD_ACC32_LIST
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : VCD_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate), "n"(B_MN_MAJOR));
+}
+
+// The same with N = 16 (d[64 x 16], a warp's 16 x 16 tile as d[2][4]) and
+// N = 128 (d[16][4]).
+template <int B_MN_MAJOR>
+__device__ __forceinline__ void wgmma_rs16(float (&d)[2][4],
+                                           const unsigned (&a)[4],
+                                           uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : VCD_ACC8(d, 0), VCD_ACC8(d, 1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate), "n"(B_MN_MAJOR));
+}
+
+#define VCD_ACC64(d)                                                     \
+  VCD_ACC8(d, 0), VCD_ACC8(d, 1), VCD_ACC8(d, 2), VCD_ACC8(d, 3),        \
+      VCD_ACC8(d, 4), VCD_ACC8(d, 5), VCD_ACC8(d, 6), VCD_ACC8(d, 7),    \
+      VCD_ACC8(d, 8), VCD_ACC8(d, 9), VCD_ACC8(d, 10), VCD_ACC8(d, 11),  \
+      VCD_ACC8(d, 12), VCD_ACC8(d, 13), VCD_ACC8(d, 14), VCD_ACC8(d, 15)
+#define VCD_ACC64_LIST                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <int B_MN_MAJOR>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[16][4],
+                                            const unsigned (&a)[4],
+                                            uint64_t b_desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VCD_ACC64_LIST
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : VCD_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
         "r"(accumulate), "n"(B_MN_MAJOR));
 }
@@ -169,6 +248,19 @@ __device__ __forceinline__ void load_a_sw128(unsigned (&a)[4][4],
         : "=r"(a[ks][0]), "=r"(a[ks][1]), "=r"(a[ks][2]), "=r"(a[ks][3])
         : "r"(at));
   }
+}
+
+// A warp's 16 rows (warp_in_group * 16 on) of a 32-byte-swizzled tile of
+// 16 columns at shared address `tile` as one mma A fragment.
+__device__ __forceinline__ void load_a_sw32(unsigned (&a)[4], unsigned tile,
+                                            int warp_in_group) {
+  const int lane = threadIdx.x % 32;
+  const unsigned at = tile + sw32_chunk(warp_in_group * 16 + lane % 16,
+                                        lane / 16);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(at));
 }
 
 // Orders this thread's generic writes to shared memory before later reads
@@ -308,26 +400,29 @@ inline EncodeTiled encode_tiled() {
 // box of `box` elements: the box's innermost 128 bytes (64 bf16, 32
 // float32) fill one swizzled row, elements past the tensor's end read as
 // zeros.
-inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
-                            const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box) {
+// `swizzle`: the 128-byte swizzle, or the 32-byte one for boxes whose rows
+// are 32 bytes (head_dim 16 in bf16).
+inline cudaError_t make_map(
+    CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+    const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(
       map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // make_map of a bf16 tensor.
-inline cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                                 const cuuint64_t* dims,
-                                 const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+inline cudaError_t make_bf16_map(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims,
-                  strides, box);
+                  strides, box, swizzle);
 }
 
 }  // namespace vcd

@@ -62,13 +62,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// The A fragments (16 rows x 16 columns each) of a warp's 16 x 64 float32
-// tile held as mma accumulators, rounded to bf16: accumulator column tiles
-// 2j and 2j + 1 are the two halves of fragment j.
-__device__ __forceinline__ void acc_to_a(const float (&acc)[8][4],
-                                         unsigned (&a)[4][4]) {
+// The A fragments (16 rows x 16 columns each) of a warp's 16 x 8·NT
+// float32 tile held as mma accumulators, rounded to bf16: accumulator
+// column tiles 2j and 2j + 1 are the two halves of fragment j.
+template <int NT>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[NT][4],
+                                         unsigned (&a)[NT / 2][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < NT / 2; ++j) {
     a[j][0] = pack_bf16(acc[2 * j][0], acc[2 * j][1]);
     a[j][1] = pack_bf16(acc[2 * j][2], acc[2 * j][3]);
     a[j][2] = pack_bf16(acc[2 * j + 1][0], acc[2 * j + 1][1]);

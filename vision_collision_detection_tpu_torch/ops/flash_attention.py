@@ -19,9 +19,14 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
   two key tiles a step so that one tile's softmax runs under the other's
   products), and for float32 with head_dim 64 too
   (``ops/csrc/flash_attention_fwd_f32.cu``: the same design on split
-  products, below); head_dim 16 keeps the ``mma.sync`` (bf16) and
-  CUDA-core (float32) kernels of ``ops/csrc/flash_attention.cu``.
-  ``route`` is the rule, for the backward too.
+  products, below). head_dim 16 (vivit_tiny) has Hopper kernels of its
+  own in the same files, bf16 and float32 (``ops/csrc/flash_d16.cuh``:
+  32-byte-swizzled tiles, four consumer warpgroups and items of 256
+  queries, keys in tiles of 64; there the softmax's exponentials, not the
+  bytes or the products, set the floor). The ``mma.sync`` (bf16) and
+  CUDA-core (float32) kernels of ``ops/csrc/flash_attention.cu`` take no
+  route: they stay compiled as the card's yardstick. ``route`` is the
+  rule, for the backward too.
 - backward dK/dV and backward dQ: each recomputes p from q, k and the saved
   log-sum-exp; no float atomics, so two runs agree bit for bit. Bound:
   operations, 8·S²·D flops per (batch, head) for dK/dV and 6·S²·D for dQ
@@ -32,10 +37,10 @@ flash_attention.py``): the forward ``_flash_attention_impl``, the backward
   per operand, a producer warp and ``mbarrier``s around a ring of tiles,
   blocks of 128 keys (dK/dV) or 192 queries (dQ); float32 with head_dim
   64 on the same design with split products
-  (``ops/csrc/flash_attention_bwd_f32.cu``). head_dim 16 keeps the
-  ``mma.sync`` (bf16) and CUDA-core (float32) kernels of
-  ``ops/csrc/flash_attention_bwd.cu``. Each route has its own C entry,
-  so no C launcher chooses.
+  (``ops/csrc/flash_attention_bwd_f32.cu``); head_dim 16 on the designs
+  of ``ops/csrc/flash_d16.cuh`` in the same two files. The ``mma.sync``
+  and CUDA-core kernels of ``ops/csrc/flash_attention_bwd.cu`` are the
+  yardstick. Each route has its own C entries, so no C launcher chooses.
 - ``di = Σ(o ⊙ do)``, the row term of ds, by the row kernel
   ``vcd_flash_bwd_di`` (``ops/csrc/flash_attention_bwd.cu``; bound: bytes, o
   and do read once). In the library it is ``jnp`` outside the Pallas
@@ -46,9 +51,9 @@ Numerics, shared by the kernels and the plain versions: logits, softmax and
 every accumulation in float32; p (and, in the backward, ds) rounded to the
 inputs' dtype before its product with v (do, q, k).
 
-**float32 on the tensor cores.** The float32 kernels for head_dim 64 take
-each float32 operand x as hi + lo, hi = bf16(x) and lo = bf16(x − hi), and
-each product a·b as lo_a·hi_b + hi_a·lo_b + hi_a·hi_b: three bf16 products
+**float32 on the tensor cores.** The float32 kernels (head_dim 64 and 16)
+take each float32 operand x as hi + lo, hi = bf16(x) and lo = bf16(x − hi),
+and each product a·b as lo_a·hi_b + hi_a·lo_b + hi_a·hi_b: three bf16 products
 into a float32 accumulator (989 TFLOP/s where scalar float32 has 67), each
 within about 3·2^-18 of a·b. q, k, v and do are split by a pass that writes
 hi and lo bf16 copies into scratch the wrapper allocates
@@ -67,11 +72,11 @@ of S to a multiple of 128 are TPU block constraints and have no counterpart
 here. Keys past S are masked by length inside the kernels, for any S ≥ 1.
 
 **Dispatch.** A CPU tensor takes the plain version; a CUDA tensor launches
-the kernels or raises (head_dim other than 16 or 64, a dtype other than
-bf16 or float32), at every sequence length. The JAX package's gate
-``flash_supported`` (S ≥ 128 and a TPU backend) is the TPU kernel's block
-constraint and its CPU tests' way out; the port has neither reason, so
-``FlashSelfAttention`` always calls ``flash_mha``.
+the kernels of its route or raises (head_dim other than 16 or 64, a dtype
+other than bf16 or float32), at every sequence length. The JAX package's
+gate ``flash_supported`` (S ≥ 128 and a TPU backend) is the TPU kernel's
+block constraint and its CPU tests' way out; the port has neither reason,
+so ``FlashSelfAttention`` always calls ``flash_mha``.
 """
 
 from __future__ import annotations
@@ -209,17 +214,42 @@ def _kernel_dims(q: torch.Tensor):
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels a CUDA call takes, forward and backward alike:
-    ``"wgmma"`` (``flash_attention_fwd_wgmma.cu``,
+    """Which kernels a CUDA call takes, forward and backward alike, all of
+    them Hopper designs: ``"wgmma"`` (``flash_attention_fwd_wgmma.cu``,
     ``flash_attention_bwd_wgmma.cu``) for bf16 with head_dim 64,
     ``"f32_wgmma"`` (``flash_attention_fwd_f32.cu``,
     ``flash_attention_bwd_f32.cu``: split products) for float32 with
-    head_dim 64, ``"mma"`` (``flash_attention.cu``,
+    head_dim 64, ``"wgmma_d16"`` and ``"f32_wgmma_d16"`` (the same files'
+    head_dim-16 entries, ``flash_d16.cuh``) for bf16 and float32 with
+    head_dim 16. ``"mma"`` (``flash_attention.cu``,
     ``flash_attention_bwd.cu``: mma.sync for bf16, CUDA cores for float32)
-    for head_dim 16."""
-    if head_dim != 64:
-        return "mma"
-    return "wgmma" if dtype == torch.bfloat16 else "f32_wgmma"
+    is no route of this rule: only a caller that forces it (the card's
+    yardstick) reaches those kernels."""
+    f32 = dtype != torch.bfloat16
+    if head_dim == 64:
+        return "f32_wgmma" if f32 else "wgmma"
+    if head_dim == 16:
+        return "f32_wgmma_d16" if f32 else "wgmma_d16"
+    raise ValueError(f"flash_mha kernels take head_dim in "
+                     f"{KERNEL_HEAD_DIMS}, got {head_dim}")
+
+
+# each route's C entry suffix and the wrapper's counter of its launches
+_ROUTES = {"wgmma": ("_wgmma", "wgmma_launches"),
+           "f32_wgmma": ("_f32", "f32_launches"),
+           "wgmma_d16": ("_wgmma_d16", "d16_launches"),
+           "f32_wgmma_d16": ("_f32_d16", "d16_f32_launches"),
+           "mma": ("", None)}
+# the routes whose kernels read split copies
+_SPLIT_ROUTES = ("f32_wgmma", "f32_wgmma_d16")
+
+
+def _count(fn, kernels: str) -> None:
+    """One launch of ``fn``'s kernel on route ``kernels``."""
+    fn.launches += 1
+    counter = _ROUTES[kernels][1]
+    if counter:
+        setattr(fn, counter, getattr(fn, counter) + 1)
 
 
 # parts of each operand in the split copies: q and k in two (hi, lo), v and
@@ -249,9 +279,8 @@ def flash_mha_split_plain(q, k, v, do=None) -> torch.Tensor:
 def _launch_split(q, k, v, do=None) -> torch.Tensor:
     """The split pass on CUDA tensors: one launch for every operand."""
     B, S, H, D = _kernel_dims(q)
-    if q.dtype != torch.float32 or D != 64:
-        raise ValueError(f"the split pass takes float32 with head_dim 64, "
-                         f"got {q.dtype} with {D}")
+    if q.dtype != torch.float32:
+        raise ValueError(f"the split pass takes float32, got {q.dtype}")
     ops = [t for t in (q, k, v, do) if t is not None]
     if any(t.shape != q.shape or t.dtype != q.dtype for t in ops):
         raise ValueError(f"q, k, v, do must be one shape and dtype, got "
@@ -261,7 +290,7 @@ def _launch_split(q, k, v, do=None) -> torch.Tensor:
                         dtype=torch.bfloat16, device=q.device)
     ptrs = [t.data_ptr() for t in ops] + [None] * (4 - len(ops))
     err = _build.lib().vcd_flash_split_f32(
-        *ptrs, _strides(*ops), split.data_ptr(), B, S, H,
+        *ptrs, _strides(*ops), split.data_ptr(), B, S, H, D,
         _build.stream_ptr(q.device))
     _build.check(err, "vcd_flash_split_f32")
     flash_mha_split.launches += 1
@@ -270,8 +299,9 @@ def _launch_split(q, k, v, do=None) -> torch.Tensor:
 
 def flash_mha_split(q, k, v, do=None) -> torch.Tensor:
     """The split copies that K4's float32 kernels read (``route``
-    ``"f32_wgmma"``): of q, k, v for the forward, of q, k, v, do for the
-    backward, whose dK/dV and dQ kernels share them; the layout of
+    ``"f32_wgmma"`` and ``"f32_wgmma_d16"``): of q, k, v for the forward,
+    of q, k, v, do for the backward, whose dK/dV and dQ kernels share them;
+    the layout of
     ``flash_mha_split_plain``. A CPU tensor takes the plain version; a CUDA
     tensor launches the split pass."""
     if q.device.type == "cpu":
@@ -305,34 +335,25 @@ def _launch_fwd(q, k, v, sm_scale: float, need_lse: bool, split=None):
     here where not given."""
     B, S, H, D = _kernel_dims(q)
     kernels = route(q.dtype, D)
+    name = "vcd_flash_fwd" + _ROUTES[kernels][0]
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if need_lse else None)
     lse_ptr = lse.data_ptr() if need_lse else None
-    if kernels == "f32_wgmma":
+    if kernels in _SPLIT_ROUTES:
         split = _split_of(split, q, k, v)
-        err = _build.lib().vcd_flash_fwd_f32(
-            split.data_ptr(), o.data_ptr(), lse_ptr, B, S, H,
-            float(sm_scale), _build.stream_ptr(q.device))
-        _build.check(err, "vcd_flash_fwd_f32")
-        flash_mha.f32_launches += 1
+        args = (split.data_ptr(), o.data_ptr(), lse_ptr, B, S, H,
+                float(sm_scale))
     else:
         q, k, v = (_kernel_view(t, n) for t, n in ((q, "q"), (k, "k"),
                                                     (v, "v")))
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse_ptr, _strides(q, k, v))
-        stream = _build.stream_ptr(q.device)
-        if kernels == "wgmma":
-            err = _build.lib().vcd_flash_fwd_wgmma(*ptrs, B, S, H,
-                                                   float(sm_scale), stream)
-            _build.check(err, "vcd_flash_fwd_wgmma")
-            flash_mha.wgmma_launches += 1
-        else:
-            err = _build.lib().vcd_flash_fwd(*ptrs, B, S, H, D,
-                                             float(sm_scale),
-                                             _DTYPE_CODE[q.dtype], stream)
-            _build.check(err, "vcd_flash_fwd")
-    flash_mha.launches += 1
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse_ptr, _strides(q, k, v), B, S, H)
+        args += ((float(sm_scale),) if kernels != "mma" else
+                 (D, float(sm_scale), _DTYPE_CODE[q.dtype]))
+    err = getattr(_build.lib(), name)(*args, _build.stream_ptr(q.device))
+    _build.check(err, name)
+    _count(flash_mha, kernels)
     return o, lse
 
 
@@ -353,16 +374,16 @@ def _bwd_dims(q, do, lse, di):
 def _launch_bwd(fn, name: str, operands, lse, di, outs, sm_scale: float,
                 split) -> None:
     """One backward kernel on CUDA tensors, through the C entry of its
-    route (``name`` + ``_wgmma``, ``_f32`` or none), counted on ``fn``.
-    The float32 route reads ``split``, the split copies of q, k, v, do
+    route (``name`` + the route's suffix, ``_ROUTES``), counted on ``fn``.
+    The float32 routes read ``split``, the split copies of q, k, v, do
     (made here where it is None); the others read the operands through
     their strides."""
     B, S, H, D = outs[0].shape
     kernels = route(operands[0].dtype, D)
+    name += _ROUTES[kernels][0]
     tail = ([lse.data_ptr(), di.data_ptr()]
             + [t.data_ptr() for t in outs])
-    if kernels == "f32_wgmma":
-        name += "_f32"
+    if kernels in _SPLIT_ROUTES:
         split = _split_of(split, *operands)
         args = [split.data_ptr()] + tail + [B, S, H, float(sm_scale)]
         device = split.device
@@ -370,19 +391,12 @@ def _launch_bwd(fn, name: str, operands, lse, di, outs, sm_scale: float,
         views = [_kernel_view(t, n) for t, n in zip(operands, _SPLIT_NAMES)]
         args = ([t.data_ptr() for t in views] + tail + [_strides(*views)]
                 + [B, S, H])
-        if kernels == "wgmma":
-            name += "_wgmma"
-            args += [float(sm_scale)]
-        else:
-            args += [D, float(sm_scale), _DTYPE_CODE[views[0].dtype]]
+        args += ([float(sm_scale)] if kernels != "mma" else
+                 [D, float(sm_scale), _DTYPE_CODE[views[0].dtype]])
         device = views[0].device
     err = getattr(_build.lib(), name)(*args, _build.stream_ptr(device))
     _build.check(err, name)
-    fn.launches += 1
-    if kernels == "wgmma":
-        fn.wgmma_launches += 1
-    elif kernels == "f32_wgmma":
-        fn.f32_launches += 1
+    _count(fn, kernels)
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, di, sm_scale: float, split=None):
@@ -444,10 +458,12 @@ def flash_mha_bwd_dkv(q, k, v, do, lse, di, sm_scale: float, split=None):
 
 
 flash_mha_bwd_dkv.launches = 0
-# the launches among them on the Hopper kernels (``route``): bf16 and
-# float32 (split products)
+# the launches among them on each route's Hopper kernels (``route``): bf16
+# and float32 (split products) with head_dim 64, then with head_dim 16
 flash_mha_bwd_dkv.wgmma_launches = 0
 flash_mha_bwd_dkv.f32_launches = 0
+flash_mha_bwd_dkv.d16_launches = 0
+flash_mha_bwd_dkv.d16_f32_launches = 0
 
 
 def flash_mha_bwd_dq(q, k, v, do, lse, di, sm_scale: float, split=None):
@@ -461,6 +477,8 @@ def flash_mha_bwd_dq(q, k, v, do, lse, di, sm_scale: float, split=None):
 flash_mha_bwd_dq.launches = 0
 flash_mha_bwd_dq.wgmma_launches = 0
 flash_mha_bwd_dq.f32_launches = 0
+flash_mha_bwd_dq.d16_launches = 0
+flash_mha_bwd_dq.d16_f32_launches = 0
 
 
 def flash_mha_fwd(q, k, v, sm_scale: float):
@@ -491,7 +509,7 @@ class _FlashMHA(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         args = (q, k, v, do, lse, flash_mha_bwd_di(o, do), ctx.sm_scale)
         split = (flash_mha_split(q, k, v, do) if q.device.type != "cpu"
-                 and route(q.dtype, q.shape[-1]) == "f32_wgmma" else None)
+                 and route(q.dtype, q.shape[-1]) in _SPLIT_ROUTES else None)
         dk, dv = flash_mha_bwd_dkv(*args, split=split)
         return flash_mha_bwd_dq(*args, split=split), dk, dv, None
 
@@ -524,10 +542,12 @@ def _forward(q, k, v, sm_scale: float) -> torch.Tensor:
 
 
 flash_mha.launches = 0
-# the launches among them that took the Hopper kernels (``route``):
-# bf16, and float32 on split products
+# the launches among them on each route's Hopper kernels (``route``): bf16,
+# and float32 on split products, with head_dim 64, then with head_dim 16
 flash_mha.wgmma_launches = 0
 flash_mha.f32_launches = 0
+flash_mha.d16_launches = 0
+flash_mha.d16_f32_launches = 0
 flash_mha.copies = 0
 
 
