@@ -10,18 +10,24 @@ round-robin shard slices, so every shard sees as many samples.
 ``device_feed`` takes the place of the JAX package's ``device_prefetch``:
 a producer thread copies the loader's numpy batches into pinned host
 buffers and from there to the card on a side CUDA stream, while the
-caller computes on the previous batch.
+caller computes on the previous batch. Its consumer's wait for a batch is
+the span ``vcd.feed.wait``; what its producer thread does, which a trace
+of the consumer's thread does not show, is counted on ``device_feed``'s
+attributes (its docstring).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from vision_collision_detection_tpu_torch.obs.profiling import annotate
 
 
 def collate(samples) -> dict:
@@ -244,7 +250,13 @@ def _produce(iterator: Iterable, stage: Callable, depth: int) -> Iterator:
 
     def producer():
         try:
-            for batch in iterator:
+            it = iter(iterator)
+            while True:
+                t0 = time.perf_counter_ns()
+                batch = next(it, done)
+                _count(next_ns=time.perf_counter_ns() - t0)
+                if batch is done:
+                    break
                 if stop.is_set() or not offer(stage(batch)):
                     return
             offer(done)
@@ -259,7 +271,8 @@ def _produce(iterator: Iterable, stage: Callable, depth: int) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with annotate("vcd.feed.wait"):
+                item = q.get()
             if item is done:
                 break
             if isinstance(item, BaseException):
@@ -273,6 +286,18 @@ def _produce(iterator: Iterable, stage: Callable, depth: int) -> Iterator:
             except queue.Empty:
                 pass
         t.join()
+
+
+_counts = threading.Lock()
+
+
+def _count(**more: int) -> None:
+    """Add to ``device_feed``'s counters. Feeds run on several threads at
+    once (a training epoch's and a mini-validation's producers), so each
+    addition holds a lock."""
+    with _counts:
+        for k, v in more.items():
+            setattr(device_feed, k, getattr(device_feed, k) + v)
 
 
 def _wait_for_copy(event: "torch.cuda.Event") -> None:
@@ -313,15 +338,31 @@ def device_feed(iterator: Iterable[dict], device, depth: int = 2,
     On a CPU device there is no thread and nothing to overlap: each key
     becomes ``torch.as_tensor`` of the batch's array, in the caller's
     thread.
+
+    The caller's wait for each batch is the span ``vcd.feed.wait`` (on the
+    CUDA path the producer's queue, on the CPU path the loader). The
+    counters, attributes of this function read as the ops' launch counters
+    are: ``feeds`` (feeds started), ``batches`` (batches yielded, both
+    paths) and, from the CUDA path's producer thread, ``next_ns`` (its
+    wait on the loader), ``stage_ns`` (the slot's last-copy wait, the
+    pinned allocations, the copy into pinned memory and the copy's issue),
+    ``pin_allocs`` and ``pinned_bytes`` (the pinned buffers allocated: a
+    feed builds its ring anew).
     """
+    _count(feeds=1)
     device = torch.device(device)
     if device.type != "cuda":
-        for batch in iterator:
+        it = iter(iterator)
+        while True:
+            with annotate("vcd.feed.wait"):
+                batch = next(it, None)
+            if batch is None:
+                return
             out = dict(batch)
             for k in keys:
                 out[k] = torch.as_tensor(batch[k])
+            _count(batches=1)
             yield out
-        return
 
     side = torch.cuda.Stream(device)
     slots = depth + 1
@@ -331,6 +372,8 @@ def device_feed(iterator: Iterable[dict], device, depth: int = 2,
 
     def stage(batch):
         nonlocal count
+        t0 = time.perf_counter_ns()
+        allocs = nbytes = 0
         i = count % slots
         count += 1
         if events[i] is not None:
@@ -343,11 +386,20 @@ def device_feed(iterator: Iterable[dict], device, depth: int = 2,
                 if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
                     buf = pinned[i][k] = torch.empty(
                         src.shape, dtype=src.dtype, pin_memory=True)
+                    allocs += 1
+                    nbytes += buf.numel() * buf.element_size()
                 buf.copy_(src)
                 out[k] = _copy_to(buf, device)
             events[i] = torch.cuda.Event()
             events[i].record(side)
+        _count(stage_ns=time.perf_counter_ns() - t0, pin_allocs=allocs,
+               pinned_bytes=nbytes)
         return out, events[i]
 
     for out, event in _produce(iterator, stage, depth):
+        _count(batches=1)
         yield _hand_over(out, keys, event, device)
+
+
+device_feed.feeds = device_feed.batches = device_feed.next_ns = 0
+device_feed.stage_ns = device_feed.pin_allocs = device_feed.pinned_bytes = 0

@@ -55,6 +55,7 @@ from vision_collision_detection_tpu_torch.metrics.classification import (
     classification_metrics,
 )
 from vision_collision_detection_tpu_torch.models import build_model
+from vision_collision_detection_tpu_torch.obs.profiling import annotate
 from vision_collision_detection_tpu_torch.ops.letterbox import (
     letterbox_geometry,
 )
@@ -383,13 +384,17 @@ class CollisionPredictor:
         1); one result dict per clip. The host reads a batch's
         probabilities (a copy to pinned memory, waited for by its event)
         only after it has queued the next batch's forward, so the card does
-        not wait between batches while the host issues work."""
+        not wait between batches while the host issues work. Spans: a
+        batch's issue ``vcd.serve.forward``, its result dicts
+        ``vcd.serve.emit``, and in that the wait for the card
+        ``vcd.serve.result_wait``."""
         forward = self._make_forward(stride > 1)
         results: List[Dict] = []
 
         def emit(ids, errors, probs, event):
             if event is not None:
-                event.synchronize()
+                with annotate("vcd.serve.result_wait"):
+                    event.synchronize()
             probs = probs.numpy()
             for i, vid in enumerate(ids):
                 if errors[i]:
@@ -417,20 +422,23 @@ class CollisionPredictor:
 
         pending = None
         for batch in device_feed(iter(loader), self.device, keys=("frames",)):
-            probs = forward(batch["frames"])
-            event = None
-            if probs.is_cuda:
-                host = torch.empty(probs.shape, dtype=probs.dtype,
-                                   pin_memory=True)
-                host.copy_(probs, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                probs = host
+            with annotate("vcd.serve.forward"):
+                probs = forward(batch["frames"])
+                event = None
+                if probs.is_cuda:
+                    host = torch.empty(probs.shape, dtype=probs.dtype,
+                                       pin_memory=True)
+                    host.copy_(probs, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    probs = host
             if pending is not None:
-                emit(*pending)
+                with annotate("vcd.serve.emit"):
+                    emit(*pending)
             pending = (batch["id"], batch["error"], probs, event)
         if pending is not None:
-            emit(*pending)
+            with annotate("vcd.serve.emit"):
+                emit(*pending)
         return results
 
     # ------------------------------------------------------------------

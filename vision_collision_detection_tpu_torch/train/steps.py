@@ -29,6 +29,7 @@ from vision_collision_detection_tpu_torch.models.convert import (
     from_flax_params,
     load_npz,
 )
+from vision_collision_detection_tpu_torch.obs.profiling import annotate
 from vision_collision_detection_tpu_torch.ops.preprocess import (
     eval_preprocess,
     train_preprocess,
@@ -209,7 +210,11 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
     the forward calls (a ``DistributedDataParallel`` that sums the
     gradients over the data group), ``data_sum`` makes the loss's denominator and the metrics the
     global batch's, ``grad_norm`` takes the norm that clipping uses, and
-    ``after_update`` runs after the optimizer's step."""
+    ``after_update`` runs after the optimizer's step.
+
+    Spans: ``vcd.train.preprocess``, ``vcd.train.forward`` (with the loss),
+    ``vcd.train.backward`` and ``vcd.train.optimizer`` (from the check for
+    missing gradients through the step count)."""
     parallel = parallel or SingleDeviceStrategy()
     device = next(model.parameters()).device
     aug_cfg = cfg.augment
@@ -229,30 +234,34 @@ def make_train_step(model: torch.nn.Module, cfg: ExperimentConfig,
         targets = torch.as_tensor(targets).to(device, torch.int64)
         sample_mask = torch.as_tensor(sample_mask).to(device, torch.float32)
         if preprocess:
-            x = train_preprocess(generator, frames, aug_cfg, S, dtype)
+            with annotate("vcd.train.preprocess"):
+                x = train_preprocess(generator, frames, aug_cfg, S, dtype)
         else:
             x = frames
         extra = {"sensor": _on(sensor, device)} if use_sensor else {}
         state.optimizer.zero_grad(set_to_none=True)
-        logits = forward(x, generator=generator, **extra)
-        loss, _ = weighted_loss(logits, targets, cw, sample_mask,
-                                loss_type=loss_type,
-                                label_smoothing=smoothing,
-                                weight_sum=parallel.data_sum)
-        loss.backward()
-        if any(p.grad is None for p in params):
-            # the optimizer would skip these parameters without a word
-            missing = [n for n, p in model.named_parameters()
-                       if p.requires_grad and p.grad is None]
-            raise RuntimeError(f"no gradient reached {missing}")
-        grad_norm = parallel.grad_norm(params)
-        if state.grad_clip_norm > 0:
-            clip_by_global_norm_([p.grad for p in params],
-                                 state.grad_clip_norm, grad_norm)
-        set_learning_rate(state.optimizer, state.schedule(state.step))
-        state.optimizer.step()
-        parallel.after_update(model)
-        state.step += 1
+        with annotate("vcd.train.forward"):
+            logits = forward(x, generator=generator, **extra)
+            loss, _ = weighted_loss(logits, targets, cw, sample_mask,
+                                    loss_type=loss_type,
+                                    label_smoothing=smoothing,
+                                    weight_sum=parallel.data_sum)
+        with annotate("vcd.train.backward"):
+            loss.backward()
+        with annotate("vcd.train.optimizer"):
+            if any(p.grad is None for p in params):
+                # the optimizer would skip these parameters without a word
+                missing = [n for n, p in model.named_parameters()
+                           if p.requires_grad and p.grad is None]
+                raise RuntimeError(f"no gradient reached {missing}")
+            grad_norm = parallel.grad_norm(params)
+            if state.grad_clip_norm > 0:
+                clip_by_global_norm_([p.grad for p in params],
+                                     state.grad_clip_norm, grad_norm)
+            set_learning_rate(state.optimizer, state.schedule(state.step))
+            state.optimizer.step()
+            parallel.after_update(model)
+            state.step += 1
         with torch.no_grad():
             correct = ((logits.argmax(-1) == targets) * sample_mask).sum()
             loss, correct, count = parallel.data_sum(torch.stack(

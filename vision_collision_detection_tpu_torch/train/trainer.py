@@ -55,6 +55,7 @@ from vision_collision_detection_tpu_torch.data.loader import (
     device_feed,
 )
 from vision_collision_detection_tpu_torch.metrics import classification_metrics
+from vision_collision_detection_tpu_torch.obs import profiling
 from vision_collision_detection_tpu_torch.obs.history import (
     TrainingHistory,
     save_metrics_json,
@@ -401,7 +402,9 @@ class Trainer:
             )
 
         if tc.profile_steps > 0 and self.strategy.is_main:
-            self._profiler = self._start_profiler()
+            self._profiler = contextlib.ExitStack()
+            self._profiler.enter_context(
+                profiling.trace(os.path.join(self.run_dir, "profile")))
         for epoch in range(self.start_epoch, epochs):
             t0 = time.time()
             if viz:
@@ -523,25 +526,13 @@ class Trainer:
         return {"loss": vals["loss"] / max(n_steps, 1),
                 "accuracy": vals["accuracy"] / max(n_steps, 1)}
 
-    def _start_profiler(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
-
     def _stop_profiler(self) -> None:
-        """Stop the trace and write it as ``<run_dir>/profile/trace.json``
-        (Chrome trace format)."""
+        """End ``train``'s ``obs/profiling.trace``, which writes
+        ``<run_dir>/profile/trace.json`` (Chrome trace format)."""
         profiler, self._profiler = self._profiler, None
-        profiler.stop()
-        path = os.path.join(self.run_dir, "profile", "trace.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        profiler.export_chrome_trace(path)
-        self.log.info("profiler trace written to %s", path)
+        profiler.close()
+        self.log.info("profiler trace written to %s", os.path.join(
+            self.run_dir, "profile", profiling.TRACE_FILE))
 
     def _mini_validate_cascade(self, epoch: int) -> None:
         tc = self.cfg.train
