@@ -357,6 +357,16 @@ failure:
     temporal query/key 1e-1; float32 1e-3), di left out of dQ's ds and dv
     off (× 1.10 bf16, × 1.01 float32) outside; the forward and the step
     in turns with "xla", peak memory.
+28. The fused training preprocess (``ops/csrc/train_preprocess.cu``;
+    ``python3 chip_smoke.py --phase 28`` runs it alone): against the chain
+    from the same seed at 189×336 → 336 and 126×224 → 224, every
+    augmentation step forced on in turn, both warps, bf16 and float32
+    out, at 4 clips of 3 frames; and at the main paths' batches, [8, 32,
+    189, 336, 3] and [8, 50, 126, 224, 3] (several groups of frames a
+    clip, the last one partial), with the draws, skip and cutout; within 2^-6 + 2·2^-8/0.225 (posterize 32/255/0.225 more) at most
+    and 1e-5 on the mean; a faulty table (hue + 0.02, flips inverted, rows
+    shifted, contrast means at 0) outside; timed at [8, 32, 189, 336, 3]
+    and [8, 50, 126, 224, 3] in turns with the chain, with the bound.
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -620,14 +630,18 @@ def main() -> int:
     report["vivit_tiny"] = tiny
     launches.update(tiny["launches"])
     log(f"[phase 27] {tiny['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    pre = fused_preprocess_phase(torch, dev)
+    report["fused_preprocess"] = pre
+    log(f"[phase 28] {pre['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
         + ref["compare_rows"] + big["compare_rows"]
-        + f32_train["compare_rows"], launches,
+        + f32_train["compare_rows"] + pre["compare"], launches,
         report["timing"] + ref["kernel_timing"] + [
             r for r in big["timing"] if r["kernel"].endswith("(wide)")]
-        + f32_train["timing"])
+        + f32_train["timing"] + pre["timing"][:1])
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     report["kernels"] = kernels
@@ -1816,6 +1830,7 @@ def kernel_counters():
     from vision_collision_detection_tpu_torch.ops import dequant_pad
     from vision_collision_detection_tpu_torch.ops import dwconv as k2
     from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+    from vision_collision_detection_tpu_torch.ops import fused_preprocess
 
     return {"K1": dequant_pad.dequant_normalize_pad, "K2": k2.dwconv7x7,
             "K2 wgrad": k2.dwconv7x7_wgrad, "K3": k3.convnext_mlp,
@@ -1823,7 +1838,8 @@ def kernel_counters():
             "K4 bwd dKdV": fa.flash_mha_bwd_dkv,
             "K4 bwd dQ": fa.flash_mha_bwd_dq,
             "K4 bwd di": fa.flash_mha_bwd_di,
-            "K4 split": fa.flash_mha_split}
+            "K4 split": fa.flash_mha_split,
+            "train preprocess": fused_preprocess.fused_train_preprocess}
 
 
 def zero_counters():
@@ -2557,7 +2573,7 @@ def vivit_training(torch, dev):
     launches = expect_launches(
         "vivit train", counters, K4_fwd=VIVIT_BLOCKS,
         K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
-        K4_bwd_di=VIVIT_BLOCKS)
+        K4_bwd_di=VIVIT_BLOCKS, train_preprocess=2)
     if not math.isfinite(metrics["loss"]):
         raise SystemExit(f"non-finite loss {metrics}")
     bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
@@ -2687,7 +2703,7 @@ def vivit_training(torch, dev):
         expect_launches(f"vivit train remat={on}", c,
                         K4_fwd=VIVIT_BLOCKS * (2 if on else 1),
                         K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
-                        K4_bwd_di=VIVIT_BLOCKS)
+                        K4_bwd_di=VIVIT_BLOCKS, train_preprocess=2)
         remat[on] = (float(met["loss"]), grads_of(m_))
         del m_, s_, step_
     remat_loss = abs(remat[True][0] - remat[False][0]) / abs(remat[False][0])
@@ -5853,7 +5869,7 @@ def rank_tp_gloo(torch, dev, rank, out_dir):
     step_s = time.perf_counter() - t0
     launches = {"tp_step": expect_launches(
         "tp step", counters, K4_fwd=VIVIT_BLOCKS, K4_bwd_dKdV=VIVIT_BLOCKS,
-        K4_bwd_dQ=VIVIT_BLOCKS, K4_bwd_di=VIVIT_BLOCKS)}
+        K4_bwd_dQ=VIVIT_BLOCKS, K4_bwd_di=VIVIT_BLOCKS, train_preprocess=2)}
     peak = torch.cuda.max_memory_allocated()
     log(f"TP step {metrics} in {step_s:.2f} s (the first, over gloo); the "
         f"query weight cut to {local}; peak memory {peak / 1e9:.2f} GB")
@@ -6979,7 +6995,8 @@ def float32_vivit_phase(torch, dev):
     launches = expect_launches(
         "vivit f32 train", counters, K4_fwd=VIVIT_BLOCKS,
         K4_bwd_dKdV=VIVIT_BLOCKS, K4_bwd_dQ=VIVIT_BLOCKS,
-        K4_bwd_di=VIVIT_BLOCKS, K4_split=2 * VIVIT_BLOCKS)
+        K4_bwd_di=VIVIT_BLOCKS, K4_split=2 * VIVIT_BLOCKS,
+        train_preprocess=2)
     if any(launches[f"{k} (f32)"] != VIVIT_BLOCKS
            for k in ("K4 fwd", "K4 bwd dKdV", "K4 bwd dQ")):
         failed.append(f"the step's K4 took {launches}")
@@ -7235,7 +7252,7 @@ def vivit_tiny_phase(torch, dev):
         launches = expect_launches(
             f"{tag} train", counters, K4_fwd=blocks,
             K4_bwd_dKdV=blocks, K4_bwd_dQ=blocks, K4_bwd_di=blocks,
-            **({"K4_split": 2 * blocks} if f32 else {}))
+            train_preprocess=2, **({"K4_split": 2 * blocks} if f32 else {}))
         if any(launches[flash_entry(kind, dtype, 16)] != blocks
                for kind in ("fwd", "bwd dKdV", "bwd dQ")):
             failed.append(f"{tag}: the step's K4 took {launches}")
@@ -7320,6 +7337,167 @@ def vivit_tiny_phase(torch, dev):
     return out
 
 
+# ---- 28. the fused training preprocess -----------------------------------
+
+# (B, T, ch, cw, S): the kernel against the chain at vivit_small's and the
+# flagship's content, small batches, every case; then at the main paths'
+# batches (clips of several groups of FPB = 8 frames, the flagship's last
+# group partial), the cases of PREPROCESS_MAIN_CASES; then timed there
+PREPROCESS_COMPARE = ((4, 3, 189, 336, 336), (4, 3, 126, 224, 224))
+PREPROCESS_COMPARE_MAIN = ((8, 32, 189, 336, 336), (8, 50, 126, 224, 224))
+PREPROCESS_MAIN_CASES = ("draws", "skip", "cutout")
+PREPROCESS_TIMED = ((8, 32, 189, 336, 336, "bfloat16"),
+                    (8, 50, 126, 224, 224, "bfloat16"),
+                    (8, 32, 189, 336, 336, "float32"))
+# each step forced on, one at a time, over vivit_small's augmentation
+PREPROCESS_CASES = {
+    "draws": {}, "flip": {"horizontal_flip_prob": 1.0},
+    "skip": {"aug_probability": 0.0}, "grayscale": {"grayscale_prob": 1.0},
+    "cutout": {"cutout_prob": 1.0}, "posterize": {"posterization_prob": 1.0},
+    "solarize": {"solarization_prob": 1.0},
+    "invert": {"color_inversion_prob": 1.0}, "disabled": {"enabled": False}}
+# Kernel against chain, max and mean |Δ| of the normalised frames (the card
+# test's, tests/test_torch_fused_preprocess.py, gives the reasons): two
+# flips of a bf16-rounded warp operand and an output's last bf16 bit;
+# posterize a step more; the mean 1e-5 (4e-8 read on an H100).
+PREPROCESS_MAX_TOL = 2 ** -6 + 2 * 2 ** -8 / 0.225
+PREPROCESS_POSTERIZE_TOL = PREPROCESS_MAX_TOL + 32 / 255 / 0.225
+PREPROCESS_MEAN_TOL = 1e-5
+
+def fused_preprocess_phase(torch, dev):
+    """Phase 28: the fused training preprocess (``ops/csrc/
+    train_preprocess.cu``) against the chain (``train_preprocess_plain``)
+    from the same generator seed: at 189×336 → 336 and 126×224 → 224, each
+    of ``PREPROCESS_CASES`` (every step forced on in turn) at
+    ``PREPROCESS_COMPARE``'s small batches and ``PREPROCESS_MAIN_CASES`` at
+    the main paths' batches, both warps, bf16 and float32 out; the kernel
+    given a faulty table (hue + 0.02, the flips inverted, the rows shifted
+    by one, the contrast means at 0) must land outside the mean tolerance.
+    Then at the cells' batches, in turns with the chain: the two launches
+    (ms, the contrast means alone), the whole call with its draws, the
+    chain, the bound (bytes: the content read once, the frames written
+    once) and the design's own bytes (the content read twice) as
+    ``design_bound_ms``."""
+    from vision_collision_detection_tpu_torch.config import AugmentConfig
+    from vision_collision_detection_tpu_torch.ops import (
+        fused_preprocess as fp, preprocess)
+
+    t_start = time.time()
+    out = {"compare": [], "faults": [], "timing": []}
+    failed = []
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def cfg_of(case="draws", mode="separable"):
+        return AugmentConfig(**{"blur_sigma": 0.0, "aug_probability": 1.0,
+                                "affine_mode": mode,
+                                **PREPROCESS_CASES[case]})
+
+    def frames_of(B, T, ch, cw, seed=7):
+        return torch.randint(0, 256, (B, T, ch, cw, 3), dtype=torch.uint8,
+                             generator=torch.Generator().manual_seed(seed)
+                             ).to(dev)
+
+    compared = [(shape, tuple(PREPROCESS_CASES))
+                for shape in PREPROCESS_COMPARE] + [
+        (shape, PREPROCESS_MAIN_CASES) for shape in PREPROCESS_COMPARE_MAIN]
+    for (B, T, ch, cw, S), cases in compared:
+        frames = frames_of(B, T, ch, cw)
+        for case in cases:
+            for mode in fp.WARP_MODES:
+                for name, od in dtypes.items():
+                    cfg = cfg_of(case, mode)
+                    got = preprocess.train_preprocess(
+                        torch.Generator(dev).manual_seed(5), frames, cfg, S,
+                        od)
+                    want = preprocess.train_preprocess_plain(
+                        torch.Generator(dev).manual_seed(5), frames, cfg, S,
+                        od)
+                    err = (got.float() - want.float()).abs()
+                    row = {"entry": "train preprocess",
+                           "shape": [B, T, ch, cw, S], "case": case,
+                           "mode": mode, "dtype": name,
+                           "max_abs_err": float(err.max()),
+                           "mean_abs_err": float(err.mean())}
+                    out["compare"].append(row)
+                    mx = (PREPROCESS_POSTERIZE_TOL if case == "posterize"
+                          else PREPROCESS_MAX_TOL)
+                    if (row["max_abs_err"] > mx
+                            or row["mean_abs_err"] > PREPROCESS_MEAN_TOL):
+                        failed.append(f"train preprocess {row}")
+        log(f"[phase 28] {B}×{T} at {S}: worst max |Δ| so far "
+            f"{max(r['max_abs_err'] for r in out['compare'])}, worst mean "
+            f"{max(r['mean_abs_err'] for r in out['compare'])}")
+        del frames, got, want, err
+        torch.cuda.empty_cache()
+
+    # faults: the kernel on a wrong table, against the chain's frames
+    B, T, ch, cw, S = PREPROCESS_COMPARE[0]
+    frames, cfg = frames_of(B, T, ch, cw), cfg_of()
+    want = preprocess.train_preprocess_plain(
+        torch.Generator(dev).manual_seed(5), frames, cfg, S, torch.bfloat16)
+    good = fp.draw_table(torch.Generator(dev).manual_seed(5), B, cfg, S)
+
+    def shifted(col, by):
+        t = good.clone()
+        t[:, col] += by
+        return t
+
+    flipped = good.clone()
+    flipped[:, fp.FLIP] = 1 - flipped[:, fp.FLIP]
+    faults = {"hue + 0.02": (shifted(fp.HUE, 0.02), 1),
+              "flips inverted": (flipped, 1),
+              "rows shifted by one": (shifted(fp.WARP + 5, 1.0), 1),
+              "contrast means at 0": (good, 0)}
+    for name, (table, augment) in faults.items():
+        means = torch.zeros(B * T, device=dev)
+        outp = torch.empty(B, T, S, S, 3, dtype=torch.bfloat16, device=dev)
+        fp._launch(frames, table, means, outp, cfg, augment)
+        err = (outp.float() - want.float()).abs()
+        row = {"fault": name, "max_abs_err": float(err.max()),
+               "mean_abs_err": float(err.mean())}
+        out["faults"].append(row)
+        if row["mean_abs_err"] <= PREPROCESS_MEAN_TOL:
+            failed.append(f"train preprocess: the fault {name!r} lands "
+                          f"inside the tolerance ({row})")
+    log(f"[phase 28] faults {out['faults']}")
+
+    for B, T, ch, cw, S, name in PREPROCESS_TIMED:
+        od, cfg = dtypes[name], cfg_of()
+        frames = frames_of(B, T, ch, cw, seed=8)
+        table = fp.draw_table(torch.Generator(dev).manual_seed(1), B, cfg, S)
+        means = torch.empty(B * T, device=dev)
+        outp = torch.empty(B, T, S, S, 3, dtype=od, device=dev)
+        # the means for the timed frames-only launch
+        fp._launch(frames, table, means, outp, cfg, 1)
+        gen = torch.Generator(dev).manual_seed(1)
+        kernel_ms, plain_ms = in_turns_ms(
+            torch, lambda: fp._launch(frames, table, means, outp, cfg, 1),
+            lambda: preprocess.train_preprocess_plain(gen, frames, cfg, S,
+                                                      od))
+        frames_only = median_ms(
+            torch, lambda: fp._launch(frames, table, means, outp, cfg, 0))
+        whole = median_ms(torch, lambda: preprocess.train_preprocess(
+            gen, frames, cfg, S, od))
+        # the function reads the content once; this design reads it twice
+        # (the contrast means, then the frames)
+        written = outp.numel() * outp.element_size()
+        b, by = bound_ms(frames.numel() + written, 0, F32_FLOPS)
+        design_b, _ = bound_ms(2 * frames.numel() + written, 0, F32_FLOPS)
+        row = {"kernel": "train preprocess", "shape": [B, T, ch, cw, S],
+               "dtype": name, "per_forward": 1, "ms": kernel_ms,
+               "means_ms": kernel_ms - frames_only, "whole_call_ms": whole,
+               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+               "design_bound_ms": design_b, "library_ms": None}
+        out["timing"].append(row)
+        log(f"[phase 28] {row}")
+        del frames, outp
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_start
+    if failed:
+        raise SystemExit("phase 28 failed:\n" + "\n".join(failed[:20]))
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -7368,7 +7546,11 @@ def kernel_line(compare_rows, launches, timing):
     kernels carry the library's whole backward as library_ms: it is one
     call. ``K4 bwd di``
     is the backward's row kernel: in the JAX library di is jnp beside the
-    two Pallas kernels (the line ``replaces`` names), not a kernel."""
+    two Pallas kernels (the line ``replaces`` names), not a kernel. ``train
+    preprocess`` is the fused training preprocess (phase 28; no TPU
+    kernel): its two launches at vivit_small's [8, 32, 189, 336, 3] → bf16,
+    the chain as plain_ms, the bound of the function (the content read
+    once) as bound_ms and the design's (read twice) as design_bound_ms."""
     csrc = "vision_collision_detection_tpu_torch/ops/csrc/"
     tpu = "vision_collision_detection_tpu/ops/"
     # K4's pallas_call sits in the JAX library the TPU wrapper calls
@@ -7428,6 +7610,10 @@ def kernel_line(compare_rows, launches, timing):
         "K4 split (d16)": ("flash_mha_split_f32_d16",
                            csrc + "flash_attention_fwd_f32.cu",
                            tpu + "flash_attention.py:96" + lib + "758)"),
+        "train preprocess": ("train_preprocess",
+                             csrc + "train_preprocess.cu",
+                             "none: the JAX package leaves train_preprocess "
+                             "(ops/preprocess.py) to XLA"),
     }
     # K4's other routes, each an entry of its own: float32 with head_dim 64
     # on the split-product Hopper kernels, head_dim 16 on its own Hopper
@@ -7491,12 +7677,13 @@ def kernel_line(compare_rows, launches, timing):
 
 
 # the phases that run alone: ``python3 chip_smoke.py --phase N``
-ALONE = {"26": lambda: float32_vivit_phase, "27": lambda: vivit_tiny_phase}
+ALONE = {"26": lambda: float32_vivit_phase, "27": lambda: vivit_tiny_phase,
+         "28": lambda: fused_preprocess_phase}
 
 
 def phase_main(n) -> int:
-    """``python3 chip_smoke.py --phase N``: phase 26 (the float32 ViViT)
-    or 27 (vivit_tiny) alone, with the kernels built and TF32 off as
+    """``python3 chip_smoke.py --phase N``: phase 26 (the float32 ViViT),
+    27 (vivit_tiny) or 28 (the fused training preprocess) alone, with the kernels built and TF32 off as
     ``main`` sets them; its record in ``chiprun_out/phaseN.json``."""
     import torch
 

@@ -66,6 +66,7 @@ _SIGNATURES = {
     "vcd_flash_bwd_dkv_f32_d16": [_P] * 5 + [_I, _I, _I, _F, _P],
     "vcd_flash_bwd_dq_f32_d16": [_P] * 4 + [_I, _I, _I, _F, _P],
     "vcd_flash_bwd_di": [_P] * 3 + [_STRIDES, _I, _I, _I, _I, _I, _P],
+    "vcd_train_preprocess": [_P] * 4 + [_I] * 8 + [_F] * 7 + [_I, _P],
 }
 
 _lib = None

@@ -125,6 +125,19 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+def separable_coeffs(h: int, w: int, angle_deg, translate_xy, scale,
+                     shear_deg):
+    """(δ, ε, ζ, m10, m11, oy), each [...]: the two passes' coefficients of
+    ``affine_warp_clip_separable`` (its docstring gives the factoring)."""
+    angle_deg, scale, shear_deg = (torch.as_tensor(v, dtype=torch.float32)
+                                   for v in (angle_deg, scale, shear_deg))
+    translate_xy = torch.as_tensor(translate_xy, dtype=torch.float32)
+    (m00, m01, ox), (m10, m11, oy) = _inverse_coeffs(
+        h, w, angle_deg, translate_xy, scale, shear_deg)
+    eps = m01 / m11
+    return m00 - eps * m10, eps, ox - eps * oy, m10, m11, oy
+
+
 def affine_warp_clip_separable(frames: torch.Tensor, angle_deg, translate_xy,
                                scale, shear_deg) -> torch.Tensor:
     """[B, T, H, W, C] → warped by two 1-D resampling passes.
@@ -136,14 +149,8 @@ def affine_warp_clip_separable(frames: torch.Tensor, angle_deg, translate_xy,
     Identical to the direct warp for axis-aligned transforms; for rotation
     and shear the two-pass filter samples along the slanted line."""
     B, T, h, w, c = frames.shape
-    angle_deg, scale, shear_deg = (torch.as_tensor(v, dtype=torch.float32)
-                                   for v in (angle_deg, scale, shear_deg))
-    translate_xy = torch.as_tensor(translate_xy, dtype=torch.float32)
-    (m00, m01, ox), (m10, m11, oy) = _inverse_coeffs(
+    delta, eps, zeta, m10, m11, oy = separable_coeffs(
         h, w, angle_deg, translate_xy, scale, shear_deg)
-    eps = m01 / m11
-    delta = m00 - eps * m10
-    zeta = ox - eps * oy
     col = lambda v: v[:, None, None]  # noqa: E731  [B] → [B, 1, 1]
 
     dev = frames.device

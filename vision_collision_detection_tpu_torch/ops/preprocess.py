@@ -4,8 +4,9 @@ Counterpart of ``vision_collision_detection_tpu/ops/preprocess.py``:
 ``eval_preprocess`` (letterbox and normalise; when the decoder shipped only
 the letterbox content rows, the whole op is the K1 kernel,
 ``ops/dequant_pad.py``) and ``train_preprocess`` (flip, letterbox,
-per-clip augmentation, normalise; plain torch ops, as the JAX package
-leaves them to XLA).
+per-clip augmentation, normalise: one fused kernel on the card where
+``fused_preprocess.route`` allows, ``ops/fused_preprocess.py``; else plain
+torch ops, as the JAX package leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from vision_collision_detection_tpu_torch.config import AugmentConfig
+from vision_collision_detection_tpu_torch.ops import fused_preprocess
 from vision_collision_detection_tpu_torch.ops.augment import augment_batch
 from vision_collision_detection_tpu_torch.ops.dequant_pad import (
     dequant_normalize_pad,
@@ -36,7 +38,32 @@ def train_preprocess(generator: torch.Generator, frames_u8: torch.Tensor,
     already S, the same result at a quarter of the bytes), letterbox,
     augmentation when ``cfg.enabled``, normalisation. Every draw comes
     from ``generator``, on the frames' device: the flips first, then the
-    clips' parameters."""
+    clips' parameters.
+
+    Input that ``fused_preprocess.route`` sends to the kernel (uint8
+    letterbox content on the card, no noise, no blur) takes it, whose
+    launches count on ``fused_preprocess.fused_train_preprocess.launches``;
+    the rest takes the chain, ``train_preprocess_plain``, whose calls on
+    the card count on ``train_preprocess.plain_cuda_calls``."""
+    if fused_preprocess.route(tuple(frames_u8.shape), frames_u8.dtype,
+                              frames_u8.device.type, cfg,
+                              target_size) == "fused":
+        return fused_preprocess.fused_train_preprocess(
+            generator, frames_u8, cfg, target_size, out_dtype)
+    if frames_u8.is_cuda:
+        train_preprocess.plain_cuda_calls += 1
+    return train_preprocess_plain(generator, frames_u8, cfg, target_size,
+                                  out_dtype)
+
+
+train_preprocess.plain_cuda_calls = 0
+
+
+def train_preprocess_plain(generator: torch.Generator, frames_u8: torch.Tensor,
+                           cfg: AugmentConfig, target_size: int,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``train_preprocess`` as a chain of torch ops on any device: the fused
+    kernel's plain version."""
     b = frames_u8.shape[0]
     flip = None
     if cfg.horizontal_flip_prob > 0:
