@@ -1,6 +1,6 @@
 """What the serving and training drivers share: the manifest and the cell's
 files, the seeds, the clip pool and the stand-in dataset, the program's
-configuration, its launch counters, and the metric readers.
+configuration, its counters, and the metric readers.
 
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``. It names a
 configuration (``benchmark/configs/<config>.json``: the sizes as run, the
@@ -23,6 +23,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from benchmark import architectures
 from benchmark.reference.training import derive_seed
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -208,6 +209,9 @@ class StandInClips:
 
 # ---- the program's counters ---------------------------------------------------------
 
+# key → (the program's module, the function or object that holds the
+# counters, their attribute names); an architecture adds its own kernels'
+# in its module's ``COUNTERS``
 COUNTERS = {
     "K1": ("ops.dequant_pad", "dequant_normalize_pad", ("launches",)),
     "K2": ("ops.dwconv", "dwconv7x7", ("launches", "hopper_launches")),
@@ -222,18 +226,42 @@ COUNTERS = {
     "K4_dq": ("ops.flash_attention", "flash_mha_bwd_dq",
               ("launches", "wgmma_launches")),
     "K4_di": ("ops.flash_attention", "flash_mha_bwd_di", ("launches",)),
+    # the feed's producer thread, which a trace of the main thread does not
+    # show: feeds started, batches yielded, ns waiting on the loader and in
+    # ``stage``, pinned buffers allocated and their bytes
+    "device_feed": ("data.loader", "device_feed",
+                    ("feeds", "batches", "next_ns", "stage_ns", "pin_allocs",
+                     "pinned_bytes")),
 }
 
 
-def counters() -> Dict[str, int]:
-    """The program's launch counters, read as they stand."""
+def _holder(mod: str, fn: str):
+    return getattr(importlib.import_module(
+        "vision_collision_detection_tpu_torch." + mod), fn)
+
+
+def counters(c: dict) -> Dict[str, int]:
+    """The program's counters (``COUNTERS`` and those of configuration
+    ``c``'s architecture), read as they stand; a counter the program lacks
+    reads 0."""
+    table = dict(COUNTERS, **getattr(architectures.get(c["architecture"]),
+                                     "COUNTERS", {}))
     out = {}
-    for key, (mod, fn, attrs) in COUNTERS.items():
-        f = getattr(importlib.import_module(
-            "vision_collision_detection_tpu_torch." + mod), fn)
+    for key, (mod, fn, attrs) in table.items():
+        f = _holder(mod, fn)
         for a in attrs:
             out[f"{key}.{a}"] = int(getattr(f, a, 0))
     return out
+
+
+def feed_counters() -> Optional[Dict[str, int]]:
+    """``device_feed``'s counters as they stand, or None where the program
+    has none."""
+    mod, fn, attrs = COUNTERS["device_feed"]
+    f = _holder(mod, fn)
+    if not all(hasattr(f, a) for a in attrs):
+        return None
+    return {a: int(getattr(f, a)) for a in attrs}
 
 
 def counter_delta(before: dict, after: dict) -> dict:

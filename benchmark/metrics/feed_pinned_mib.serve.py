@@ -3,7 +3,7 @@ allocates (a fresh ``device_feed`` builds its ring anew), from the feed's
 counters over every request the run served: set-up's, the window's and
 the traced ones."""
 
-from benchmark.port_trace import feed_counters
+from benchmark.harness import feed_counters
 
 
 def read(ctx):

@@ -4,7 +4,7 @@ copy into pinned memory, the copy's issue), from the feed's counters over
 every batch the run served: set-up's requests, the window's and the traced
 ones. The harness's slice counters do not hold the feed's."""
 
-from benchmark.port_trace import feed_counters
+from benchmark.harness import feed_counters
 
 
 def read(ctx):

@@ -2,7 +2,7 @@
 spends in ``stage``, from the feed's counters over every batch the run
 trained on: set-up's epoch, the window's and the traced one."""
 
-from benchmark.port_trace import feed_counters
+from benchmark.harness import feed_counters
 
 
 def read(ctx):

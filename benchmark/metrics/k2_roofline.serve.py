@@ -2,7 +2,7 @@
 block) in the traced requests: Σ bound over Σ device time of its launches,
 18 a batch at the flagship's stage shapes."""
 
-from benchmark import counts
+from benchmark.architectures.convnext_gru import k2_launches
 from benchmark.readers import roofline
 
 PATTERNS = ("dwconv7x7",)
@@ -13,4 +13,4 @@ def read(ctx):
         return None
     B = ctx["c"]["batch_size"]
     return roofline(ctx, "serve", "k2_roofline.serve",
-                    [(PATTERNS, (), counts.k2_launches(ctx["c"], B, False))])
+                    [(PATTERNS, (), k2_launches(ctx["c"], B, False))])

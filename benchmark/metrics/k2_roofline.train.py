@@ -2,7 +2,7 @@
 weight gradient (18 a step, with its kernel that adds the partial sums) in
 the traced epoch: Σ bound over Σ device time."""
 
-from benchmark import counts
+from benchmark.architectures.convnext_gru import k2_launches, k2_wgrad_launches
 from benchmark.readers import roofline
 
 FWD = ("dwconv7x7",)
@@ -15,5 +15,5 @@ def read(ctx):
         return None
     c, B = ctx["c"], ctx["c"]["batch_size"]
     return roofline(ctx, "train", "k2_roofline.train", [
-        (FWD, (), counts.k2_launches(c, B, True)),
-        (WGRAD, WGRAD_HELPERS, counts.k2_wgrad_launches(c, B))])
+        (FWD, (), k2_launches(c, B, True)),
+        (WGRAD, WGRAD_HELPERS, k2_wgrad_launches(c, B))])

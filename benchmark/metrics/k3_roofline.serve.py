@@ -2,7 +2,7 @@
 every ConvNeXt block) in the traced requests: Σ bound over Σ device time,
 18 launches a batch."""
 
-from benchmark import counts
+from benchmark.architectures.convnext_gru import k3_launches
 from benchmark.readers import roofline
 
 PATTERNS = ("convnext_mlp", "wide_gemm")
@@ -14,4 +14,4 @@ def read(ctx):
         return None
     B = ctx["c"]["batch_size"]
     return roofline(ctx, "serve", "k3_roofline.serve",
-                    [(PATTERNS, HELPERS, counts.k3_launches(ctx["c"], B, False))])
+                    [(PATTERNS, HELPERS, k3_launches(ctx["c"], B, False))])

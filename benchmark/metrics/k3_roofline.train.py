@@ -2,7 +2,7 @@
 stock PyTorch, not counted here) in the traced epoch: Σ bound over Σ
 device time."""
 
-from benchmark import counts
+from benchmark.architectures.convnext_gru import k3_launches
 from benchmark.readers import roofline
 
 PATTERNS = ("convnext_mlp", "wide_gemm")
@@ -14,4 +14,4 @@ def read(ctx):
         return None
     B = ctx["c"]["batch_size"]
     return roofline(ctx, "train", "k3_roofline.train",
-                    [(PATTERNS, HELPERS, counts.k3_launches(ctx["c"], B, True))])
+                    [(PATTERNS, HELPERS, k3_launches(ctx["c"], B, True))])

@@ -2,7 +2,7 @@
 spatial blocks) in the traced requests: Σ bound over Σ device time, one
 launch a spatial block a batch."""
 
-from benchmark import counts
+from benchmark.architectures.vivit import k4_launches
 from benchmark.readers import roofline
 
 PATTERNS = ("flash_fwd",)
@@ -13,4 +13,4 @@ def read(ctx):
         return None
     B = ctx["c"]["batch_size"]
     return roofline(ctx, "serve", "k4_roofline.serve",
-                    [(PATTERNS, (), counts.k4_launches(ctx["c"], B, False))])
+                    [(PATTERNS, (), k4_launches(ctx["c"], B, False))])

@@ -1,7 +1,7 @@
 """k4_roofline.train: K4's forward, di, dK/dV and dQ launches (one each a
 spatial block a step) in the traced epoch: Σ bound over Σ device time."""
 
-from benchmark import counts
+from benchmark.architectures.vivit import k4_launches
 from benchmark.readers import roofline
 
 
@@ -10,7 +10,7 @@ def read(ctx):
     if c.get("architecture") != "vivit":
         return None
     L = c["spatial_layers"]
-    launches = counts.k4_launches(c, c["batch_size"], True)
+    launches = k4_launches(c, c["batch_size"], True)
     return roofline(ctx, "train", "k4_roofline.train", [
         (("flash_fwd",), (), launches[:L]),
         (("flash_bwd_di",), (), launches[L:2 * L]),

@@ -1,9 +1,9 @@
 """What the metric files under ``benchmark/metrics/`` share.
 
 A metric file defines ``read(ctx)``: ``ctx`` is the driver's record of the
-run (its window; with ``--trace 1`` its traced slice, the launch counters
-over the slice and the slice's batches or steps). It returns a number, or
-None where the run holds nothing to read.
+run (its window; with ``--trace 1`` its traced slice (``trace.summarise``),
+the program's counters over the slice and the slice's batches or steps).
+It returns a number, or None where the run holds nothing to read.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def roofline(ctx: dict, kind: str, name: str,
     where they are not, the reading is left out."""
     if ctx.get("kind") != kind or "slice" not in ctx:
         return None
-    units = ctx["slice_batches"] if kind == "serve" else ctx["slice_steps"]
+    units = slice_units(ctx)
     bound = busy = 0.0
     for patterns, helpers, launches in families:
         n, sec = kernel_seconds(ctx["slice"], patterns)
@@ -54,6 +54,32 @@ def roofline(ctx: dict, kind: str, name: str,
         busy += sec + kernel_seconds(ctx["slice"], helpers)[1]
         bound += units * sum(x.bound_s() for x in launches)
     return 100.0 * bound / busy
+
+
+def slice_units(ctx: dict) -> int:
+    """The traced slice's batches (serving) or steps (training)."""
+    return ctx["slice_batches"] if ctx["kind"] == "serve" else ctx["slice_steps"]
+
+
+def span_ms(ctx: dict, kind: str, name: str) -> Optional[float]:
+    """ms a batch or a step that the host spent inside the port's spans
+    ``name`` in the traced slice (Σ of their lengths / batches or steps);
+    None where the slice holds no such span."""
+    if ctx.get("kind") != kind or "slice" not in ctx:
+        return None
+    lengths = [e - s for n, s, e in ctx["slice"]["program_spans"] if n == name]
+    if not lengths:
+        return None
+    return 1e-3 * sum(lengths) / slice_units(ctx)
+
+
+def span_device_ms(ctx: dict, kind: str, name: str) -> Optional[float]:
+    """ms a batch or a step of device time launched inside the port's spans
+    ``name`` in the traced slice (``trace.span_device_s``); None where the
+    slice holds no such span."""
+    if span_ms(ctx, kind, name) is None:
+        return None
+    return 1e3 * ctx["slice"]["span_device_s"].get(name, 0.0) / slice_units(ctx)
 
 
 def idle(ctx: dict, kind: str) -> Optional[float]:

@@ -2,10 +2,12 @@
 configurations' published descriptions, with no kernel, cache or batching
 of the program under test.
 
-- ``models``: the flagship (ConvNeXt-T, a bidirectional GRU, the classifier
-  MLP) and the scaled ViViT, as functions of a parameter dict;
+- ``models``: a configuration's forward as a function of a parameter dict,
+  its architecture's (``benchmark/architectures/``: the flagship's
+  ConvNeXt-T, bidirectional GRU and classifier MLP, the scaled ViViT),
+  and the layers the architectures share;
 - ``weights``: each configuration's parameters (the program's state-dict
-  names and shapes) and their seeded laws;
+  names and shapes, from its architecture) and their seeded laws;
 - ``preprocess``: K1's dequantise-normalise-pad, and a frozen copy of the
   training preprocess with its draw order (flip, letterbox, augmentation);
 - ``training``: the weighted loss, AdamW with its schedule, the loader's

@@ -12,9 +12,9 @@ The loss is the class-weighted cross-entropy over the clips whose mask is
 set (inverse-frequency weights of the training set's labels). AdamW
 decays every parameter: p ← p(1 − lr·wd) − lr·m̂/(√v̂ + ε), m̂ and v̂
 bias-corrected, the rate per epoch on a cosine from ``learning_rate`` to
-``learning_rate·eta_min_ratio`` over ``cosine_t_max_epochs`` epochs. The
-GRU's ``bias_hh`` r and z parts take no gradient (the program's cell has
-one bias per gate, its n part).
+``learning_rate·eta_min_ratio`` over ``cosine_t_max_epochs`` epochs. A
+parameter's part that the architecture freezes (its ``frozen_mask``) takes
+no gradient.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark import architectures
 from benchmark.reference import models
 from benchmark.reference.preprocess import train_frames
 from benchmark.reference.products import FLOAT32, Products, float32_math
@@ -69,16 +70,6 @@ def weighted_ce(logits, targets, weights, mask):
     return (per * w).sum() / w.sum().clamp_min(1e-8)
 
 
-def frozen_mask(name: str, c: dict):
-    """The part of a parameter that takes no gradient, or None."""
-    if name.startswith("temporal.gru.bias_hh"):
-        H = c["temporal_hidden"]
-        m = torch.ones(3 * H)
-        m[:2 * H] = 0.0
-        return m
-    return None
-
-
 def replay(P0: Dict[str, torch.Tensor], c: dict, batches: List[tuple],
            seeds: List[int], weights: torch.Tensor, steps_per_epoch: int,
            prec: Products = FLOAT32) -> dict:
@@ -91,7 +82,8 @@ def replay(P0: Dict[str, torch.Tensor], c: dict, batches: List[tuple],
     P = {k: v.detach().clone().requires_grad_(True) for k, v in P0.items()}
     m = {k: torch.zeros_like(v) for k, v in P0.items()}
     v2 = {k: torch.zeros_like(v) for k, v in P0.items()}
-    masks = {k: frozen_mask(k, c) for k in names}
+    arch = architectures.get(c["architecture"])
+    masks = {k: arch.frozen_mask(k, c) for k in names}
     b1, b2, eps, wd = o["beta1"], o["beta2"], 1e-8, o["weight_decay"]
     losses, first_grad = [], None
     with float32_math():

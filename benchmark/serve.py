@@ -156,9 +156,9 @@ def run(ctx: dict) -> dict:
            "attempted": len(answers)}
     if ctx["trace"]:
         traced = [next(it) for _ in range(t["traced_requests"])]
-        before = harness.counters()
+        before = harness.counters(c)
         out["slice"] = trace.profile(lambda: [serve(i) for i in traced])
-        out["slice_counters"] = harness.counter_delta(before, harness.counters())
+        out["slice_counters"] = harness.counter_delta(before, harness.counters(c))
         out["slice_batches"] = sum(math.ceil(len(i) / t["loader_batch"])
                                    for i in traced)
         out["slice_requests"] = len(traced)

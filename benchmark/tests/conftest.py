@@ -4,8 +4,8 @@ Tests that need a CUDA card carry the ``card`` marker and take the ``card``
 fixture, which decides inside the test whether a card exists and skips
 where there is none. The others run on the CPU at small sizes:
 ``tiny_cell`` gives a cell of ``BENCHMARK.json`` cut to such a size (the
-configuration's widths too: these runs test the harness, not the
-configuration).
+configuration's widths too, by its architecture's ``shrink``: these runs
+test the harness, not the configuration).
 """
 
 from __future__ import annotations
@@ -35,28 +35,24 @@ def card():
 
 
 def shrink(w: dict) -> dict:
-    """Cell ``w`` at a size a CPU test run holds: 32² frames for the
-    flagship (12 frames, folded to 6), vivit_tiny's widths at 28² (4
-    tokens, 4 frames), B = 2, pools of 6 or 8 clips."""
-    c, t = w["c"], w["t"]
-    if c["architecture"] == "convnext_gru":
-        c.update(frames=12, frame_size=32, content=[18, 32], batch_size=2)
-        c["program"] = {"data.fps": 4, "data.duration": 3,
-                        "data.frame_size": 32, "data.batch_size": 2}
-    else:
-        c.update(frames=4, frame_size=28, content=[16, 28], batch_size=2,
-                 dim=64, heads=4, mlp_dim=256, spatial_layers=2,
-                 temporal_layers=1)
-        c["program"] = dict(c["program"], **{
-            "model.backbone": "vivit_tiny", "data.fps": 4,
-            "data.duration": 1, "data.frame_size": 28,
-            "data.batch_size": 2})
+    """Cell ``w`` at a size a CPU test run holds: the configuration cut by
+    its architecture's ``shrink``, pools of 6 or 8 clips."""
+    from benchmark import architectures
+
+    t = w["t"]
+    w["c"] = architectures.get(w["c"]["architecture"]).shrink(w["c"])
     if t["kind"] == "serve":
         t.update(clips_per_request=[2, 4], pool_clips=6, max_requests=20,
                  loader_batch=2, traced_requests=2)
     else:
         t.update(pool_clips=8)
     return w
+
+
+@pytest.fixture
+def shrunk():
+    """``shrink``, for a cell a test builds itself."""
+    return shrink
 
 
 TRAFFIC = {"serve": "serve_closed", "train": "train_epochs"}

@@ -1,5 +1,5 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program. Imports are read from each
+reference and the architectures' modules import nothing of the program. Imports are read from each
 module's syntax tree; a name is compared by its top-level part (before the
 first dot), whole: the program's package name begins with the JAX
 package's."""
@@ -16,6 +16,7 @@ from benchmark import harness
 BENCH = Path(harness.__file__).resolve().parent
 RUN_MODULES = sorted(p for p in BENCH.rglob("*.py") if "tests" not in p.parts)
 REFERENCE = sorted((BENCH / "reference").glob("*.py"))
+ARCHITECTURES = sorted((BENCH / "architectures").glob("*.py"))
 PROGRAM = "vision_collision_detection_tpu_torch"
 
 
@@ -33,7 +34,7 @@ def top_level_imports(path: Path) -> set:
 def test_every_run_module_is_read():
     names = {p.name for p in RUN_MODULES}
     assert {"run.py", "serve.py", "train.py", "harness.py", "trace.py",
-            "models.py", "training.py"} <= names
+            "models.py", "training.py", "convnext_gru.py", "vivit.py"} <= names
     assert len(list((BENCH / "metrics").glob("*.py"))) >= 16
 
 
@@ -46,6 +47,12 @@ def test_no_jax_import(path):
 @pytest.mark.parametrize("path", REFERENCE, ids=lambda p: p.name)
 def test_reference_imports_nothing_of_the_program(path):
     assert PROGRAM not in top_level_imports(path)
+
+
+@pytest.mark.parametrize("path", ARCHITECTURES, ids=lambda p: p.name)
+def test_architectures_import_nothing_of_the_program(path):
+    """An architecture's module is reference code: plain PyTorch."""
+    assert not top_level_imports(path) & {PROGRAM, *harness.FORBIDDEN}
 
 
 def test_whole_names_are_compared():

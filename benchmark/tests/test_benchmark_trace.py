@@ -1,13 +1,15 @@
-"""``benchmark/port_trace.py`` on a synthetic Chrome trace that holds the
-benchmark's spans, the port's, runtime launches on two host threads and the
-device activity they launched, sharing correlation ids; and the feed's
-metric files against hand-computed values."""
+"""``benchmark/trace.py``'s summary and ``benchmark/port_trace.py`` on a
+synthetic Chrome trace that holds the benchmark's spans, the port's,
+runtime launches on two host threads and the device activity they
+launched, sharing correlation ids; and the metric files that read the
+port's spans and the feed's counters against hand-computed values."""
 
 from __future__ import annotations
 
 import pytest
 
 from benchmark import harness, port_trace, trace
+from benchmark.trace import summarise
 
 MAIN, PRODUCER = 1, 2
 
@@ -57,20 +59,27 @@ def without_port_spans(events):
                                       and e["name"].startswith("vcd."))]
 
 
+EXISTING = ("busy_s", "window_s", "kernels", "fills", "spans")
+
+
 def test_the_existing_readings_ignore_the_port_spans():
+    """The port's spans change only the names of the idle gaps."""
     events = serve_events()
-    got = trace.summarise(events, 0.002)
-    assert got == trace.summarise(without_port_spans(events), 0.002)
+    got = summarise(events, 0.002)
+    bare = summarise(without_port_spans(events), 0.002)
+    assert {k: got[k] for k in EXISTING} == {k: bare[k] for k in EXISTING}
+    assert [g[1:] for g in got["gaps"]] == [g[1:] for g in bare["gaps"]]
     assert got["busy_s"] == pytest.approx((60 + 310 + 100) * 1e-6)
     assert got["fills"] == [pytest.approx(30e-6)]
     assert got["spans"] == {trace.REQUEST: 1, trace.FETCH: 0, trace.STEP: 0}
+    assert bare["program_spans"] == [] and bare["span_device_s"] == {}
 
 
 def test_gaps_keep_their_durations_and_take_the_innermost_span():
     events = serve_events()
-    gaps = port_trace.named_gaps(events)
-    parent = trace.summarise(without_port_spans(events), 0.002)["gaps"]
-    assert [g[2] for g in gaps] == pytest.approx([g[1] for g in parent])
+    gaps = summarise(events, 0.002)["gaps"]
+    parent = summarise(without_port_spans(events), 0.002)["gaps"]
+    assert [g[2] for g in gaps] == pytest.approx([g[2] for g in parent])
     assert [g[0] for g in parent] == [trace.REQUEST] * 4
     # at 0 only the request is open; at 90 and 900 a wait on the feed; at
     # 460 the emit, whose wait for the card has ended
@@ -82,11 +91,21 @@ def test_gaps_keep_their_durations_and_take_the_innermost_span():
         trace.REQUEST: 30e-6})
 
 
+def test_breakdown_names_the_port_span_the_card_waited_in():
+    got = trace.breakdown(summarise(serve_events(), 0.002))
+    assert got["idle_gaps"] == [["vcd.serve.emit", pytest.approx(340e-6)],
+                                ["vcd.feed.wait", pytest.approx(100e-6)],
+                                ["vcd.feed.wait", pytest.approx(60e-6)],
+                                [trace.REQUEST, pytest.approx(30e-6)]]
+    assert got["device_ops"] == [["k_a", pytest.approx(250e-6)],
+                                 ["k_b", pytest.approx(150e-6)]]
+
+
 def test_idle_time_over_the_spans_it_spans():
     """The gap [460, 800] opens in the emit and runs through the next
     wait, the next forward's issue and the request's own time after it."""
     events = serve_events()
-    got = port_trace.idle_over_spans(events, port_trace.named_gaps(events))
+    got = port_trace.idle_over_spans(events, summarise(events, 0.002)["gaps"])
     assert got == pytest.approx({
         trace.REQUEST: (10 + 80 + 10) * 1e-6,
         "vcd.feed.wait": (20 + 10 + 100 + 90) * 1e-6,
@@ -97,30 +116,28 @@ def test_idle_time_over_the_spans_it_spans():
 def test_span_device_seconds_follow_the_launch():
     """The forward's four launches, in both of its spans; the producer's
     copy launched during the first wait is not the wait's."""
-    got = port_trace.span_device_s(serve_events())
+    got = summarise(serve_events(), 0.002)["span_device_s"]
     assert got == pytest.approx({"vcd.serve.forward": (150 + 150 + 10 + 100)
                                  * 1e-6})
+    assert trace.span_device_s(serve_events()) == got
 
 
 def test_program_spans():
-    spans = port_trace.program_spans(serve_events())
+    spans = summarise(serve_events(), 0.002)["program_spans"]
     assert len(spans) == 7 and all(n.startswith("vcd.") for n, _, _ in spans)
     assert ("vcd.serve.result_wait", 210.0, 455.0) in spans
 
 
-def test_serving_readings():
-    got = port_trace.span_readings(serve_events(), "serve", units=2)
-    assert got == pytest.approx({
-        "feed_wait_ms.serve": (90 + 100 + 110) / 2 * 1e-3,
-        "forward_issue_ms.serve": (100 + 20) / 2 * 1e-3,
-        "emit_ms.serve": (400 - 245) / 2 * 1e-3,
-        "result_wait_ms.serve": 245 / 2 * 1e-3})
+def serve_ctx(events=None):
+    return {"kind": "serve", "slice_batches": 2,
+            "slice": summarise(serve_events() if events is None else events,
+                               0.002)}
 
 
-def test_training_readings():
+def train_events():
     """One step: the preprocess span launches a kernel of 60 µs; one of 20
     µs launched after it is not the preprocess's."""
-    events = [
+    return [
         span(trace.STEP, 0, 400),
         span("vcd.feed.wait", 0, 5),
         span("vcd.train.preprocess", 5, 50),
@@ -130,22 +147,67 @@ def test_training_readings():
         span("vcd.train.backward", 70, 100),
         span("vcd.train.optimizer", 100, 300),
     ]
-    got = port_trace.span_readings(events, "train", units=1)
-    assert got["feed_wait_ms.train"] == pytest.approx(0.005)
-    assert got["preprocess_ms.train"] == pytest.approx(0.06)
-    assert got["optimizer_host_ms.train"] == pytest.approx(0.2)
+
+
+def train_ctx(events=None):
+    return {"kind": "train", "slice_steps": 1,
+            "slice": summarise(train_events() if events is None else events,
+                               0.0004)}
+
+
+SPAN_METRICS = {  # metric → (its kind, what it reads on the synthetic slice)
+    "feed_wait_ms.serve": ("serve", (90 + 100 + 110) / 2 * 1e-3),
+    "forward_issue_ms.serve": ("serve", (100 + 20) / 2 * 1e-3),
+    "emit_ms.serve": ("serve", (400 - 245) / 2 * 1e-3),
+    "feed_wait_ms.train": ("train", 0.005),
+    "preprocess_ms.train": ("train", 0.06),
+    "optimizer_host_ms.train": ("train", 0.2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_METRICS))
+def test_span_metric_files(name):
+    """Each metric file that reads the port's spans, on the synthetic slice
+    of its kind: its hand-counted value; on the other kind's, and on a
+    slice without the port's spans, nothing."""
+    kind, want = SPAN_METRICS[name]
+    read = harness.reader(name)
+    ctx, other = (serve_ctx(), train_ctx()) if kind == "serve" else (
+        train_ctx(), serve_ctx())
+    assert read(ctx) == pytest.approx(want)
+    assert read(other) is None
+    bare = (serve_ctx if kind == "serve" else train_ctx)(without_port_spans(
+        serve_events() if kind == "serve" else train_events()))
+    assert read(bare) is None
+    assert read({"kind": kind}) is None  # an untraced run
+
+
+def test_serving_readings():
+    got = port_trace.span_readings(serve_ctx()["slice"], "serve", units=2)
+    assert got == pytest.approx({"result_wait_ms.serve": 245 / 2 * 1e-3})
+
+
+def test_training_readings():
+    got = port_trace.span_readings(train_ctx()["slice"], "train", units=1)
     assert got["vcd.train.preprocess_host_ms"] == pytest.approx(0.045)
+    assert got["vcd.train.preprocess_device_ms"] == pytest.approx(0.06)
     assert got["vcd.train.forward_device_ms"] == pytest.approx(0.02)
+    assert "preprocess_ms.train" not in got  # the metric file's reading
 
 
 def test_port_record_of_a_serving_slice():
+    events = serve_events()
     rec = {"kind": "serve", "slice_batches": 2,
-           "slice": {"window_s": 0.002}, "window_s": 0.5, "batches": 250,
-           "latencies_s": [0.0005, 0.0015]}
-    feed = {"feeds": 1, "batches": 2, "next_ns": 3_000_000,
-            "stage_ns": 5_000_000, "pin_allocs": 2,
-            "pinned_bytes": 3 * 2 ** 20}
-    got = port_trace.port_record(rec, serve_events(), feed)
+           "slice": summarise(events, 0.002), "window_s": 0.5, "batches": 250,
+           "latencies_s": [0.0005, 0.0015],
+           "slice_counters": {"device_feed.feeds": 1,
+                              "device_feed.batches": 2,
+                              "device_feed.next_ns": 3_000_000,
+                              "device_feed.stage_ns": 5_000_000,
+                              "device_feed.pin_allocs": 2,
+                              "device_feed.pinned_bytes": 3 * 2 ** 20,
+                              "K4.launches": 16}}
+    got = port_trace.port_record(rec, events)
     assert got["traced_batch_ms"] == pytest.approx(1.0)
     assert got["window_batch_ms"] == pytest.approx(2.0)
     assert got["traced_request_mean_ms"] == pytest.approx(1.0)
@@ -165,7 +227,7 @@ def feed(monkeypatch):
     from vision_collision_detection_tpu_torch.data import loader
 
     def set_counters(**values):
-        for k in port_trace.FEED:
+        for k in harness.COUNTERS["device_feed"][2]:
             monkeypatch.setattr(loader.device_feed, k, values.get(k, 0))
 
     return set_counters
@@ -192,8 +254,22 @@ def test_feed_metric_files_read_nothing_before_the_counters(feed, monkeypatch):
 
     feed(feeds=1, batches=1)
     monkeypatch.delattr(loader.device_feed, "stage_ns")
-    assert port_trace.feed_counters() is None
+    assert harness.feed_counters() is None
     for name, kind in (("feed_stage_ms.serve", "serve"),
                        ("feed_pinned_mib.serve", "serve"),
                        ("feed_stage_ms.train", "train")):
         assert harness.reader(name)({"kind": kind}) is None
+
+
+def test_the_feed_counters_are_counted_over_the_slice(feed):
+    """``harness.counters`` holds the feed's counters beside the kernels',
+    so the slice's counter deltas carry them."""
+    from benchmark.architectures import convnext_gru
+
+    c = {"architecture": "convnext_gru"}
+    feed(batches=3, stage_ns=7)
+    before = harness.counters(c)
+    feed(batches=5, stage_ns=7, feeds=1)
+    got = harness.counter_delta(before, harness.counters(c))
+    assert got == {"device_feed.batches": 2, "device_feed.feeds": 1}
+    assert not getattr(convnext_gru, "COUNTERS", {})

@@ -159,10 +159,10 @@ def run(ctx: dict) -> dict:
                "window_s": window_s, "steps": steps, "clips": steps * B,
                "peak_bytes": peak, "attempted": steps}
         if ctx["trace"]:
-            before = harness.counters()
+            before = harness.counters(c)
             out["slice"] = trace.profile(lambda: tr._train_epoch(epoch))
             out["slice_counters"] = harness.counter_delta(before,
-                                                          harness.counters())
+                                                          harness.counters(c))
             out["slice_steps"] = spe
             log(f"traced one epoch of {spe} steps: launches "
                 f"{out['slice_counters']}")
