@@ -367,6 +367,19 @@ failure:
     and 1e-5 on the mean; a faulty table (hue + 0.02, flips inverted, rows
     shifted, contrast means at 0) outside; timed at [8, 32, 189, 336, 3]
     and [8, 50, 126, 224, 3] in turns with the chain, with the bound.
+29. TimeSformer-HR (``model.backbone="timesformer_hr"``, 16 frames of
+    448², patch 16, ``attention_impl="flash"``; ``python3 chip_smoke.py
+    --phase 29`` runs it alone), bf16: K4 at the model's two calls,
+    [128, 785, 12, 64] and [8, 16, 9408, 64], against its plain versions
+    (the bf16 rule of phase 2) and timed; serving on a seeded uint8 batch
+    [8, 16, 252, 448, 3] (launches K1 1, K4 fwd 24: a temporal and a
+    spatial call a block), probabilities that spread, within 1e-1 of the
+    forward on plain versions, the gap of the centred log-probabilities
+    to the published forward in float32 recorded; one training step at
+    B=8 (K4 fwd, dK/dV, dQ and di 24 each, the fused preprocess 2; every
+    gradient finite, every attention's projections nonzero), ms a step,
+    peak memory; the step against the plain step at 2 clips (4e-2, query
+    and key 1e-1).
 
 Prints one ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -634,11 +647,17 @@ def main() -> int:
     pre = fused_preprocess_phase(torch, dev)
     report["fused_preprocess"] = pre
     log(f"[phase 28] {pre['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    tsf = timesformer_phase(torch, dev)
+    report["timesformer"] = tsf
+    launches.update(tsf["launches"])
+    log(f"[phase 29] {tsf['phase_s']:.1f} s")
 
     kernels = kernel_line(
         compare["rows"] + report["compare_train"]["rows"] + flash["rows"]
         + ref["compare_rows"] + big["compare_rows"]
-        + f32_train["compare_rows"] + pre["compare"], launches,
+        + f32_train["compare_rows"] + pre["compare"] + tsf["compare"],
+        launches,
         report["timing"] + ref["kernel_timing"] + [
             r for r in big["timing"] if r["kernel"].endswith("(wide)")]
         + f32_train["timing"] + pre["timing"][:1])
@@ -7498,6 +7517,275 @@ def fused_preprocess_phase(torch, dev):
     return out
 
 
+# ---- 29. TimeSformer-HR ---------------------------------------------------
+
+# the benchmark's configuration: augmentation without blur, so that the
+# step takes the fused preprocess
+TSF_OVERRIDES = {"model.backbone": "timesformer_hr", "model.patch_size": 16,
+                 "model.attention_impl": "flash", "data.frame_size": 448,
+                 "data.fps": 4, "data.duration": 4, "augment.blur_sigma": 0.0}
+TSF_CONTENT = (252, 448)        # 16:9 source letterboxed into 448²
+TSF_BLOCKS = 12
+TSF_HEADS = 12
+# the step against the plain step at this many clips (the plain K4 keeps
+# float32 [B·16, 12, 785, 785] logits)
+TSF_PLAIN_BATCH = 2
+# K4's two calls a block at B=8 on the bf16 head_dim-64 route: the spatial
+# attention over 785 tokens of each of the 128 frames (a ragged last tile
+# of queries and keys) and the temporal over 16 frames, the 784 positions
+# folded into the heads (one 192-query item and one 128-key block holding
+# 16 rows)
+TSF_K4_SHAPES = ((128, 785, 12, 64, "bfloat16"),
+                 (8, 16, 784 * 12, 64, "bfloat16"))
+
+
+def time_divided_k4(torch, dev, shapes=TSF_K4_SHAPES):
+    """ms a launch of K4's forward (without the log-sum-exp), dK/dV and dQ
+    at each of ``shapes``, CUDA events around each, beside the plain
+    versions and SDPA forward and backward (one call for dq, dk, dv) on the
+    same inputs, and the bound of each: the function's products (2, 4 and
+    3 of 2·S²·D operations a (batch, head)) at the bf16 peak or its bytes
+    (q, k, v, o; q, k, v, do, dk, dv with lse and di; q, k, v, do, dq with
+    lse and di) at the HBM rate. The ``mma.sync`` yardstick of
+    ``time_flash_routes`` has no bf16 head_dim-64 backward. → rows."""
+    import torch.nn.functional as F
+
+    from vision_collision_detection_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    g = torch.Generator().manual_seed(22)
+    for shape in shapes:
+        B, S, H, D, _ = shape
+        q, k, v, do = flash_inputs(torch, shape, dev, g)
+        scale = D ** -0.5
+        o, lse = fa.flash_mha_fwd(q, k, v, scale)
+        di = fa.flash_mha_bwd_di(o, do)
+        args = (q, k, v, do, lse, di, scale)
+        n, stats, pairs = q.numel(), B * H * S * 4, B * H
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        with torch.no_grad():
+            fwd = median_ms(torch, lambda: fa._launch_fwd(
+                q, k, v, scale, need_lse=False))
+            lib_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, scale=scale))
+            plain_fwd = median_ms(
+                torch, lambda: fa.flash_mha_plain(q, k, v, scale), iters=5)
+        dkv = median_ms(torch, lambda: fa.flash_mha_bwd_dkv(*args))
+        dq = median_ms(torch, lambda: fa.flash_mha_bwd_dq(*args))
+        plain_dkv = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dkv_plain(*args), iters=5)
+        plain_dq = median_ms(
+            torch, lambda: fa.flash_mha_bwd_dq_plain(*args), iters=5)
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_bwd = median_ms(torch, lambda: torch.autograd.grad(
+            lib_out, leaves, dot, retain_graph=True))
+        del lib_out, leaves
+        for kind, ms, products, n_bytes, plain, lib in (
+                ("fwd", fwd, 2, 8 * n, plain_fwd, lib_fwd),
+                ("bwd dKdV", dkv, 4, 12 * n + 2 * stats, plain_dkv, lib_bwd),
+                ("bwd dQ", dq, 3, 10 * n + 2 * stats, plain_dq, lib_bwd)):
+            b, by = bound_ms(n_bytes, 2 * products * S * S * D * pairs,
+                             BF16_FLOPS)
+            rows.append({"kernel": f"K4 {kind}", "shape": list(shape),
+                         "ms": ms, "bound_ms": b, "bound_by": by,
+                         "plain_ms": plain, "library_ms": lib})
+            log(f"[timesformer K4] {kind} {list(shape)}: {ms:.4f} ms (bound "
+                f"{b:.4f} ms by {by}; plain {plain:.4f}; SDPA {lib:.4f})")
+        del q, k, v, do, o, lse, di, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
+def timesformer_phase(torch, dev):
+    """Phase 29: TimeSformer-HR (16 frames of 448², 12 divided space-time
+    blocks of 12 heads of 64; ``python3 chip_smoke.py --phase 29`` runs it
+    alone) served and trained on the card in bf16, both attentions of
+    every block on K4's wgmma route. First K4 alone at the model's two
+    calls (TSF_K4_SHAPES): ``compare_flash_kernels`` there (forward, di,
+    dK/dV and dQ against the plain versions under the route's bf16 rule)
+    and each kernel timed (``time_divided_k4``). Serving: the predictor
+    with phase 9's redrawn biases and LayerNorms (the head as drawn), a
+    seeded uint8 batch [8, 16, 252, 448, 3] through
+    ``_make_forward(False)``: launches K1 1 and K4 fwd 24, all else 0;
+    probabilities that spread; ms a batch and peak memory (read before any
+    plain or reference forward); within SPREAD_SERVE_TOL of the forward on
+    plain versions; the largest gap of the centred log-probabilities to
+    the published forward in float32 (``tests/timesformer_reference.py``).
+    Training: one ``make_train_step`` at B=8 on a noise batch: K4 fwd,
+    dK/dV, dQ and di 24 each, the fused preprocess 2; the loss finite,
+    every gradient finite and every attention's projections nonzero; ms a
+    step and peak memory; then at TSF_PLAIN_BATCH clips the step against
+    the plain step (VIVIT_TRAIN_TOL, query and key VIVIT_TEMPORAL_QK_TOL)."""
+    import importlib.util
+
+    from vision_collision_detection_tpu_torch.config import ExperimentConfig
+    from vision_collision_detection_tpu_torch.infer.predictor import (
+        CollisionPredictor)
+    from vision_collision_detection_tpu_torch.ops import dequant_pad, preprocess
+    from vision_collision_detection_tpu_torch.ops.preprocess import (
+        eval_preprocess)
+    from vision_collision_detection_tpu_torch.train import (
+        create_train_state, make_train_step)
+
+    spec = importlib.util.spec_from_file_location(
+        "timesformer_reference",
+        os.path.join(ROOT, "tests", "timesformer_reference.py"))
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+
+    t_start = time.time()
+    out = {"launches": {}}
+    failed = []
+    cfg = ExperimentConfig().override(TSF_OVERRIDES)
+    T, L = cfg.data.num_frames, TSF_BLOCKS
+
+    # -- K4 at the model's two calls
+    out["compare"] = compare_flash_kernels(
+        torch, dev, shapes=TSF_K4_SHAPES)["rows"]
+    torch.cuda.empty_cache()
+    out["k4_timing"] = time_divided_k4(torch, dev)
+
+    # -- serving
+    torch.cuda.reset_peak_memory_stats()
+    pred = CollisionPredictor(cfg, None)
+    if pred._fold_stride() != 1 or T != 16 or tuple(
+            pred.model.pos_embed.shape) != (785, 768):
+        raise SystemExit(f"fold stride {pred._fold_stride()}, T {T}, "
+                         f"table {tuple(pred.model.pos_embed.shape)}")
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in pred.model.named_parameters():
+            if name.endswith("bias") and p.dim() == 1:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        for m in pred.model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(1 + torch.randn(m.weight.shape, generator=g) * 0.1)
+    frames = torch.stack([
+        torch.randint(12 * i, 256 - 16 * i, (T, *TSF_CONTENT, 3),
+                      generator=g, dtype=torch.uint8)
+        for i in range(VIVIT_BATCH)]).to(dev)
+    forward = pred._make_forward(folded_stride=False)
+    forward(frames)
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    probs = forward(frames)
+    torch.cuda.synchronize()
+    launches = expect_launches("timesformer serve", counters, K1=1,
+                               K4_fwd=2 * L)
+    out["launches"]["timesformer_serve"] = launches
+    log(f"[timesformer serve] probs {probs.tolist()}")
+    if tuple(probs.shape) != (VIVIT_BATCH, 3) or not bool(
+            torch.isfinite(probs).all()):
+        raise SystemExit(f"timesformer: bad probabilities {probs}")
+    spread = float((probs.max(0).values - probs.min(0).values).max())
+    if spread < SPREAD_MIN:
+        failed.append(f"timesformer: probabilities too alike ({spread})")
+    ms = median_ms(torch, lambda: forward(frames), warmup=2, iters=10,
+                   queued=False)
+    peak = torch.cuda.max_memory_allocated()
+    with swapped(*flash_plain_swaps(),
+                 (preprocess, "dequant_normalize_pad",
+                  dequant_pad.dequant_normalize_pad_plain)):
+        plain = forward(frames)
+        torch.cuda.synchronize()
+    err = max_err(torch, probs, plain)
+    if not err <= SPREAD_SERVE_TOL:
+        failed.append(f"timesformer: the forward disagrees with its plain "
+                      f"version ({err})")
+    P = {k: v.float() for k, v in pred.model.state_dict().items()}
+    with torch.no_grad(), reference.float32_math():
+        x = eval_preprocess(frames, cfg.augment, cfg.data.frame_size,
+                            torch.float32, use_kernel="force")
+        ref_logits = reference.logits(P, x, TSF_HEADS, 16)
+    lp = torch.log(probs.double())
+    lr = torch.log_softmax(ref_logits.double(), -1)
+    gap = float(((lp - lp.mean(-1, keepdim=True))
+                 - (lr - lr.mean(-1, keepdim=True))).abs().max())
+    log(f"[timesformer serve] spread {spread:.4f}; vs plain max |Δprob| "
+        f"{err:.3e} (tol {SPREAD_SERVE_TOL:.0e}); gap to the published "
+        f"forward in float32 {gap:.4f}; {ms:.2f} ms a batch; peak "
+        f"{peak / 2**30:.2f} GiB")
+    out["serve"] = {"probs": probs.tolist(), "spread": spread,
+                    "max_abs_err_vs_plain": err, "logit_gap_vs_reference": gap,
+                    "ms": ms, "peak_bytes": peak}
+    del pred, frames, forward, probs, plain, P, x, ref_logits
+    torch.cuda.empty_cache()
+
+    # -- training
+    torch.cuda.reset_peak_memory_stats()
+    model, state = create_train_state(cfg, torch.Generator().manual_seed(13),
+                                      steps_per_epoch=STEPS_PER_EPOCH)
+    step = make_train_step(model, cfg)
+    batch = vivit_noise_batch(torch, dev, T, VIVIT_BATCH, 14, TSF_CONTENT)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_init = copy.deepcopy(state.optimizer.state_dict())
+
+    def run(b):
+        """One step on ``b`` from the initial weights and optimizer state."""
+        model.load_state_dict(init)
+        state.optimizer.load_state_dict(opt_init)
+        state.step = 0
+        _, m = step(state, *b, torch.Generator(device=dev).manual_seed(
+            TRAIN_SEED))
+        torch.cuda.synchronize()
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().float().clone()
+                 for n, p in model.named_parameters()})
+
+    counters = zero_counters()
+    metrics, grads = run(batch)
+    launches = expect_launches(
+        "timesformer train", counters, K4_fwd=2 * L, K4_bwd_dKdV=2 * L,
+        K4_bwd_dQ=2 * L, K4_bwd_di=2 * L, train_preprocess=2)
+    out["launches"]["timesformer_train"] = launches
+    if not math.isfinite(metrics["loss"]):
+        raise SystemExit(f"timesformer: non-finite loss {metrics}")
+    bad = [n for n, v in grads.items() if not bool(torch.isfinite(v).all())]
+    attn = [n for n in grads if "attn." in n and not n.endswith(".key.bias")]
+    zero = [n for n in attn if float(grads[n].abs().max()) == 0.0]
+    log(f"[timesformer train] metrics {metrics}; {len(grads)} parameters; "
+        f"non-finite {bad}; {len(attn)} attention parameters, zero {zero}")
+    if bad or zero or len(attn) != 2 * 7 * L:
+        failed.append("timesformer: a gradient is missing, non-finite or 0")
+    del grads
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step_ms = median_step_ms(torch, lambda: step(state, *batch, gen),
+                             warmup=1, iters=TRAIN_TIME_ITERS)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[timesformer train] {step_ms:.1f} ms a step of {VIVIT_BATCH} "
+        f"clips; peak {peak / 2**30:.2f} GiB")
+
+    small = tuple(t[:TSF_PLAIN_BATCH] for t in batch)
+    metrics_s, grads_s = run(small)
+    with swapped(*flash_plain_swaps()):
+        plain_metrics, plain_grads = run(small)
+    loss_err = abs(metrics_s["loss"] - plain_metrics["loss"]) / abs(
+        plain_metrics["loss"])
+    errs = rel_grad_errs(torch, grads_s, plain_grads, GRAD_FLOOR)
+    qk = {n: e for n, e in errs.items()
+          if ".query." in n or ".key." in n}
+    worst = max(((n, e) for n, e in errs.items() if n not in qk),
+                key=lambda kv: kv[1])
+    worst_qk = max(qk.items(), key=lambda kv: kv[1])
+    log(f"[timesformer train] {TSF_PLAIN_BATCH} clips, kernels vs plain: "
+        f"loss rel {loss_err:.2e}; worst gradient {worst} (tol "
+        f"{VIVIT_TRAIN_TOL:.0e}); query/key {worst_qk} (tol "
+        f"{VIVIT_TEMPORAL_QK_TOL:.0e})")
+    if (loss_err > VIVIT_TRAIN_TOL or worst[1] > VIVIT_TRAIN_TOL
+            or worst_qk[1] > VIVIT_TEMPORAL_QK_TOL):
+        failed.append("timesformer: the step disagrees with its plain version")
+    out["train"] = {"metrics": metrics, "ms": step_ms, "peak_bytes": peak,
+                    "plain_batch": TSF_PLAIN_BATCH, "loss_rel_err": loss_err,
+                    "worst_grad_rel_err": worst, "worst_query_key": worst_qk}
+    del model, state, step, batch, small, grads_s, plain_grads, init
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_start
+    if failed:
+        raise SystemExit(f"timesformer: {failed}")
+    return out
+
+
 def kernel_line(compare_rows, launches, timing):
     """One entry per kernel. ``launches`` is the sum over the main paths'
     runs (the serving forward and the training step of the flagship and of
@@ -7678,12 +7966,13 @@ def kernel_line(compare_rows, launches, timing):
 
 # the phases that run alone: ``python3 chip_smoke.py --phase N``
 ALONE = {"26": lambda: float32_vivit_phase, "27": lambda: vivit_tiny_phase,
-         "28": lambda: fused_preprocess_phase}
+         "28": lambda: fused_preprocess_phase, "29": lambda: timesformer_phase}
 
 
 def phase_main(n) -> int:
     """``python3 chip_smoke.py --phase N``: phase 26 (the float32 ViViT),
-    27 (vivit_tiny) or 28 (the fused training preprocess) alone, with the kernels built and TF32 off as
+    27 (vivit_tiny), 28 (the fused training preprocess) or 29
+    (TimeSformer-HR) alone, with the kernels built and TF32 off as
     ``main`` sets them; its record in ``chiprun_out/phaseN.json``."""
     import torch
 

@@ -145,7 +145,10 @@ def test_every_mode_and_backbone_builds():
     """All 10 frame backbones with all 6 temporal modes (on the meta
     device: nothing is allocated), each head's output width feeding the
     classifier."""
-    from vision_collision_detection_tpu_torch.config import BACKBONES
+    from vision_collision_detection_tpu_torch.config import (
+        BACKBONES,
+        whole_video,
+    )
     from vision_collision_detection_tpu_torch.models.backbones import (
         feature_dim,
     )
@@ -156,7 +159,7 @@ def test_every_mode_and_backbone_builds():
         VideoClassifierModel,
     )
 
-    names = [n for n in BACKBONES if not n.startswith("vivit")]
+    names = [n for n in BACKBONES if not whole_video(n)]
     assert len(names) == 10
     for name in names:
         for mode in MODES + ("gru",):

@@ -27,7 +27,17 @@ BACKBONES = (
     "vivit_tiny",
     "vivit_small",
     "vivit_base",
+    "timesformer_tiny",
+    "timesformer_hr",
 )
+
+
+def whole_video(backbone: str) -> bool:
+    """``backbone`` names a whole video model (``models/vivit.py``,
+    ``models/timesformer.py``): it takes every frame of a clip, with no
+    frame backbone, temporal head or frame subsampling."""
+    return backbone.startswith(("vivit", "timesformer"))
+
 
 TEMPORAL_MODES = ("attention", "conv", "pooling", "rnn", "lstm", "gru")
 
@@ -251,6 +261,12 @@ class ExperimentConfig:
             raise ValueError(
                 f"attention_impl {self.model.attention_impl!r} not in "
                 "('xla', 'flash')"
+            )
+        if (self.model.backbone.startswith("timesformer")
+                and self.model.attention_impl != "flash"):
+            raise ValueError(
+                f"{self.model.backbone} attends by K4 only: "
+                "model.attention_impl must be 'flash'"
             )
         if not 0 <= int(self.data.lowres_decode) <= 3:
             raise ValueError(

@@ -19,7 +19,9 @@ Counterpart of ``vision_collision_detection_tpu/infer/predictor.py``
 The forward is K1 (``eval_preprocess``) → ConvNeXt with K2 and K3 in every
 block → bi-GRU → classifier MLP → softmax; or, for a ViViT backbone, K1 →
 patch embedding → spatial blocks (K4 with ``attention_impl="flash"``) →
-temporal blocks → head → softmax.
+temporal blocks → head → softmax; or, for a TimeSformer, K1 → patch
+embedding → divided space-time blocks (K4 over the frames, then within
+each frame) → head → softmax.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from vision_collision_detection_tpu_torch.ckpt.checkpoint import (
     CheckpointStore,
     load_checkpoint,
 )
-from vision_collision_detection_tpu_torch.config import ExperimentConfig
+from vision_collision_detection_tpu_torch.config import (
+    ExperimentConfig,
+    whole_video,
+)
 from vision_collision_detection_tpu_torch.data.datasets import (
     ClipDataset,
     ClipRecord,
@@ -91,12 +96,13 @@ def sliding_windows(num_frames: int, fps: float, duration: float, T: int,
 
 def fold_stride(cfg: ExperimentConfig) -> int:
     """The stride the decoder may keep frames at because the model would
-    subsample them anyway. A ViViT never subsamples, so its stride is 1:
-    the JAX predictor folds by ``frame_subsample`` for every backbone,
-    which hands a ViViT half the frames its unfolded forward sees."""
+    subsample them anyway. A whole video model (a ViViT, a TimeSformer)
+    never subsamples, so its stride is 1: the JAX predictor folds by
+    ``frame_subsample`` for every backbone, which hands a ViViT half the
+    frames its unfolded forward sees."""
     m = cfg.model
     T = cfg.data.num_frames
-    if m.backbone.startswith("vivit"):
+    if whole_video(m.backbone):
         return 1
     if m.frame_subsample > 1 and T > m.subsample_threshold:
         return m.frame_subsample

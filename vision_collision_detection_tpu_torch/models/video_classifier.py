@@ -27,7 +27,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vision_collision_detection_tpu_torch.config import ModelConfig
+from vision_collision_detection_tpu_torch.config import (
+    ModelConfig,
+    whole_video,
+)
 from vision_collision_detection_tpu_torch.models.backbones import (
     build_backbone,
     feature_dim,
@@ -132,16 +135,12 @@ def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
     ``torch.Generator``; default: one seeded 0). ``frame_size``: the side of
     the square frames the model will see (default ``cfg.image_size``); a
     ViViT sizes its spatial position table from it, as flax does from the
-    input it is initialised on."""
+    input it is initialised on; so does a TimeSformer."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if cfg.backbone.startswith("vivit"):
-        from vision_collision_detection_tpu_torch.models.vivit import (
-            build_vivit,
-        )
-
-        model = build_vivit(cfg, frame_size)
+    if whole_video(cfg.backbone):
+        model = _build_whole_video(cfg, frame_size)
         init_weights(model, generator)
         return model.to(dev).eval()
     model = VideoClassifierModel(
@@ -161,6 +160,18 @@ def build_model(cfg: ModelConfig, device=None, dwconv_kernel=None,
     return model.to(dev).eval()
 
 
+def _build_whole_video(cfg: ModelConfig, frame_size: Optional[int]):
+    if cfg.backbone.startswith("timesformer"):
+        from vision_collision_detection_tpu_torch.models.timesformer import (
+            build_timesformer,
+        )
+
+        return build_timesformer(cfg, frame_size)
+    from vision_collision_detection_tpu_torch.models.vivit import build_vivit
+
+    return build_vivit(cfg, frame_size)
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, g: torch.Generator):
     # flax lecun_normal: truncated normal at ±2σ, rescaled to variance 1/fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -172,11 +183,12 @@ def init_weights(model: nn.Module, g: torch.Generator) -> None:
     """Draw every parameter from ``g`` with the flax initialisers' laws:
     lecun-normal kernels, orthogonal recurrent kernels, zero biases, unit
     LayerNorm and BatchNorm scales (running statistics 0 and 1),
-    N(0, 0.02²) position tables; layer-scale γ keeps its constructor
-    value."""
+    N(0, 0.02²) position and time tables and CLS tokens; layer-scale γ
+    keeps its constructor value."""
     for name, p in model.named_parameters():
         if name.rsplit(".", 1)[-1] in ("spatial_pos", "temporal_pos",
-                                       "pos_embedding"):
+                                       "pos_embedding", "cls_token",
+                                       "pos_embed", "time_embed"):
             nn.init.normal_(p, 0.0, 0.02, generator=g)
     for module in model.modules():
         if isinstance(module, (nn.Conv1d, nn.Conv2d)):
